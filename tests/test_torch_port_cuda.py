@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: run with ``python -m pytest tests/test_torch_port_cuda.py -m gpu``
+on a machine with an NVIDIA GPU and ``nvcc``. Without a GPU every test here
+skips (``chip_smoke.py`` makes the same comparisons at the main-path shapes).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mrijax_torch.kernels import flash_attention as fa
+from mrijax_torch.kernels import groupnorm as gn
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    # decided when a test runs, never at import: every worker collects the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 800, 512), 8), ((2, 1000, 64), 8), ((1, 5000, 32), 8), ((2, 333, 24), 8),
+    ((1, 4, 5, 6, 128), 8), ((1, 70, 2048), 16),
+])
+def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype):
+    """fp32: 2e-5 absolute (another summation order). bf16: one ulp of the output."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 1.5 + 0.3)
+    x = x.to(cuda, dtype)
+    scale = torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)).to(cuda)
+    gn.launches.reset()
+    with torch.no_grad():
+        got = gn.group_norm_silu_fused(x, scale, bias, groups)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1}
+    want = gn.group_norm_silu_reference(x, scale, bias, groups)
+    tol = dict(atol=2e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32)])
+def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype):
+    """fp32: 1e-4 absolute (tile-by-tile sums against a running max). bf16:
+    2e-3 + 1e-2 relative on out (probabilities rounded against another max)."""
+    b, n, h, d = shape
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    fa.launches.reset()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    assert fa.launches["flash_attn_fwd"] == 1
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+    tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else dict(atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 16, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu_fused(x.transpose(1, 2), w[:16], w[:16], 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gn.group_norm_silu_fused(x.half(), w, w, 8)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gn.group_norm_silu_fused(x.requires_grad_(), w, w, 8)
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_forward(q, q, q)
