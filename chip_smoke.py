@@ -8,7 +8,10 @@
 What it does, in order:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and builds every kernel of ``mrijax_torch/csrc`` with ``nvcc``;
+   versions, builds every kernel of ``mrijax_torch/csrc`` with ``nvcc``, and
+   prints what ``ptxas`` says of the tensor-core kernels and how many ``HMMA``
+   instructions ``cuobjdump -sass`` finds in the two flash-attention libraries
+   (none is a failure);
 2. calls each kernel's wrapper on CUDA tensors at the shapes the main path
    gives it (fp32 and bf16, plus ragged sizes) and holds the result against
    the kernel's plain PyTorch version on the same inputs;
@@ -16,7 +19,9 @@ What it does, in order:
    it — the one PyTorch call that computes the same function, with CUDA
    events (warm-up, then the median of ``REPEATS`` single calls, device time
    only), beside the least time the card could take (bytes / 3.35 TB/s or
-   flops / peak rate), and the host's time to issue one wrapper call;
+   flops / peak rate), and the host's time to issue one wrapper call; the
+   flash kernels also at N = 51 200 (4 heads of 32), with the rate of the
+   exponentials beside the operations bound;
 4. checks a small float32 pipeline on the card (kernels) against the same
    pipeline on the CPU (plain versions);
 5. drives the generation path at full width: the flagship ``UNet3D`` (base
@@ -72,6 +77,8 @@ REPEATS = 15
 SPIN_CYCLES = 2_000_000   # ~1 ms of spinning: longer than the host needs to issue any timed call
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 outside tensor cores
+EXP_PER_S = 132 * 16 * 1.98e9   # special-function units: 16 ex2 a clock on each of 132 SMs at the 1.98 GHz boost clock
+LONG_REPEATS = 5                # timed calls at N = 51 200
 
 DDIM_STEPS = 20
 NUM_VOLUMES = 2
@@ -100,7 +107,7 @@ GN_RAGGED = [(1000, 64), (333, 24)]   # ragged N; C=24 gives 3 channels a group 
 GN_BIG = (3276800, 32)                # compared at B = 1; the others at B = 2 and, where the
                                       # UNet calls them, at the training batch
 FLASH_MAIN = (NUM_VOLUMES, 800, 4, 128)
-FLASH_OTHER = [(1, 1000, 2, 32), (1, 130, 3, 64)]
+FLASH_OTHER = [(1, 1000, 2, 32), (1, 130, 3, 64), (1, 17, 2, 64)]   # the last: N smaller than a tile
 FLASH_LONG = (1, 51200, 4, 32)   # attention at full latent resolution (attention_levels=(0,))
 
 TRAIN_BATCH = 8
@@ -120,7 +127,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, repeats: int = REPEATS) -> float:
     """Median device time of one ``fn()`` in ms. Each sample puts a spin
     kernel on the stream first, so the host has issued all of ``fn``'s
     launches before the card reaches the start event: the time between the
@@ -129,7 +136,7 @@ def time_ms(fn) -> float:
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
@@ -257,20 +264,25 @@ def compare_flash(rng):
             worst[key] = max(worst[key], e)
     # N = 51 200: the plain version cannot hold N x N logits, but query rows
     # are independent, so it is run on chunks of the queries against all keys
-    # (float32, 1e-5 on out: its values are of size ~0.01 at this length)
-    q, k, v = flash_inputs(rng, FLASH_LONG, torch.float32)
-    out, lse = fa.flash_attention_forward(q, k, v)
+    # (float32: 1e-5 on out, its values are of size ~0.01 at this length;
+    # bf16: the bar of the other shapes)
     heads = FLASH_LONG[2]
-    for start in range(0, FLASH_LONG[1], 4096):
-        rows = slice(start, start + 4096)
-        ref_out, ref_lse = fa.flash_attention_reference(q[:, rows], k, v)
-        e = check_close(f"flash float32 {FLASH_LONG} out rows {start}+", out[:, rows],
-                        ref_out, atol=1e-5)
-        check_close(f"flash float32 {FLASH_LONG} lse rows {start}+",
-                    lse.view(heads, -1)[:, rows], ref_lse, atol=1e-4)
-        worst["float32"] = max(worst["float32"], e)
+    for dtype, tol in ((torch.float32, dict(atol=1e-5)),
+                       (torch.bfloat16, dict(atol=2e-3, rtol=1e-2))):
+        key = str(dtype).replace("torch.", "")
+        q, k, v = flash_inputs(rng, FLASH_LONG, dtype)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        for start in range(0, FLASH_LONG[1], 4096):
+            rows = slice(start, start + 4096)
+            ref_out, ref_lse = fa.flash_attention_reference(q[:, rows], k, v)
+            e = check_close(f"flash {key} {FLASH_LONG} out rows {start}+", out[:, rows],
+                            ref_out, **tol)
+            check_close(f"flash {key} {FLASH_LONG} lse rows {start}+",
+                        lse.view(heads, -1)[:, rows], ref_lse, atol=1e-4)
+            worst[key] = max(worst[key], e)
+        del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.synchronize()
-    print(f"compare flash: {len(shapes)} shapes x 2 dtypes and float32 {FLASH_LONG} ok, "
+    print(f"compare flash: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok, "
           f"max abs err {json.dumps(worst)}")
     return worst
 
@@ -321,17 +333,20 @@ def compare_flash_backward(rng):
             check_close(f"flash autograd {key} {shape}", got,
                         torch.stack([ref_dq, ref_dk, ref_dv], dim=2), **tol)
     # N = 51 200: the plain versions run on blocks of 2048 query rows
-    q, k, v, out, lse, dout, delta = flash_backward_inputs(rng, FLASH_LONG, torch.float32)
-    dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
-    dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
-    ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta, q_block=2048)
-    ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block=2048)
-    e = max(check_close(f"flash bwd float32 {FLASH_LONG} dk", dk, ref_dk, atol=1e-4),
-            check_close(f"flash bwd float32 {FLASH_LONG} dv", dv, ref_dv, atol=1e-4))
-    worst["flash_attn_bwd_dkv"]["float32"] = max(worst["flash_attn_bwd_dkv"]["float32"], e)
-    e = check_close(f"flash bwd float32 {FLASH_LONG} dq", dq, ref_dq, atol=1e-4)
-    worst["flash_attn_bwd_dq"]["float32"] = max(worst["flash_attn_bwd_dq"]["float32"], e)
-    del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq
+    for dtype, tol in ((torch.float32, dict(atol=1e-4)),
+                       (torch.bfloat16, dict(atol=1e-5, rtol=2 ** -7))):
+        key = str(dtype).replace("torch.", "")
+        q, k, v, out, lse, dout, delta = flash_backward_inputs(rng, FLASH_LONG, dtype)
+        dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
+        dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
+        ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta, q_block=2048)
+        ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block=2048)
+        e = max(check_close(f"flash bwd {key} {FLASH_LONG} dk", dk, ref_dk, **tol),
+                check_close(f"flash bwd {key} {FLASH_LONG} dv", dv, ref_dv, **tol))
+        worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
+        e = check_close(f"flash bwd {key} {FLASH_LONG} dq", dq, ref_dq, **tol)
+        worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
+        del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq
     # a reference of another build: autograd through the materialised
     # attention, which shares no code with the plain backward (float32, 1e-4)
     qkv = torch.stack(flash_inputs(rng, FLASH_MAIN, torch.float32), dim=2).requires_grad_()
@@ -342,7 +357,7 @@ def compare_flash_backward(rng):
     independent = check_close(f"flash autograd vs materialised attention {FLASH_MAIN}",
                               got, want, atol=1e-4)
     torch.cuda.synchronize()
-    print(f"compare flash backward: {len(shapes)} shapes x 2 dtypes and float32 {FLASH_LONG} ok, "
+    print(f"compare flash backward: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok, "
           f"max abs err {json.dumps(worst)}; against autograd through the materialised "
           f"attention {independent:.3e}")
     return worst
@@ -458,11 +473,23 @@ def time_groupnorm_backward(rng):
     return rows
 
 
+def flash_plan_note(kernel, shape, dtype):
+    plan = fa.launch_plan(kernel, *shape, dtype)
+    return {"tile": plan.tile, "warps": plan.warps, "blocks": plan.blocks,
+            "shared_bytes": plan.shared_bytes}
+
+
 def time_flash(rng):
+    """The forward kernel, its plain version, the library yardstick and the
+    bound, per shape. At N = 51 200 the plain version cannot hold its logits
+    (``plain_ms`` is null there), fewer calls are timed, and ``exp_ms`` is the
+    time the card's special-function units need for the B·H·N² exponentials."""
 
     rows = []
-    for shape, dtype in ((FLASH_MAIN, torch.bfloat16), (FLASH_MAIN, torch.float32),
-                         (FLASH_OTHER[0], torch.bfloat16), (FLASH_TRAIN, torch.bfloat16)):
+    for shape, dtype, repeats in (
+            (FLASH_MAIN, torch.bfloat16, REPEATS), (FLASH_MAIN, torch.float32, REPEATS),
+            (FLASH_OTHER[0], torch.bfloat16, REPEATS), (FLASH_TRAIN, torch.bfloat16, REPEATS),
+            (FLASH_LONG, torch.bfloat16, LONG_REPEATS)):
         b, n, h, d = shape
         key = str(dtype).replace("torch.", "")
         q, k, v = flash_inputs(rng, shape, dtype)
@@ -473,13 +500,17 @@ def time_flash(rng):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "shape": list(shape), "dtype": key,
-            "ms": time_ms(lambda: fa.flash_attention_forward(q, k, v)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v)),
+            "ms": time_ms(lambda: fa.flash_attention_forward(q, k, v), repeats),
+            "plain_ms": (time_ms(lambda: fa.flash_attention_reference(q, k, v))
+                         if shape != FLASH_LONG else None),
             "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), repeats),
             "bound_ms": max(t_flops, t_bytes),
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-            "host_issue_us": host_issue_us(lambda: fa.flash_attention_forward(q, k, v)),
+            "exp_ms": b * h * n * n / EXP_PER_S * 1e3,
+            "host_issue_us": host_issue_us(lambda: fa.flash_attention_forward(q, k, v),
+                                           calls=200 if shape != FLASH_LONG else 3),
+            "plan": flash_plan_note("flash_attn_fwd", shape, dtype),
         })
     print("flash_times " + json.dumps(rows))
     return rows
@@ -493,12 +524,16 @@ def time_flash_backward(rng):
     3 (6·B·H·N²·Dh), over the tensor-core rate of the input type — although
     three of dkv's four products and two of dq's three take float32 operands
     in the reference (p and dU are not rounded), so the bf16 rate is a bound
-    that this arithmetic cannot reach."""
+    that this arithmetic cannot reach: the tensor-core dkv issues 6 products'
+    worth of ``mma`` for those 4. At N = 51 200 the plain versions are not
+    timed and fewer calls are."""
 
     rows = []
-    for shape, dtype in ((FLASH_TRAIN, torch.bfloat16), (FLASH_TRAIN, torch.float32),
-                         (FLASH_MAIN, torch.bfloat16)):
+    for shape, dtype, repeats in (
+            (FLASH_TRAIN, torch.bfloat16, REPEATS), (FLASH_TRAIN, torch.float32, REPEATS),
+            (FLASH_MAIN, torch.bfloat16, REPEATS), (FLASH_LONG, torch.bfloat16, LONG_REPEATS)):
         b, n, h, d = shape
+        long = shape == FLASH_LONG
         key = str(dtype).replace("torch.", "")
         q, k, v, out, lse, dout, delta = flash_backward_inputs(rng, shape, dtype)
         qt, kt, vt = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
@@ -508,12 +543,14 @@ def time_flash_backward(rng):
             o = F.scaled_dot_product_attention(qt, kt, vt)
             torch.autograd.grad(o, (qt, kt, vt), dout_t)
 
-        library_ms = (time_ms(sdpa_forward_backward)
-                      - time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+        library_ms = (time_ms(sdpa_forward_backward, repeats)
+                      - time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), repeats))
         tensor_bytes = b * n * h * d * q.element_size()
         stat_bytes = 2 * 4 * b * h * n
         row = {"shape": list(shape), "dtype": key, "library_ms": library_ms,
-               "delta_ms": time_ms(lambda: fa.flash_attention_delta(out, dout))}
+               "delta_ms": time_ms(lambda: fa.flash_attention_delta(out, dout)),
+               "exp_ms": b * h * n * n / EXP_PER_S * 1e3,
+               "dkv_plan": flash_plan_note("flash_attn_bwd_dkv", shape, dtype)}
         for name, fn, ref, products, tensors in (
             ("dkv", fa.flash_attn_bwd_dkv, fa.flash_attn_bwd_dkv_reference, 4, 6),
             ("dq", fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dq_reference, 3, 5),
@@ -521,12 +558,13 @@ def time_flash_backward(rng):
             t_flops = products * 2 * b * h * n * n * d / PEAK_FLOPS[key] * 1e3
             t_bytes = (tensors * tensor_bytes + stat_bytes) / HBM_BYTES_PER_S * 1e3
             row.update({
-                f"{name}_ms": time_ms(lambda: fn(q, k, v, dout, lse, delta)),
-                f"{name}_plain_ms": time_ms(lambda: ref(q, k, v, dout, lse, delta)),
+                f"{name}_ms": time_ms(lambda: fn(q, k, v, dout, lse, delta), repeats),
+                f"{name}_plain_ms": (None if long else
+                                     time_ms(lambda: ref(q, k, v, dout, lse, delta))),
                 f"{name}_bound_ms": max(t_flops, t_bytes),
                 f"{name}_bound_by": "operations" if t_flops >= t_bytes else "bytes",
                 f"{name}_host_issue_us": host_issue_us(
-                    lambda: fn(q, k, v, dout, lse, delta)),
+                    lambda: fn(q, k, v, dout, lse, delta), calls=3 if long else 200),
             })
         rows.append(row)
     print("flash_backward_times " + json.dumps(rows))
@@ -876,14 +914,52 @@ def profile_train_path():
 # ----------------------------------------------------------------------- main
 
 
+def report_ptxas(name):
+    """Registers and spills of one library's kernels as ``ptxas -v`` printed
+    them: the worst over all, and a line for every tensor-core kernel."""
+    entry, spills, rows = None, 0, []
+    for line in _build.build_log(name).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry, spills = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = max(int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            rows.append((entry, int(m.group(1)), spills))
+            entry = None
+    print(f"  ptxas {name}: {len(rows)} kernels, at most "
+          f"{max((r[1] for r in rows), default=0)} registers, at most "
+          f"{max((r[2] for r in rows), default=0)} bytes spilled")
+    for entry, regs, spilled in rows:
+        if m := re.search(r"(flash_(?:fwd|bwd_dkv)_tc_kernel)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", entry):
+            rows16 = f", 16-row fragments a warp={m.group(4)}" if m.group(4) else ""
+            print(f"    {m.group(1)}<Dh={m.group(2)}, warps={m.group(3)}{rows16}>: "
+                  f"{regs} registers, {spilled} bytes spilled")
+
+
+def tensor_core_proof(libs):
+    """Count the ``HMMA``/``HGMMA`` instructions in the machine code of the two
+    flash-attention libraries; a library without any did not get its
+    tensor-core kernel."""
+    cuobjdump = _build.cuda_tool("cuobjdump")
+    counts = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        counts[name] = len(re.findall(r"\bHG?MMA\.", sass))
+    print("tensor_core_instructions " + json.dumps(counts))
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a flash-attention library holds no HMMA/HGMMA instruction: {counts}")
+
+
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
                    generate_counts, train_counts):
-    """One record per kernel, at its heaviest main-path shape in bf16.
+    """One record per kernel, at its heaviest main-path shape in bf16 (the
+    flash kernels at the training batch).
     ``launches`` adds up the counted runs of both main paths;
     ``launches_by_path`` keeps them apart."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
-    fl = max((r for r in flash_rows if r["dtype"] == "bfloat16"),
-             key=lambda r: r["shape"][0] * r["shape"][2] * r["shape"][1] ** 2 * r["shape"][3])
+    fl = next(r for r in flash_rows
+              if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
     bw = bwd_rows[0]
     src_gn = "mrijax_torch/csrc/groupnorm_silu.cu"
     src_bwd = "mrijax_torch/csrc/flash_attention_bwd.cu"
@@ -952,7 +1028,6 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -964,11 +1039,8 @@ def main() -> int:
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(libs))})")
     for name in sorted(libs):
-        log = _build.build_log(name)
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
-        print(f"  ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-              f"registers, at most {max(spills, default=0)} bytes spilled")
+        report_ptxas(name)
+    tensor_core_proof(libs)
 
     rng = np.random.default_rng(SEED)
     gn_worst = compare_groupnorm(rng)

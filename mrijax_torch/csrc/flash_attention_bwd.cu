@@ -10,39 +10,68 @@
 // 6*B*H*N^2*Dh flops, each against a handful of tensors of B*N*H*Dh
 // elements. At the bottleneck shape of the flagship UNet3D (N = 800,
 // Dh = 128) the flops take longer than the bytes at any rate the card has.
-// This first version computes every product with plain fp32 FMAs from shared
-// memory, as the forward does: it is written to be right, to keep the N x N
-// matrices out of device memory and to be run-to-run identical.
+// No atomics anywhere: every output element is summed by one thread in a
+// fixed order, so results are identical from run to run.
 //
-// What the design does:
-// * No atomics. In dkv one block owns one (batch*head, tile of BK keys) and
-//   walks over the Q tiles in a loop, holding the dK and dV tiles in
-//   registers; in dq one block owns one (batch*head, tile of BQ queries) and
-//   walks over the KV tiles. The TPU kernels carried their accumulators in
-//   VMEM across a sequential grid axis; the loop inside the block takes that
-//   axis's place, and every output element is summed by one thread in a fixed
-//   order.
-// * Both kernels share one device function for the (BQ, BK) piece of
+// flash_attn_bwd_dkv, bfloat16 -> flash_bwd_dkv_tc_kernel, on the tensor
+// cores (mma.sync.aligned.m16n8k16 fed by ldmatrix; see flash_attention_fwd.cu
+// for why not wgmma):
+// * A block owns 16 * NWARPS keys of one (batch, head); a warp owns 16 keys
+//   and both of their (16, Dh) fp32 accumulators (128 registers a thread at
+//   Dh = 128). A block is 4 warps, 64 keys: it reads all of Q and dO of
+//   its (batch, head) from L2, so a smaller tile moves more bytes per flop
+//   (2 warps measured slower even where they alone fill the card, 8 warps no
+//   faster), and the accumulators leave no registers for a second fragment
+//   of keys a warp. The K and V tile is loaded once; a loop walks the Q / dO
+//   tiles of 64 rows, two stages each, filled by cp.async while the previous
+//   tile is multiplied.
+// * The tile is computed transposed, S^T = k q'^T and dP^T = v dO^T (rows =
+//   keys), so P^T and dU^T leave the tensor cores in the register layout of
+//   an A operand for dV += P^T dO and dK += dU^T q': no transposed write to
+//   shared memory. lse and delta are then per column: each Q tile's 64
+//   values of both are staged in shared memory beside it.
+// * Registers: the 64 rows of a Q tile are taken 32 at a time, so S^T and
+//   dP^T are 16 + 16 registers beside the 128 of the accumulators; the K and
+//   V operand fragments are re-read with ldmatrix instead of being held.
+// * The TPU kernel runs dV and dK with fp32 P and dU (Precision.HIGHEST).
+//   Here each is split into two bf16 terms, hi = bf16(x), lo = bf16(x - hi)
+//   (16 significant bits, relative error about 2^-17), and each product is
+//   issued twice: 6 mma per 4 of a single-rounding kernel. A single bf16
+//   rounding of P is outside the one-bf16-ulp bar dk and dv are held to.
+// * q' = round(q * Dh^-1/2) to bf16 is made by one pass over the Q tile in
+//   shared memory, each thread on the chunks its own copies brought (so one
+//   barrier serves copy and scaling); lse is multiplied by log2(e) the same
+//   way and P = ex2.approx(S^T log2(e) - lse log2(e)).
+// * bf16 tiles with pitch Dh + 8 (see mma.cuh): 104 KB at Dh = 128 with 64
+//   keys, two blocks per SM. Rows beyond N are zero-filled by the copies:
+//   a query row beyond N has q' = dO = 0 and lse = delta = 0, so P = 1 there
+//   is finite and multiplies zeros; a key beyond N only feeds its own dK / dV
+//   row, which is not stored. lse and delta are never read past N.
+// * dK and dV are staged through the warp's own (dead) K and V rows and
+//   written 16 bytes a lane.
+//
+// flash_attn_bwd_dkv, float32, and flash_attn_bwd_dq, both types -> fp32 FMAs
+// from shared memory (the TPU kernels run fp32 at Precision.HIGHEST):
+// * In dkv one block owns one (batch*head, tile of BK keys) and walks over
+//   the Q tiles, holding the dK and dV tiles in registers; in dq one block
+//   owns one (batch*head, tile of BQ queries) and walks over the KV tiles.
+// * Both share one device function for the (BQ, BK) piece of
 //   P = exp(q'k^T - lse) and dU = P o (dO v^T - delta): 256 threads as a
 //   16 x 16 grid, thread (ty, tx) owns rows ty + 16 i and keys tx + 16 j.
-// * Rounding follows the TPU kernels, not the forward: P and dU stay fp32
-//   for the products that consume them. q' = round(q * Dh^-1/2) to the input
-//   type, the q' the forward used, so that the saved logsumexp fits. The dQ
-//   epilogue rounds dQ' to the input type, multiplies by Dh^-1/2 in fp32 and
-//   rounds again, which is what the TPU wrapper's two casts do.
+// * P and dU stay fp32 for the products that consume them. The dQ epilogue
+//   rounds dQ' to the input type, multiplies by Dh^-1/2 in fp32 and rounds
+//   again, which is what the TPU wrapper's two casts do.
 // * For the two products whose summed index is the query row (dV, dK), P and
 //   dU are written to shared memory transposed, so that the inner loop reads
 //   four rows' worth with one float4.
-// * All operands are read through (batch, token, head) strides: q, k, v are
-//   slices of the fused qkv projection and dO is whatever view autograd hands
-//   over. The ragged last tile is masked in the kernel (rows and keys beyond N
-//   give P = 0, their tile rows are zero-filled); lse and delta, which hold
-//   exactly N entries per (batch, head), are never read past the end.
 // * Tiles are fp32 in shared memory with row pitch Dh + 4 (float4 reads of 8
 //   neighbouring rows fall into distinct banks). At Dh = 128 dkv needs 166 KB
 //   and dq 149 KB of dynamic shared memory: one block per SM.
+// * All operands are read through (batch, token, head) strides; the ragged
+//   last tile is masked in the kernel (rows and keys beyond N give P = 0).
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -399,6 +428,262 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------- bfloat16
+
+using mma::bf16;
+
+constexpr int TC_BQ = 64;  // query rows per tile of the tensor-core kernel
+constexpr int TC_QH = 32;  // of which this many are multiplied at a time
+constexpr int TC_WARPS = 4;  // warps per block, 16 keys each
+
+template <int DH, int NWARPS>
+constexpr size_t dkv_tc_smem_bytes() {
+    return sizeof(bf16) * (2 * 16 * NWARPS + 4 * TC_BQ) * (DH + mma::PAD) +
+           sizeof(float) * 4 * TC_BQ;
+}
+
+// One stage of the Q-side operands, at shared byte addresses: the q and dO
+// tiles of TC_BQ rows and the rows' lse and delta (stats[0..TC_BQ) and
+// stats[TC_BQ..2 TC_BQ)); everything beyond N is zero-filled.
+template <int DH, int NT>
+__device__ __forceinline__ void load_q_stage(uint32_t Qst, uint32_t dOst,
+                                             uint32_t stats, const bf16* qb,
+                                             long long q_stride_n,
+                                             const bf16* gb,
+                                             long long g_stride_n,
+                                             const float* lse_row,
+                                             const float* delta_row, int q0,
+                                             int N, int tid) {
+    mma::load_tile_async<TC_BQ, DH, NT>(Qst, qb, q_stride_n, q0, N, tid);
+    mma::load_tile_async<TC_BQ, DH, NT>(dOst, gb, g_stride_n, q0, N, tid);
+    for (int e = tid; e < 2 * TC_BQ; e += NT) {
+        const int n = q0 + (e & (TC_BQ - 1));
+        const bool ok = n < N;
+        const float* src = (e < TC_BQ ? lse_row : delta_row) + (ok ? n : 0);
+        mma::cp_async_4_zfill(stats + e * 4, src, ok);
+    }
+}
+
+// After its own copies have landed, a thread turns the q chunks it brought
+// into q' = round(q * scale) and the lse values it brought into lse * log2(e).
+template <int DH, int NT>
+__device__ __forceinline__ void finish_q_stage(bf16* Qst, float* stats,
+                                               float scale, int tid) {
+    typedef mma::TileCopy<TC_BQ, DH, NT> TC;
+    uint4* chunk = reinterpret_cast<uint4*>(Qst + (tid / TC::CPR) * TC::LD +
+                                            (tid % TC::CPR) * 8);
+#pragma unroll
+    for (int i = 0; i < TC::ITER; ++i) {
+        uint4* at = chunk + i * (TC::RSTEP * TC::LD / 8);
+        uint4 x = *at;
+        x.x = mma::scale_round_bf16(x.x, scale);
+        x.y = mma::scale_round_bf16(x.y, scale);
+        x.z = mma::scale_round_bf16(x.z, scale);
+        x.w = mma::scale_round_bf16(x.w, scale);
+        *at = x;
+    }
+    for (int e = tid; e < TC_BQ; e += NT) stats[e] *= mma::LOG2E;
+}
+
+template <int DH, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int N, int H, Strides qs,
+                        Strides ks, Strides vs, Strides gs, float scale) {
+    constexpr int BKT = 16 * NWARPS;  // keys per block
+    constexpr int NT = 32 * NWARPS;
+    constexpr int LD = DH + mma::PAD;
+    constexpr int KD = DH / 16;       // k-steps over Dh
+    constexpr int ND = DH / 8;        // 8-column fragments of dK and dV
+    constexpr int TILE = TC_BQ * LD;  // elements of one Q or dO stage
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_raw);      // [BKT][LD]
+    bf16* Vs = Ks + BKT * LD;                          // [BKT][LD]
+    bf16* Qs = Vs + BKT * LD;                          // [2][TC_BQ][LD]  q'
+    bf16* dOs = Qs + 2 * TILE;                         // [2][TC_BQ][LD]
+    float* stats = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][2 TC_BQ]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int k0 = blockIdx.x * BKT;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+    const bf16* gb = dout + b * gs.b + h * gs.h;
+    const float* lse_row = lse + (long long)bh * N;
+    const float* delta_row = delta + (long long)bh * N;
+
+    const uint32_t q_tiles = mma::smem_addr(Qs);
+    const uint32_t g_tiles = mma::smem_addr(dOs);
+    const uint32_t stat_rows = mma::smem_addr(stats);
+    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Ks), kb, ks.n, k0, N, tid);
+    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Vs), vb, vs.n, k0, N, tid);
+    load_q_stage<DH, NT>(q_tiles, g_tiles, stat_rows, qb, qs.n, gb, gs.n,
+                         lse_row, delta_row, 0, N, tid);
+    mma::cp_async_commit();
+
+    // the warp's 16 keys x Dh of dK and dV
+    float acc_dk[ND][4], acc_dv[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            acc_dk[nd][e] = 0.f;
+            acc_dv[nd][e] = 0.f;
+        }
+
+    // A operands of S^T and dP^T: the warp's rows of K and V
+    const uint32_t k_addr =
+        mma::smem_addr(Ks + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t v_addr =
+        mma::smem_addr(Vs + warp * 16 * LD) + mma::a_offset(lane, LD);
+    // B operands: q' and dO as [n][k] for S^T and dP^T, and transposed as
+    // [k][n] for dK and dV
+    const uint32_t q_b = q_tiles + mma::b_offset(lane, LD);
+    const uint32_t g_b = g_tiles + mma::b_offset(lane, LD);
+    const uint32_t q_t = q_tiles + mma::a_offset(lane, LD);
+    const uint32_t g_t = g_tiles + mma::a_offset(lane, LD);
+
+    const int ntiles = (N + TC_BQ - 1) / TC_BQ;
+    for (int j = 0; j < ntiles; ++j) {
+        const int stage = j & 1;
+        // the other stage's readers finished at the end of the last pass
+        if (j + 1 < ntiles)
+            load_q_stage<DH, NT>(q_tiles + (stage ^ 1) * TILE * 2,
+                                 g_tiles + (stage ^ 1) * TILE * 2,
+                                 stat_rows + (stage ^ 1) * 2 * TC_BQ * 4, qb,
+                                 qs.n, gb, gs.n, lse_row, delta_row,
+                                 (j + 1) * TC_BQ, N, tid);
+        mma::cp_async_commit();  // possibly empty: keeps the group count even
+        mma::cp_async_wait<1>();  // tile j has landed, tile j + 1 may fly
+        const float* st = stats + stage * 2 * TC_BQ;
+        finish_q_stage<DH, NT>(Qs + stage * TILE,
+                               stats + stage * 2 * TC_BQ, scale, tid);
+        __syncthreads();
+
+        const uint32_t stage_bytes = stage * TILE * 2;
+#pragma unroll 1
+        for (int half = 0; half < TC_BQ / TC_QH; ++half) {
+            const uint32_t rows = stage_bytes + half * TC_QH * LD * 2;
+            // S^T and dP^T: 16 keys x 32 queries, fragment jn holds queries
+            // 8 jn .. 8 jn + 7 of this half
+            float sT[4][4], dpT[4][4];
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    sT[jn][e] = 0.f;
+                    dpT[jn][e] = 0.f;
+                }
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk) {
+                uint32_t ka[4], va[4];
+                mma::ldmatrix_x4(ka, k_addr + kk * 32);
+                mma::ldmatrix_x4(va, v_addr + kk * 32);
+#pragma unroll
+                for (int nb = 0; nb < TC_QH / 16; ++nb) {
+                    const uint32_t off = rows + (nb * 16 * LD + kk * 16) * 2;
+                    uint32_t r[4];
+                    mma::ldmatrix_x4(r, q_b + off);
+                    mma::mma_bf16(sT[2 * nb], ka, r[0], r[1]);
+                    mma::mma_bf16(sT[2 * nb + 1], ka, r[2], r[3]);
+                    mma::ldmatrix_x4(r, g_b + off);
+                    mma::mma_bf16(dpT[2 * nb], va, r[0], r[1]);
+                    mma::mma_bf16(dpT[2 * nb + 1], va, r[2], r[3]);
+                }
+            }
+
+            // P^T = exp(S^T - lse) and dU^T = P^T o (dP^T - delta), in place;
+            // lse and delta belong to the column (the query row)
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn) {
+                const int c = half * TC_QH + 8 * jn + 2 * t;
+                const float2 lse2 = *reinterpret_cast<const float2*>(st + c);
+                const float2 dl =
+                    *reinterpret_cast<const float2*>(st + TC_BQ + c);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float p = mma::fast_exp2(
+                        fmaf(sT[jn][e], mma::LOG2E, (e & 1) ? -lse2.y : -lse2.x));
+                    sT[jn][e] = p;
+                    dpT[jn][e] = p * (dpT[jn][e] - ((e & 1) ? dl.y : dl.x));
+                }
+            }
+
+            // dV += P^T dO and dK += dU^T q', P^T and dU^T as two bf16 terms
+#pragma unroll
+            for (int kk = 0; kk < TC_QH / 16; ++kk) {
+                uint32_t ph[4], pl[4], uh[4], ul[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
+                    const int jn = 2 * kk + (i >> 1);
+                    const int e = 2 * (i & 1);
+                    mma::split_bf16(sT[jn][e], sT[jn][e + 1], ph[i], pl[i]);
+                    mma::split_bf16(dpT[jn][e], dpT[jn][e + 1], uh[i], ul[i]);
+                }
+#pragma unroll
+                for (int nd2 = 0; nd2 < KD; ++nd2) {
+                    const uint32_t off = rows + (kk * 16 * LD + nd2 * 16) * 2;
+                    uint32_t r[4];
+                    mma::ldmatrix_x4_trans(r, g_t + off);
+                    mma::mma_bf16(acc_dv[2 * nd2], ph, r[0], r[1]);
+                    mma::mma_bf16(acc_dv[2 * nd2], pl, r[0], r[1]);
+                    mma::mma_bf16(acc_dv[2 * nd2 + 1], ph, r[2], r[3]);
+                    mma::mma_bf16(acc_dv[2 * nd2 + 1], pl, r[2], r[3]);
+                    mma::ldmatrix_x4_trans(r, q_t + off);
+                    mma::mma_bf16(acc_dk[2 * nd2], uh, r[0], r[1]);
+                    mma::mma_bf16(acc_dk[2 * nd2], ul, r[0], r[1]);
+                    mma::mma_bf16(acc_dk[2 * nd2 + 1], uh, r[2], r[3]);
+                    mma::mma_bf16(acc_dk[2 * nd2 + 1], ul, r[2], r[3]);
+                }
+            }
+        }
+        __syncthreads();  // this stage may be refilled in the next pass
+    }
+
+    // dk and dv, rounded once, staged through the warp's own K and V rows (no
+    // other warp ever read them), then written as 16-byte pieces of rows
+    bf16* Kw = Ks + warp * 16 * LD;
+    bf16* Vw = Vs + warp * 16 * LD;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&Kw[g * LD + col]) =
+            mma::pack_bf16(acc_dk[nd][0], acc_dk[nd][1]);
+        *reinterpret_cast<uint32_t*>(&Kw[(g + 8) * LD + col]) =
+            mma::pack_bf16(acc_dk[nd][2], acc_dk[nd][3]);
+        *reinterpret_cast<uint32_t*>(&Vw[g * LD + col]) =
+            mma::pack_bf16(acc_dv[nd][0], acc_dv[nd][1]);
+        *reinterpret_cast<uint32_t*>(&Vw[(g + 8) * LD + col]) =
+            mma::pack_bf16(acc_dv[nd][2], acc_dv[nd][3]);
+    }
+    __syncwarp();
+    constexpr int CPR = DH / 8;
+    for (int e = lane; e < 16 * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = k0 + warp * 16 + r;
+        if (n >= N) continue;
+        const long long at = (((long long)b * N + n) * H + h) * DH + c * 8;
+        *reinterpret_cast<uint4*>(dk + at) =
+            *reinterpret_cast<const uint4*>(&Kw[r * LD + c * 8]);
+        *reinterpret_cast<uint4*>(dv + at) =
+            *reinterpret_cast<const uint4*>(&Vw[r * LD + c * 8]);
+    }
+}
+
 struct Args {
     const void *q, *k, *v, *dout;
     const float *lse, *delta;
@@ -415,17 +700,32 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DH>
-int launch_dkv(const Args& a, void* dk, void* dv) {
-    auto kernel = flash_attn_bwd_dkv_kernel<T, DH>;
+template <int DH>
+int launch_dkv_fma(const Args& a, void* dk, void* dv) {
+    auto kernel = flash_attn_bwd_dkv_kernel<float, DH>;
     constexpr size_t smem = dkv_smem_bytes<DH>();
     if (int err = raise_smem_limit(kernel, smem)) return err;
     const dim3 grid((unsigned)((a.N + BK - 1) / BK), (unsigned)(a.B * a.H));
     kernel<<<grid, NT, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.N, a.H, a.qs,
-        a.ks, a.vs, a.gs, a.scale);
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.N,
+        a.H, a.qs, a.ks, a.vs, a.gs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+template <int DH, int NWARPS>
+int launch_dkv_tc(const Args& a, void* dk, void* dv) {
+    auto kernel = flash_bwd_dkv_tc_kernel<DH, NWARPS>;
+    constexpr size_t smem = dkv_tc_smem_bytes<DH, NWARPS>();
+    constexpr int BKT = 16 * NWARPS;
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.N + BKT - 1) / BKT), (unsigned)(a.B * a.H));
+    kernel<<<grid, NWARPS * 32, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+        a.delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.N, a.H,
+        a.qs, a.ks, a.vs, a.gs, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -443,12 +743,22 @@ int launch_dq(const Args& a, void* dq) {
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dkv(int Dh, const Args& a, void* dk, void* dv) {
+// float32: the FMA kernel, BK keys per block.
+int dispatch_dkv_fma(int Dh, const Args& a, void* dk, void* dv) {
     switch (Dh) {
-        case 32: return launch_dkv<T, 32>(a, dk, dv);
-        case 64: return launch_dkv<T, 64>(a, dk, dv);
-        case 128: return launch_dkv<T, 128>(a, dk, dv);
+        case 32: return launch_dkv_fma<32>(a, dk, dv);
+        case 64: return launch_dkv_fma<64>(a, dk, dv);
+        case 128: return launch_dkv_fma<128>(a, dk, dv);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16: the tensor-core kernel, TC_WARPS warps of 16 keys per block.
+int dispatch_dkv_tc(int Dh, const Args& a, void* dk, void* dv) {
+    switch (Dh) {
+        case 32: return launch_dkv_tc<32, TC_WARPS>(a, dk, dv);
+        case 64: return launch_dkv_tc<64, TC_WARPS>(a, dk, dv);
+        case 128: return launch_dkv_tc<128, TC_WARPS>(a, dk, dv);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -490,11 +800,14 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout: (B, N, H, Dh) of one type, read through the (batch, token,
 // head) strides in `strides` (a host array of 12 values in elements: q, k, v,
-// dout), last dimension contiguous. lse, delta: contiguous fp32 (B*H, N), the
+// dout), last dimension contiguous; for flash_attn_bwd_dkv in bfloat16 every
+// row start must be 16-byte aligned. lse, delta: contiguous fp32 (B*H, N), the
 // forward's logsumexp and rowsum(dO o O). dk, dv (and dq): contiguous
-// (B, N, H, Dh) of the input type. Each returns the cudaError_t of its launch
-// (0 on success); launches on `stream`, does not synchronise, allocates
-// nothing.
+// (B, N, H, Dh) of the input type. A block owns 64 keys in either type.
+// flash_attn_bwd_dkv chooses its kernel by dtype, here: float32 runs the FMA
+// kernel, bfloat16 the tensor-core kernel; neither stands in for the other.
+// Each entry returns the cudaError_t of its launch (0 on success); launches on
+// `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
@@ -503,9 +816,8 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* stream) {
     const Args a = make_args(q, k, v, dout, lse, delta, B, N, H, strides,
                              scale, stream);
-    if (dtype == MRI_DTYPE_F32) return dispatch_dkv<float>(Dh, a, dk, dv);
-    if (dtype == MRI_DTYPE_BF16)
-        return dispatch_dkv<__nv_bfloat16>(Dh, a, dk, dv);
+    if (dtype == MRI_DTYPE_F32) return dispatch_dkv_fma(Dh, a, dk, dv);
+    if (dtype == MRI_DTYPE_BF16) return dispatch_dkv_tc(Dh, a, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -6,16 +6,59 @@
 // Bound on an H100: operations. The work is 4*B*H*N^2*Dh flops against
 // 4 tensors of B*N*H*Dh elements; at the bottleneck shape of the flagship
 // UNet3D (N = 800, Dh = 128, bf16) the flops over the tensor-core rate take
-// longer than the bytes over the memory rate. This first version computes
-// both products with plain fp32 FMAs from shared memory, so it is far from
-// that bound; it is written to be right, to keep the N x N matrix out of
-// device memory, and to leave a clear place for mma/wgmma later.
+// longer than the bytes over the memory rate. Two more rates sit beside that
+// bound. A block reads all of K and V of its (batch, head) from L2, so R
+// query rows a block mean 2*R flops per byte that an SM pulls in: at 64 rows
+// that alone caps an SM at half its tensor-core rate. And at Dh = 32 the
+// softmax between the two products (max, fma, ex2, sum, round: some 200
+// instructions a warp for every 32 mma) keeps the schedulers busier than the
+// tensor cores; the N^2 exponentials themselves are not the limit.
 //
-// What the design does:
-// * One block per (batch*head, tile of BQ query rows). The TPU kernel carried
-//   running max / sum / accumulator across a sequential KV grid axis in VMEM;
-//   here a loop inside the block walks the KV tiles and the running values
-//   stay in registers.
+// Two hand-written kernels live here, chosen by dtype in the C entry:
+//
+// bfloat16 -> flash_fwd_tc_kernel, on the tensor cores.
+// * mma.sync.aligned.m16n8k16 (bf16 operands, fp32 accumulators) fed by
+//   ldmatrix, with the FlashAttention-2 register layout. Chosen over wgmma:
+//   a warp works on its own rows with no warpgroup-wide synchronisation, P
+//   stays in the registers its accumulator left it in, and K and V tiles can
+//   stay plain padded rows instead of the descriptor layouts wgmma reads.
+//   Its price: every warp re-reads the K and V tile from shared memory, and
+//   mma.sync does not reach the rate of wgmma.
+// * A block is 4 warps; a warp owns MT fragments of 16 query rows. The
+//   wrapper's launch plan picks 64 rows a block (MT = 1) or 128 (MT = 2):
+//   with MT = 2 every K and V fragment read from shared memory feeds two
+//   products and the block pulls half the bytes per flop from L2, at the
+//   price of 255 registers at Dh = 128 (the Q fragments are then re-read from
+//   shared memory at every tile instead of being held). Blocks of 32 rows
+//   (2 warps), tried for grids smaller than the card, measured slower and
+//   are not compiled: the critical path of a warp is the same, the L2
+//   traffic doubles.
+// * S = q'k^T for 16 rows x 64 keys is 8 accumulator fragments in registers;
+//   running max and sum are per row, reduced over the 4 lanes that share a
+//   row with two shuffles (the sum only once, at the end); the fragment of P,
+//   rounded to bf16, IS the A operand of P V.
+// * Tiles stay bf16 in shared memory with pitch Dh + 8 (see mma.cuh): a
+//   64 x 128 tile is 17 KB, Q plus two stages of K and V 87 or 104 KB, two
+//   blocks an SM. cp.async (16 bytes a thread, zero-fill beyond N) brings
+//   K tile j + 2 and V tile j + 1 while tile j is multiplied: K's stage is
+//   free as soon as every warp has its S, so K runs a tile further ahead than
+//   V and both copies get a whole tile's time to land. They are issued right
+//   behind the S products, not before them: a warp stalls while the memory
+//   system takes a tile's worth of copies, and there the tensor cores are
+//   busy meanwhile. One barrier per tile orders arrival and reuse (see the
+//   loop).
+// * q' = round(q * Dh^-1/2) to bf16 is made once, by each warp on its own
+//   rows of the Q tile in shared memory.
+// * exp is ex2.approx with log2(e) folded into an fma; max and lse stay in
+//   natural units. The row sum uses the unrounded fp32 P, as on the TPU.
+// * Strided q, k, v, ragged N (keys beyond N get -1e30, rows beyond N are
+//   computed on zeros and not stored): as before. The output tile is staged
+//   through the warp's own (dead) Q rows and written 16 bytes a lane.
+//
+// float32 -> flash_attn_fwd_kernel, fp32 FMAs from shared memory (the TPU
+// kernel runs fp32 at Precision.HIGHEST, which bf16 tensor cores do not give):
+// * One block per (batch*head, tile of BQ query rows); a loop inside the
+//   block walks the KV tiles, running max / sum / accumulator in registers.
 // * 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
 //   ty + 16*i (i < 4). For S = q'k^T it owns key columns tx + 16*j (j < 4);
 //   for acc += P V it owns a few columns of Dh. The 16 threads that share a
@@ -23,16 +66,11 @@
 //   shuffles, and the alpha rescale needs no shared memory.
 // * Tiles are held in shared memory as fp32 with row pitch Dh + 4, so that
 //   the float4 reads along Dh of 8 neighbouring rows fall into distinct banks.
-// * q, k and v are read through their strides in (B, N, H, Dh): the slices
-//   of the fused qkv projection are used as they are, without a transpose
-//   copy. The ragged last tile is masked in the kernel (keys beyond N get
-//   -1e30, their K/V rows are zero-filled), so nothing is padded.
-// * q is scaled by Dh^-1/2 and rounded to the input type when the tile is
-//   loaded — the same place the TPU version rounds it. P is rounded to the
-//   input type before the PV product, as there; the row sum uses the
-//   unrounded fp32 values.
+// * q is scaled by Dh^-1/2 when the tile is loaded; P goes through shared
+//   memory for the PV product.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -247,39 +285,346 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DH>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 float* lse, int B, int N, int H, Strides qs, Strides ks,
-                 Strides vs, float scale, cudaStream_t stream) {
-    auto kernel = flash_attn_fwd_kernel<T, DH>;
-    constexpr size_t smem = flash_smem_bytes<DH>();
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
+// ---------------------------------------------------------------- bfloat16
+
+using mma::bf16;
+
+constexpr int TC_BN = 64;  // keys per tile of the tensor-core kernel
+
+template <int DH, int NWARPS, int MT>
+constexpr size_t flash_tc_smem_bytes() {
+    return sizeof(bf16) * (16 * MT * NWARPS + 4 * TC_BN) * (DH + mma::PAD);
+}
+
+template <int DH, int NWARPS, int MT>
+__global__ void __launch_bounds__(NWARPS * 32)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int N, int H, Strides qs,
+                    Strides ks, Strides vs, float scale) {
+    constexpr int WM = 16 * MT;       // query rows per warp: MT fragments of 16
+    constexpr int BM = WM * NWARPS;   // query rows per block
+    constexpr int NT = 32 * NWARPS;
+    constexpr int LD = DH + mma::PAD;
+    constexpr int KD = DH / 16;       // k-steps over Dh
+    constexpr int ND = DH / 8;        // 8-column fragments of the output
+    constexpr int CPR = DH / 8;       // 16-byte chunks per row
+    constexpr int TILE = TC_BN * LD;  // elements of one K or V stage
+    // the Q fragments stay in registers where there is room beside the
+    // accumulators; else they are re-read from shared memory at every tile
+    constexpr bool Q_IN_REGS = MT * DH <= 128;
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
+    bf16* Ks = Qs + BM * LD;                       // [2][TC_BN][LD]
+    bf16* Vs = Ks + 2 * TILE;                      // [2][TC_BN][LD]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * BM;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+
+    const uint32_t k_tiles = mma::smem_addr(Ks);
+    const uint32_t v_tiles = mma::smem_addr(Vs);
+    const int ntiles = (N + TC_BN - 1) / TC_BN;
+    mma::load_tile_async<BM, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, N, tid);
+    mma::load_tile_async<TC_BN, DH, NT>(k_tiles, kb, ks.n, 0, N, tid);
+    mma::cp_async_commit();
+    if (ntiles > 1)
+        mma::load_tile_async<TC_BN, DH, NT>(k_tiles + TILE * 2, kb, ks.n, TC_BN,
+                                            N, tid);
+    mma::load_tile_async<TC_BN, DH, NT>(v_tiles, vb, vs.n, 0, N, tid);
+    mma::cp_async_commit();
+
+    // Q and K tile 0 have landed (K tile 1 and V tile 0 may still be in
+    // flight): the warp turns its own rows into q' = round(q * scale) in place.
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    bf16* Qw = Qs + warp * WM * LD;
+    for (int e = lane; e < WM * CPR; e += 32) {
+        uint4* at = reinterpret_cast<uint4*>(Qw + (e / CPR) * LD + (e % CPR) * 8);
+        uint4 x = *at;
+        x.x = mma::scale_round_bf16(x.x, scale);
+        x.y = mma::scale_round_bf16(x.y, scale);
+        x.z = mma::scale_round_bf16(x.z, scale);
+        x.w = mma::scale_round_bf16(x.w, scale);
+        *at = x;
     }
-    const dim3 grid((unsigned)((N + BQ - 1) / BQ), (unsigned)(B * H));
-    kernel<<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, N, H, qs, ks, vs,
-        scale);
+    __syncwarp();
+    const uint32_t q_addr = mma::smem_addr(Qw) + mma::a_offset(lane, LD);
+    uint32_t qf[Q_IN_REGS ? MT : 1][Q_IN_REGS ? KD : 1][4];
+    if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk)
+                mma::ldmatrix_x4(qf[mt][kk],
+                                 q_addr + (mt * 16 * LD + kk * 16) * 2);
+    }
+
+    // per fragment of 16 rows: rows g (index 0) and g + 8 (index 1)
+    float m[MT][2], l[MT][2];  // l: this lane's share of the row sum
+    float o[MT][ND][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        m[mt][0] = m[mt][1] = NEG_INF;
+        l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[mt][nd][e] = 0.f;
+    }
+
+    const uint32_t k_lane = k_tiles + mma::b_offset(lane, LD);
+    const uint32_t v_lane = v_tiles + mma::a_offset(lane, LD);
+
+    // The pipeline, with two stages each of K and V and one barrier a tile:
+    //   S(j)   reads K tile j, which the barrier of pass j - 1 made visible;
+    //   wait + barrier: the copies issued in pass j - 1 (K tile j + 1, V tile
+    //       j) have landed and are visible to all, every warp is done with
+    //       K tile j (its stage is free) and with V tile j - 1 (likewise);
+    //   the copies of K tile j + 2 and V tile j + 1 go out, behind the S
+    //       products just issued: a warp that issues a tile's worth of copies
+    //       waits until the memory system has taken them, and the tensor
+    //       cores work meanwhile; each copy has a whole tile's time to land;
+    //   softmax(j), then P V(j) reads V tile j.
+    for (int j = 0; j < ntiles; ++j) {
+        const int stage = j & 1;
+        const int k0 = j * TC_BN;
+        const uint32_t k_addr = k_lane + stage * TILE * 2;
+        const uint32_t v_addr = v_lane + stage * TILE * 2;
+
+        // S = q' k^T: 16 MT rows x 64 keys; fragment jn holds keys
+        // 8 jn .. 8 jn + 7. A K fragment serves all MT row fragments.
+        float s[MT][8][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[mt][jn][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+            uint32_t kf[4][4];
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb)
+                mma::ldmatrix_x4(kf[nb], k_addr + (nb * 16 * LD + kk * 16) * 2);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                uint32_t qa[4];
+                if constexpr (Q_IN_REGS) {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) qa[i] = qf[mt][kk][i];
+                } else {
+                    mma::ldmatrix_x4(qa, q_addr + (mt * 16 * LD + kk * 16) * 2);
+                }
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb) {
+                    mma::mma_bf16(s[mt][2 * nb], qa, kf[nb][0], kf[nb][1]);
+                    mma::mma_bf16(s[mt][2 * nb + 1], qa, kf[nb][2], kf[nb][3]);
+                }
+            }
+        }
+
+        mma::cp_async_wait<0>();
+        __syncthreads();
+        if (j + 2 < ntiles)
+            mma::load_tile_async<TC_BN, DH, NT>(k_tiles + stage * TILE * 2, kb,
+                                                ks.n, k0 + 2 * TC_BN, N, tid);
+        if (j + 1 < ntiles)
+            mma::load_tile_async<TC_BN, DH, NT>(
+                v_tiles + (stage ^ 1) * TILE * 2, vb, vs.n, k0 + TC_BN, N, tid);
+        mma::cp_async_commit();
+
+        // keys beyond N (only the last tile has any)
+        if (k0 + TC_BN > N) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (k0 + 8 * jn + 2 * t + (e & 1) >= N)
+                            s[mt][jn][e] = NEG_INF;
+        }
+
+        // online softmax on the fragments
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                float mc = NEG_INF;
+#pragma unroll
+                for (int jn = 0; jn < 8; ++jn)
+                    mc = fmaxf(mc, fmaxf(s[mt][jn][2 * r], s[mt][jn][2 * r + 1]));
+                mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+                mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+                const float mn = fmaxf(m[mt][r], mc);
+                const float alpha =
+                    mma::fast_exp2((m[mt][r] - mn) * mma::LOG2E);
+                const float mn2 = mn * mma::LOG2E;
+                float rs = 0.f;
+#pragma unroll
+                for (int jn = 0; jn < 8; ++jn) {
+                    const float p0 = mma::fast_exp2(
+                        fmaf(s[mt][jn][2 * r], mma::LOG2E, -mn2));
+                    const float p1 = mma::fast_exp2(
+                        fmaf(s[mt][jn][2 * r + 1], mma::LOG2E, -mn2));
+                    rs += p0 + p1;
+                    s[mt][jn][2 * r] = p0;
+                    s[mt][jn][2 * r + 1] = p1;
+                }
+                l[mt][r] = alpha * l[mt][r] + rs;
+                m[mt][r] = mn;
+#pragma unroll
+                for (int nd = 0; nd < ND; ++nd) {
+                    o[mt][nd][2 * r] *= alpha;
+                    o[mt][nd][2 * r + 1] *= alpha;
+                }
+            }
+        }
+
+        // acc += P V: the S fragments, rounded to bf16, are the A operand;
+        // a V fragment serves all MT row fragments
+#pragma unroll
+        for (int kk = 0; kk < TC_BN / 16; ++kk) {
+            uint32_t a[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                a[mt][0] = mma::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+                a[mt][1] = mma::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+                a[mt][2] =
+                    mma::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+                a[mt][3] =
+                    mma::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+            }
+#pragma unroll
+            for (int nd2 = 0; nd2 < KD; ++nd2) {
+                uint32_t r[4];
+                mma::ldmatrix_x4_trans(r,
+                                       v_addr + (kk * 16 * LD + nd2 * 16) * 2);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    mma::mma_bf16(o[mt][2 * nd2], a[mt], r[0], r[1]);
+                    mma::mma_bf16(o[mt][2 * nd2 + 1], a[mt], r[2], r[3]);
+                }
+            }
+        }
+    }
+
+    // out = acc / l, staged through the warp's own Q rows (no other warp ever
+    // reads them), then written as 16-byte pieces of contiguous rows; every
+    // valid row has seen at least one valid key, so l >= 1
+    const int row0 = q0 + warp * WM;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float sum = l[mt][r];
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            bf16* orow = Qw + (mt * 16 + g + 8 * r) * LD + 2 * t;
+#pragma unroll
+            for (int nd = 0; nd < ND; ++nd)
+                *reinterpret_cast<uint32_t*>(orow + nd * 8) = mma::pack_bf16(
+                    o[mt][nd][2 * r] / sum, o[mt][nd][2 * r + 1] / sum);
+            const int n = row0 + mt * 16 + g + 8 * r;
+            if (t == 0 && n < N)
+                lse[(long long)bh * N + n] = m[mt][r] + logf(sum);
+        }
+    }
+    __syncwarp();
+    for (int e = lane; e < WM * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = row0 + r;
+        if (n < N)
+            *reinterpret_cast<uint4*>(
+                out + (((long long)b * N + n) * H + h) * DH + c * 8) =
+                *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
+    }
+}
+
+struct Args {
+    const void *q, *k, *v;
+    void* out;
+    float* lse;
+    int B, N, H;
+    Strides qs, ks, vs;
+    float scale;
+    cudaStream_t stream;
+};
+
+template <typename Kernel>
+int raise_smem_limit(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int DH>
+int launch_fma(const Args& a) {
+    auto kernel = flash_attn_fwd_kernel<float, DH>;
+    constexpr size_t smem = flash_smem_bytes<DH>();
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.N + BQ - 1) / BQ), (unsigned)(a.B * a.H));
+    kernel<<<grid, NT, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
+        a.N, a.H, a.qs, a.ks, a.vs, a.scale);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dh(int Dh, const void* q, const void* k, const void* v, void* out,
-                float* lse, int B, int N, int H, Strides qs, Strides ks,
-                Strides vs, float scale, cudaStream_t stream) {
+template <int DH, int NWARPS, int MT>
+int launch_tc(const Args& a) {
+    auto kernel = flash_fwd_tc_kernel<DH, NWARPS, MT>;
+    constexpr size_t smem = flash_tc_smem_bytes<DH, NWARPS, MT>();
+    constexpr int BM = 16 * MT * NWARPS;
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.N + BM - 1) / BM), (unsigned)(a.B * a.H));
+    kernel<<<grid, NWARPS * 32, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.N,
+        a.H, a.qs, a.ks, a.vs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+// float32: the FMA kernel, whose tile is fixed at BQ rows.
+int dispatch_fma(int Dh, int tile, const Args& a) {
+    if (tile != BQ) return (int)cudaErrorInvalidValue;
     switch (Dh) {
-        case 32:
-            return launch_flash<T, 32>(q, k, v, out, lse, B, N, H, qs, ks, vs,
-                                       scale, stream);
-        case 64:
-            return launch_flash<T, 64>(q, k, v, out, lse, B, N, H, qs, ks, vs,
-                                       scale, stream);
-        case 128:
-            return launch_flash<T, 128>(q, k, v, out, lse, B, N, H, qs, ks, vs,
-                                        scale, stream);
+        case 32: return launch_fma<32>(a);
+        case 64: return launch_fma<64>(a);
+        case 128: return launch_fma<128>(a);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// 4 warps of 16 rows (tile 64) or of 32 rows (tile 128), as the wrapper's
+// launch plan asks.
+template <int DH>
+int dispatch_tc_tile(int tile, const Args& a) {
+    switch (tile) {
+        case 64: return launch_tc<DH, 4, 1>(a);
+        case 128: return launch_tc<DH, 4, 2>(a);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16: the tensor-core kernel, `tile` query rows per block.
+int dispatch_tc(int Dh, int tile, const Args& a) {
+    switch (Dh) {
+        case 32: return dispatch_tc_tile<32>(tile, a);
+        case 64: return dispatch_tc_tile<64>(tile, a);
+        case 128: return dispatch_tc_tile<128>(tile, a);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -287,24 +632,26 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, k, v: (B, N, H, Dh) read through (batch, token, head) strides given in
-// elements, last dimension contiguous. out: contiguous (B, N, H, Dh) of the
-// input type. lse: contiguous fp32 (B*H, N). Returns the cudaError_t of the
-// launch (0 on success); launches on `stream`, does not synchronise,
-// allocates nothing.
+// elements, last dimension contiguous; for bfloat16 every row start must be
+// 16-byte aligned. out: contiguous (B, N, H, Dh) of the input type. lse:
+// contiguous fp32 (B*H, N). `tile` is the number of query rows per block from
+// the wrapper's launch plan: 64 or 128 for bfloat16, 64 for float32.
+// The kernel is chosen by dtype, here: float32 runs the FMA kernel, bfloat16
+// the tensor-core kernel; neither stands in for the other. Returns the
+// cudaError_t of the launch (0 on success); launches on `stream`, does not
+// synchronise, allocates nothing.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int dtype, int B, int N,
-                              int H, int Dh, long long qsb, long long qsn,
-                              long long qsh, long long ksb, long long ksn,
-                              long long ksh, long long vsb, long long vsn,
-                              long long vsh, double scale, void* stream) {
-    const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh};
-    float* lse_f = static_cast<float*>(lse);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == MRI_DTYPE_F32)
-        return dispatch_dh<float>(Dh, q, k, v, out, lse_f, B, N, H, qs, ks, vs,
-                                  (float)scale, st);
-    if (dtype == MRI_DTYPE_BF16)
-        return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, out, lse_f, B, N, H, qs,
-                                          ks, vs, (float)scale, st);
+                              int H, int Dh, int tile, long long qsb,
+                              long long qsn, long long qsh, long long ksb,
+                              long long ksn, long long ksh, long long vsb,
+                              long long vsn, long long vsh, double scale,
+                              void* stream) {
+    const Args a{q, k, v, out, static_cast<float*>(lse), B, N, H,
+                 Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh},
+                 Strides{vsb, vsn, vsh}, (float)scale,
+                 static_cast<cudaStream_t>(stream)};
+    if (dtype == MRI_DTYPE_F32) return dispatch_fma(Dh, tile, a);
+    if (dtype == MRI_DTYPE_BF16) return dispatch_tc(Dh, tile, a);
     return (int)cudaErrorInvalidValue;
 }

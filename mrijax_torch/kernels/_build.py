@@ -84,6 +84,11 @@ def _nvcc() -> str:
     )
 
 
+def cuda_tool(name: str) -> str:
+    """Path of a toolkit program that ships beside ``nvcc`` (``cuobjdump``)."""
+    return shutil.which(name) or str(Path(_nvcc()).with_name(name))
+
+
 def _sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
 

@@ -14,6 +14,12 @@ CUDA kernels:
   ``_dq_kernel``) recompute the probabilities from the saved logsumexp, one
   KV-major pass for dK and dV and one Q-major pass for dQ, without atomics.
 
+For bfloat16 inputs ``flash_attn_fwd`` and ``flash_attn_bwd_dkv`` run on the
+tensor cores (bf16 ``mma``, bf16 tiles in shared memory filled by 16-byte
+asynchronous copies); for float32 inputs, and in ``flash_attn_bwd_dq``, every
+product is fp32 FMAs. The C entry picks by dtype. ``launch_plan`` chooses the
+rows per block.
+
 API: q, k, v of shape (B, N, H, Dh) → out (B, N, H, Dh) in the input dtype,
 lse fp32 (B·H, N); scale = Dh**-0.5, folded into q and rounded to the input
 dtype before the product, as in the TPU version. ``flash_attention`` is a
@@ -27,7 +33,7 @@ the tests and ``chip_smoke.py`` hold the kernels against.
 """
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,6 +44,97 @@ launches = _build.LaunchCounts("flash_attn_fwd", "flash_attn_bwd_dkv",
                                "flash_attn_bwd_dq")
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+
+SM_COUNT = 132                     # streaming multiprocessors of an H100
+MAX_SHARED_BYTES = 232448          # dynamic shared memory a block may ask for
+FORWARD_TILES = (128, 64)          # query rows per block of the bf16 forward: 4 warps of 32 or 16
+DKV_TILE = 64                      # keys per block of the bf16 dkv: 4 warps of 16
+INNER_TILE = 64                    # keys (forward) or query rows (dkv) per inner step
+COPY_ALIGNMENT = 16                # bytes moved by one asynchronous copy
+
+
+class LaunchPlan(NamedTuple):
+    """How ``flash_attn_fwd`` or ``flash_attn_bwd_dkv`` is launched."""
+    tile: int          # query rows (forward) or keys (dkv) owned by a block
+    warps: int         # warps per block
+    blocks: int        # B·H·⌈N/tile⌉
+    shared_bytes: int  # dynamic shared memory per block, as the source computes it
+
+
+def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """Rows per block, warps and shared memory for one launch.
+
+    bfloat16 (tensor-core kernels, 4 warps). A block reads all of K and V
+    (Q and dO) of its (batch, head) from L2, so a larger tile means fewer
+    bytes per flop — and fewer blocks. Forward: 128 query rows a block (a
+    warp owns 32, and every K/V fragment feeds two products) where that still
+    gives every SM a block and Dh ≥ 64, else 64 rows. At the 800-token
+    bottleneck with B·H = 8 that is 64 rows and 104 blocks: 32 rows would
+    cover all 132 SMs with 200 blocks but measured 15 % slower on an H100
+    (PERF.md) and are not compiled, because a warp's critical path stays the
+    same while the K/V traffic doubles; with B·H = 32 it is 128 rows and 224
+    blocks. At Dh = 32 the softmax instructions bind, not the fragment reads,
+    and 64 rows (more warps an SM) measured 2 % faster
+    (``scripts/probe_torch_flash_tiles.py`` times 64 against 128).
+    dkv: 64 keys, a constant of the source (32 measured 11–29 % slower, 128 no
+    faster; its accumulators leave no registers for a second fragment of keys
+    a warp); its plan reports blocks and shared memory and steers nothing.
+    Tiles are bf16 with a pitch of Dh + 8:
+    forward Q + 2 stages of K and V; dkv K, V + 2 stages of Q, dO and of the
+    rows' lse and Δ.
+    float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
+    Dh + 4 and (64, 68) P (and dU) tiles.
+    """
+    if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv"):
+        raise ValueError(f"no launch plan for {kernel!r}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+    forward = kernel == "flash_attn_fwd"
+    if dtype == torch.float32:
+        tile, warps = 64, 8
+        floats = (2 * 64 * (d + 4) + 64 * d + 64 * 68 if forward
+                  else 4 * 64 * (d + 4) + 2 * 64 * 68)
+        shared = 4 * floats
+    elif dtype == torch.bfloat16:
+        big, small = FORWARD_TILES
+        if not forward:
+            tile = DKV_TILE
+        elif d >= 64 and b * h * -(-n // big) >= SM_COUNT:
+            tile = big
+        else:
+            tile = small
+        warps = 4
+        rows = tile + 4 * INNER_TILE if forward else 2 * tile + 4 * INNER_TILE
+        shared = 2 * rows * (d + 8) + (0 if forward else 4 * 4 * INNER_TILE)
+    else:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"{kernel}: {shared} bytes of shared memory exceed {MAX_SHARED_BYTES}")
+    return LaunchPlan(tile, warps, b * h * -(-n // tile), shared)
+
+
+def _misalignment(t: torch.Tensor) -> Optional[str]:
+    """What keeps ``t`` from being read in 16-byte copies, or None."""
+    size = t.element_size()
+    if t.data_ptr() % COPY_ALIGNMENT != 0:
+        return (f"data pointer is not {COPY_ALIGNMENT}-byte aligned "
+                f"(storage offset {t.storage_offset()} elements of {size} bytes)")
+    for axis, stride in zip(("batch", "token", "head"), t.stride()[:3]):
+        if stride * size % COPY_ALIGNMENT != 0:
+            return (f"{axis} stride {stride} elements is {stride * size} bytes, "
+                    f"not a multiple of {COPY_ALIGNMENT}")
+    return None
+
+
+def check_copy_alignment(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernels move rows of Dh values in 16-byte asynchronous copies:
+    the data pointer and every (batch, token, head) stride must be multiples
+    of 16 bytes. Raises a ``ValueError`` that names the operand."""
+    fault = _misalignment(t)
+    if fault:
+        raise ValueError(f"{name}: {fault}")
 
 
 def flash_attention_reference(
@@ -145,7 +242,7 @@ def _library() -> ctypes.CDLL:
     if lib.flash_attn_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attn_fwd.argtypes = (
-            [p] * 5 + [i] * 5 + [ll] * 9 + [ctypes.c_double, p]
+            [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_double, p]
         )
         lib.flash_attn_fwd.restype = i
     return lib
@@ -158,10 +255,10 @@ def _backward_library() -> ctypes.CDLL:
     lib = _build.library("flash_attention_bwd")
     if lib.flash_attn_bwd_dkv.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, p]
-        lib.flash_attn_bwd_dkv.argtypes = [p] * 8 + tail
+        tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, p]
+        lib.flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + tail
         lib.flash_attn_bwd_dkv.restype = i
-        lib.flash_attn_bwd_dq.argtypes = [p] * 7 + tail
+        lib.flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 5 + tail
         lib.flash_attn_bwd_dq.restype = i
     return lib
 
@@ -186,6 +283,16 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must share dtype and device")
 
 
+def _check_kernel_operands(**operands: torch.Tensor) -> None:
+    """Sizes the kernels take and, for bfloat16, the alignment their 16-byte
+    copies need, of q and of every strided operand given by name."""
+    q = operands["q"]
+    _check_kernel_sizes(q)
+    if q.dtype == torch.bfloat16:
+        for name, t in operands.items():
+            check_copy_alignment(name, t)
+
+
 def _check_kernel_sizes(q: torch.Tensor) -> None:
     b, n, h, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
@@ -205,16 +312,17 @@ def flash_attention_forward(
 
     On CUDA: the ``flash_attn_fwd`` kernel, or an error for what it does not
     take (a dtype other than float32/bfloat16, a head dimension outside
-    ``SUPPORTED_HEAD_DIMS``, a strided last axis). On the CPU:
-    ``flash_attention_reference``.
+    ``SUPPORTED_HEAD_DIMS``, a strided last axis, bfloat16 rows that are not
+    16-byte aligned). On the CPU: ``flash_attention_reference``.
     """
     _check_qkv(q, k, v)
     q, k, v = q.detach(), k.detach(), v.detach()
     if not q.is_cuda:
         return flash_attention_reference(q, k, v)
-    _check_kernel_sizes(q)
-    b, n, h, d = q.shape
     code = _build.dtype_code(q.dtype)
+    _check_kernel_operands(q=q, k=k, v=v)
+    b, n, h, d = q.shape
+    plan = launch_plan("flash_attn_fwd", b, n, h, d, q.dtype)
     strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                for s in _token_strides(name, t)]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -223,7 +331,7 @@ def flash_attention_forward(
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), code, b, n, h, d, *strides, float(d ** -0.5),
+            lse.data_ptr(), code, b, n, h, d, plan.tile, *strides, float(d ** -0.5),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_launch(err, "flash_attn_fwd")
@@ -249,9 +357,12 @@ def _check_backward_operands(q, k, v, dout, lse, delta) -> None:
 def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
     """Launch ``flash_attn_bwd_dkv`` or ``flash_attn_bwd_dq`` on checked CUDA
     operands; ``outputs`` are the contiguous tensors the kernel writes."""
-    _check_kernel_sizes(q)
     b, n, h, d = q.shape
     code = _build.dtype_code(q.dtype)
+    if entry == "flash_attn_bwd_dkv":
+        _check_kernel_operands(q=q, k=k, v=v, dout=dout)
+    else:
+        _check_kernel_sizes(q)
     strides = _BwdStrides(*[
         s for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
         for s in _token_strides(name, t)])
@@ -305,13 +416,15 @@ def flash_attention_backward(
     gradient ``dout``: Δ = rowsum(dO∘O) in plain PyTorch (the TPU wrapper
     computes it outside its kernels too), then ``flash_attn_bwd_dkv`` and
     ``flash_attn_bwd_dq``. ``dout`` is copied only if its last axis is not
-    contiguous (an expanded gradient) or its dtype is not the inputs'."""
+    contiguous (an expanded gradient), its dtype is not the inputs' or, for
+    bfloat16, its rows are not 16-byte aligned."""
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(
             f"out and dout must be {tuple(q.shape)}, got {tuple(out.shape)} "
             f"and {tuple(dout.shape)}")
-    if dout.dtype != q.dtype or dout.stride(3) != 1:
-        dout = dout.to(q.dtype).contiguous()
+    if (dout.dtype != q.dtype or dout.stride(3) != 1
+            or (q.dtype == torch.bfloat16 and _misalignment(dout))):
+        dout = torch.empty(q.shape, dtype=q.dtype, device=q.device).copy_(dout)
     delta = flash_attention_delta(out, dout)
     dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
     return flash_attn_bwd_dq(q, k, v, dout, lse, delta), dk, dv

@@ -48,7 +48,8 @@ def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32)])
+@pytest.mark.parametrize("shape", [(2, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
+                                   (1, 4100, 2, 32), (1, 17, 2, 64)])
 def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums against a running max). bf16:
     2e-3 + 1e-2 relative on out (probabilities rounded against another max)."""
@@ -80,7 +81,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32)])
+@pytest.mark.parametrize("shape", [(8, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
+                                   (1, 4100, 2, 32), (1, 17, 2, 64)])
 def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums). bf16: 1e-5 + 2**-7 relative,
     one bf16 ulp (float32 sums rounded to bf16 at the same points on both
