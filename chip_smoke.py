@@ -11,7 +11,7 @@ What it does, in order:
    versions, builds every kernel of ``mrijax_torch/csrc`` with ``nvcc``, and
    prints what ``ptxas`` says of the tensor-core kernels and how many ``HMMA``
    instructions ``cuobjdump -sass`` finds in the two flash-attention libraries
-   (none is a failure);
+   and in each tensor-core kernel (none is a failure);
 2. calls each kernel's wrapper on CUDA tensors at the shapes the main path
    gives it (fp32 and bf16, plus ragged sizes) and holds the result against
    the kernel's plain PyTorch version on the same inputs;
@@ -21,7 +21,8 @@ What it does, in order:
    only), beside the least time the card could take (bytes / 3.35 TB/s or
    flops / peak rate), and the host's time to issue one wrapper call; the
    flash kernels also at N = 51 200 (4 heads of 32), with the rate of the
-   exponentials beside the operations bound;
+   exponentials beside the operations bound; GroupNorm+SiLU also weighted by
+   its calls in one generate call;
 4. checks a small float32 pipeline on the card (kernels) against the same
    pipeline on the CPU (plain versions);
 5. drives the generation path at full width: the flagship ``UNet3D`` (base
@@ -49,6 +50,7 @@ names the card; the line before that is the ``{"kernels": [...]}`` record.
 """
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -114,6 +116,8 @@ TRAIN_BATCH = 8
 TRAIN_WARMUP_STEPS = 2
 TRAIN_STEPS = 5
 FLASH_TRAIN = (TRAIN_BATCH, 800, 4, 128)
+ONE_ULP = dict(atol=1e-5, rtol=2 ** -7)    # bf16 dk and dv: rounded once
+TWO_ULPS = dict(atol=1e-5, rtol=2 ** -6)   # bf16 dq: rounded twice, around the Dh^-1/2 multiply
 GN_REMAT_LEVEL0_CALLS = 8         # 4 res blocks at level 0, two norms each, run again in the backward
 GN_GRAD_SHAPES = [(51200, 128), (800, 512)]
 GENERATION_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_attn_fwd")
@@ -302,21 +306,35 @@ def compare_flash_backward(rng):
 
     Tolerances: float32 1e-4 absolute, the bar of the JAX package's gradient
     test — the kernels sum over query rows (keys) tile by tile, the plain
-    versions at once. bf16: 1e-5 + 2**-7 relative, one bf16 ulp — both sides
-    round float32 sums that differ at most in their last digits to bf16 at the
-    same points (dk, dv once; dq twice, around the Dh^-1/2 multiply), so a
-    kernel that rounded anywhere else (p to bf16, one cast of dq left out)
-    is outside it.
+    versions at once. bf16 dk, dv: 1e-5 + 2**-7 relative, one bf16 ulp — both
+    sides round float32 sums that differ at most in their last digits to bf16
+    once, so a kernel that rounded anywhere else (p to bf16) is outside it.
+    bf16 dq: 1e-5 + 2**-6 relative, two ulps — dq is rounded twice, around
+    the Dh^-1/2 multiply, and two roundings of sums taken in another order
+    land up to two ulps apart (a CPU emulation of the kernel's arithmetic,
+    ``tests/test_torch_flash_tensorcore.py``, shows it with dU exact to 24
+    bits); a single bf16 rounding of dU is outside even that. The elements of
+    bf16 dq between the two bars are counted and printed.
     """
 
     worst = {name: {"float32": 0.0, "bfloat16": 0.0}
              for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+    beyond_one_ulp = {}
+
+    def check_dq(tag, got, want, dtype):
+        if dtype == torch.float32:
+            return check_close(tag, got, want, atol=1e-4)
+        err = (got.float() - want.float()).abs()
+        beyond_one_ulp[tag] = [int((err > ONE_ULP["atol"] + ONE_ULP["rtol"] * want.float().abs()).sum()),
+                               got.numel()]
+        return check_close(tag, got, want, **TWO_ULPS)
+
     shapes = [FLASH_TRAIN, FLASH_MAIN] + FLASH_OTHER
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
             q, k, v, out, lse, dout, delta = flash_backward_inputs(rng, shape, dtype)
-            tol = dict(atol=1e-4) if dtype == torch.float32 else dict(atol=1e-5, rtol=2 ** -7)
+            tol = dict(atol=1e-4) if dtype == torch.float32 else ONE_ULP
             dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
             ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
             e = max(check_close(f"flash bwd {key} {shape} dk", dk, ref_dk, **tol),
@@ -324,17 +342,17 @@ def compare_flash_backward(rng):
             worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
             dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
             ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
-            e = check_close(f"flash bwd {key} {shape} dq", dq, ref_dq, **tol)
+            e = check_dq(f"flash bwd {key} {shape} dq", dq, ref_dq, dtype)
             worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
             # the differentiable front end to end: same kernels behind autograd
             qkv = torch.stack([q, k, v], dim=2).requires_grad_()
             got, = torch.autograd.grad(
                 fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]), qkv, dout)
-            check_close(f"flash autograd {key} {shape}", got,
-                        torch.stack([ref_dq, ref_dk, ref_dv], dim=2), **tol)
+            check_close(f"flash autograd {key} {shape} dk, dv", got[:, :, 1:],
+                        torch.stack([ref_dk, ref_dv], dim=2), **tol)
+            check_dq(f"flash autograd {key} {shape} dq", got[:, :, 0], ref_dq, dtype)
     # N = 51 200: the plain versions run on blocks of 2048 query rows
-    for dtype, tol in ((torch.float32, dict(atol=1e-4)),
-                       (torch.bfloat16, dict(atol=1e-5, rtol=2 ** -7))):
+    for dtype, tol in ((torch.float32, dict(atol=1e-4)), (torch.bfloat16, ONE_ULP)):
         key = str(dtype).replace("torch.", "")
         q, k, v, out, lse, dout, delta = flash_backward_inputs(rng, FLASH_LONG, dtype)
         dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
@@ -344,7 +362,7 @@ def compare_flash_backward(rng):
         e = max(check_close(f"flash bwd {key} {FLASH_LONG} dk", dk, ref_dk, **tol),
                 check_close(f"flash bwd {key} {FLASH_LONG} dv", dv, ref_dv, **tol))
         worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
-        e = check_close(f"flash bwd {key} {FLASH_LONG} dq", dq, ref_dq, **tol)
+        e = check_dq(f"flash bwd {key} {FLASH_LONG} dq", dq, ref_dq, dtype)
         worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
         del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq
     # a reference of another build: autograd through the materialised
@@ -360,6 +378,7 @@ def compare_flash_backward(rng):
     print(f"compare flash backward: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok, "
           f"max abs err {json.dumps(worst)}; against autograd through the materialised "
           f"attention {independent:.3e}")
+    print("flash_dq_bf16_beyond_one_ulp " + json.dumps(beyond_one_ulp))
     return worst
 
 
@@ -401,7 +420,8 @@ def compare_groupnorm_autograd(rng):
 
 def time_groupnorm(rng):
     """Per main-path shape (bf16, B = 2): both kernels, their plain versions,
-    the library yardsticks and the bytes bound."""
+    the library yardsticks and the bytes bound; then each summed over the
+    calls of one generate call (``groupnorm_per_generate_call``)."""
 
     rows = []
     for (n, c), (per_unet, per_decode) in GN_MAIN_PATH.items():
@@ -426,6 +446,9 @@ def time_groupnorm(rng):
             "apply_plain_ms": time_ms(
                 lambda: gn.gn_silu_apply_reference(x, stats, scale, bias)),
             "apply_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            # one read and one write of the same bytes: what the card takes
+            # for apply's traffic alone (a yardstick, not the same function)
+            "apply_copy_ms": time_ms(lambda: torch.empty_like(x).copy_(x)),
             "fused_ms": time_ms(
                 lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
             "fused_plain_ms": time_ms(
@@ -436,10 +459,19 @@ def time_groupnorm(rng):
             "fused_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
             "fused_host_issue_us": host_issue_us(
                 lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
+            "apply_plan": dataclasses.asdict(gn.apply_plan(n, c, GROUPS, x.element_size())),
         }
         rows.append(row)
         del x, stats, x_cf, xg
+    # one generate call: 20 UNet forwards and one decode, each at batch 2
+    per_call = {k: sum(r[k] * (DDIM_STEPS * r["calls_per_unet_forward"] + r["calls_per_decode"])
+                       for r in rows)
+                for k in ("stats_ms", "stats_bound_ms", "apply_ms", "apply_bound_ms",
+                          "apply_copy_ms")}
+    per_call["stats_above_bound_ms"] = per_call["stats_ms"] - per_call["stats_bound_ms"]
+    per_call["apply_above_bound_ms"] = per_call["apply_ms"] - per_call["apply_bound_ms"]
     print("groupnorm_times " + json.dumps(rows))
+    print("groupnorm_per_generate_call " + json.dumps(per_call))
     return rows
 
 
@@ -550,7 +582,8 @@ def time_flash_backward(rng):
         row = {"shape": list(shape), "dtype": key, "library_ms": library_ms,
                "delta_ms": time_ms(lambda: fa.flash_attention_delta(out, dout)),
                "exp_ms": b * h * n * n / EXP_PER_S * 1e3,
-               "dkv_plan": flash_plan_note("flash_attn_bwd_dkv", shape, dtype)}
+               "dkv_plan": flash_plan_note("flash_attn_bwd_dkv", shape, dtype),
+               "dq_plan": flash_plan_note("flash_attn_bwd_dq", shape, dtype)}
         for name, fn, ref, products, tensors in (
             ("dkv", fa.flash_attn_bwd_dkv, fa.flash_attn_bwd_dkv_reference, 4, 6),
             ("dq", fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dq_reference, 3, 5),
@@ -929,26 +962,36 @@ def report_ptxas(name):
     print(f"  ptxas {name}: {len(rows)} kernels, at most "
           f"{max((r[1] for r in rows), default=0)} registers, at most "
           f"{max((r[2] for r in rows), default=0)} bytes spilled")
+    labels = ("Dh", "warps", "16-row fragments a warp")
     for entry, regs, spilled in rows:
-        if m := re.search(r"(flash_(?:fwd|bwd_dkv)_tc_kernel)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", entry):
-            rows16 = f", 16-row fragments a warp={m.group(4)}" if m.group(4) else ""
-            print(f"    {m.group(1)}<Dh={m.group(2)}, warps={m.group(3)}{rows16}>: "
-                  f"{regs} registers, {spilled} bytes spilled")
+        if m := re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_tc_kernel)I((?:Li\d+E)+)", entry):
+            params = ", ".join(f"{label}={value}" for label, value in
+                               zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
+            print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
+
+
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
 
 
 def tensor_core_proof(libs):
     """Count the ``HMMA``/``HGMMA`` instructions in the machine code of the two
-    flash-attention libraries; a library without any did not get its
-    tensor-core kernel."""
+    flash-attention libraries and of each tensor-core kernel in them (all its
+    instantiations together); a library or kernel without any did not get its
+    tensor-core code."""
     cuobjdump = _build.cuda_tool("cuobjdump")
-    counts = {}
+    counts = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd") + TENSOR_CORE_KERNELS, 0)
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
                               capture_output=True, text=True, timeout=300).stdout
         counts[name] = len(re.findall(r"\bHG?MMA\.", sass))
+        for function in re.split(r"\n\s*Function : ", sass)[1:]:
+            kernel = next((k for k in TENSOR_CORE_KERNELS if k in function.split("\n", 1)[0]), None)
+            if kernel:
+                counts[kernel] += len(re.findall(r"\bHG?MMA\.", function))
     print("tensor_core_instructions " + json.dumps(counts))
     if min(counts.values()) == 0:
-        raise AssertionError(f"a flash-attention library holds no HMMA/HGMMA instruction: {counts}")
+        raise AssertionError(f"a flash-attention library or kernel holds no HMMA/HGMMA "
+                             f"instruction: {counts}")
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,

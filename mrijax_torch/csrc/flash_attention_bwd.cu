@@ -50,8 +50,32 @@
 // * dK and dV are staged through the warp's own (dead) K and V rows and
 //   written 16 bytes a lane.
 //
-// flash_attn_bwd_dkv, float32, and flash_attn_bwd_dq, both types -> fp32 FMAs
-// from shared memory (the TPU kernels run fp32 at Precision.HIGHEST):
+// flash_attn_bwd_dq, bfloat16 -> flash_bwd_dq_tc_kernel, the dkv design
+// turned Q-major:
+// * A block owns 64 query rows of one (batch, head), 4 warps of 16; a warp
+//   holds one (16, Dh) fp32 accumulator of dQ' (64 registers at Dh = 128).
+//   q' and dO of the block are staged once (q' scaled in shared memory by
+//   the threads that copied it); each lane keeps lse * log2(e) and delta of
+//   its two rows (g, g + 8) in registers. A loop walks the K / V tiles of
+//   64 keys in two cp.async stages, 32 keys at a time.
+// * S = q' k^T and dP = dO v^T are not transposed here: K and V are the B
+//   operand as [n][k] (plain ldmatrix), and dU = P o (dP - delta) leaves the
+//   tensor cores in the register layout of the A operand of dQ' += dU k,
+//   whose B operand K is read as [k][n] with ldmatrix.trans.
+// * The TPU kernel runs dQ' with fp32 dU (Precision.HIGHEST); dU is split
+//   into two bf16 terms as in dkv: 4 mma per 3 of a single-rounding kernel.
+//   A key beyond N has zero-filled K and V but P = exp(-lse), so it is set
+//   to 0 in the ragged tile before it can meet a large lse.
+// * The epilogue rounds dQ' to bf16, multiplies by Dh^-1/2 in fp32 and
+//   rounds again (the TPU wrapper's two casts), staged through the warp's
+//   own q' rows and written 16 bytes a lane. Two roundings of sums taken in
+//   another order can land two bf16 ulps apart: that, not the split, sets
+//   the bar dq is held to.
+// * Shared memory q', dO and 2 stages of K and V, bf16 with pitch Dh + 8:
+//   104 KB at Dh = 128, two blocks per SM.
+//
+// flash_attn_bwd_dkv and flash_attn_bwd_dq, float32 -> fp32 FMAs from shared
+// memory (the TPU kernels run fp32 at Precision.HIGHEST):
 // * In dkv one block owns one (batch*head, tile of BK keys) and walks over
 //   the Q tiles, holding the dK and dV tiles in registers; in dq one block
 //   owns one (batch*head, tile of BQ queries) and walks over the KV tiles.
@@ -464,12 +488,12 @@ __device__ __forceinline__ void load_q_stage(uint32_t Qst, uint32_t dOst,
     }
 }
 
-// After its own copies have landed, a thread turns the q chunks it brought
-// into q' = round(q * scale) and the lse values it brought into lse * log2(e).
-template <int DH, int NT>
-__device__ __forceinline__ void finish_q_stage(bf16* Qst, float* stats,
-                                               float scale, int tid) {
-    typedef mma::TileCopy<TC_BQ, DH, NT> TC;
+// After its own copies of a ROWS x DH q tile have landed, a thread turns the
+// chunks it brought into q' = round(q * scale).
+template <int ROWS, int DH, int NT>
+__device__ __forceinline__ void scale_own_chunks(bf16* Qst, float scale,
+                                                 int tid) {
+    typedef mma::TileCopy<ROWS, DH, NT> TC;
     uint4* chunk = reinterpret_cast<uint4*>(Qst + (tid / TC::CPR) * TC::LD +
                                             (tid % TC::CPR) * 8);
 #pragma unroll
@@ -482,6 +506,14 @@ __device__ __forceinline__ void finish_q_stage(bf16* Qst, float* stats,
         x.w = mma::scale_round_bf16(x.w, scale);
         *at = x;
     }
+}
+
+// The same for one stage of dkv's Q-side operands, and the lse values the
+// thread brought become lse * log2(e).
+template <int DH, int NT>
+__device__ __forceinline__ void finish_q_stage(bf16* Qst, float* stats,
+                                               float scale, int tid) {
+    scale_own_chunks<TC_BQ, DH, NT>(Qst, scale, tid);
     for (int e = tid; e < TC_BQ; e += NT) stats[e] *= mma::LOG2E;
 }
 
@@ -684,6 +716,201 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+constexpr int DQ_KT = 64;  // keys per K / V tile of the tensor-core dq kernel
+constexpr int DQ_KH = 32;  // of which this many are multiplied at a time
+
+template <int DH>
+constexpr size_t dq_tc_smem_bytes() {
+    return sizeof(bf16) * (2 * 16 * TC_WARPS + 4 * DQ_KT) * (DH + mma::PAD);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(TC_WARPS * 32)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int N, int H, Strides qs, Strides ks, Strides vs,
+                       Strides gs, float scale) {
+    constexpr int BQT = 16 * TC_WARPS;  // query rows per block
+    constexpr int NT = 32 * TC_WARPS;
+    constexpr int LD = DH + mma::PAD;
+    constexpr int KD = DH / 16;         // k-steps over Dh
+    constexpr int ND = DH / 8;          // 8-column fragments of dQ'
+    constexpr int TILE = DQ_KT * LD;    // elements of one K or V stage
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQT][LD]  q'
+    bf16* dOs = Qs + BQT * LD;                     // [BQT][LD]
+    bf16* Ks = dOs + BQT * LD;                     // [2][DQ_KT][LD]
+    bf16* Vs = Ks + 2 * TILE;                      // [2][DQ_KT][LD]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * BQT;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+    const bf16* gb = dout + b * gs.b + h * gs.h;
+
+    const uint32_t k_tiles = mma::smem_addr(Ks);
+    const uint32_t v_tiles = mma::smem_addr(Vs);
+    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, N, tid);
+    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(dOs), gb, gs.n, q0, N, tid);
+    mma::cp_async_commit();
+    mma::load_tile_async<DQ_KT, DH, NT>(k_tiles, kb, ks.n, 0, N, tid);
+    mma::load_tile_async<DQ_KT, DH, NT>(v_tiles, vb, vs.n, 0, N, tid);
+    mma::cp_async_commit();
+
+    // lse * log2(e) and delta of the lane's rows g and g + 8 (0 beyond N)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int n = q0 + warp * 16 + g + 8 * i;
+        const bool ok = n < N;
+        lse2[i] = ok ? lse[(long long)bh * N + n] * mma::LOG2E : 0.f;
+        dl[i] = ok ? delta[(long long)bh * N + n] : 0.f;
+    }
+
+    // the warp's 16 query rows x Dh of dQ'
+    float acc[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+    mma::cp_async_wait<1>();  // q and dO have landed, K / V tile 0 may fly
+    scale_own_chunks<BQT, DH, NT>(Qs, scale, tid);  // published by the first barrier
+
+    // A operands of S and dP: the warp's rows of q' and dO; B operands: K and
+    // V as [n][k] for S and dP, K as [k][n] for dQ'
+    const uint32_t q_a =
+        mma::smem_addr(Qs + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t g_a =
+        mma::smem_addr(dOs + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t k_b = k_tiles + mma::b_offset(lane, LD);
+    const uint32_t v_b = v_tiles + mma::b_offset(lane, LD);
+    const uint32_t k_t = k_tiles + mma::a_offset(lane, LD);
+
+    const int ntiles = (N + DQ_KT - 1) / DQ_KT;
+    for (int j = 0; j < ntiles; ++j) {
+        const int stage = j & 1;
+        // the other stage's readers finished at the end of the last pass
+        if (j + 1 < ntiles) {
+            const uint32_t other = (stage ^ 1) * TILE * 2;
+            mma::load_tile_async<DQ_KT, DH, NT>(k_tiles + other, kb, ks.n,
+                                                (j + 1) * DQ_KT, N, tid);
+            mma::load_tile_async<DQ_KT, DH, NT>(v_tiles + other, vb, vs.n,
+                                                (j + 1) * DQ_KT, N, tid);
+        }
+        mma::cp_async_commit();  // possibly empty: keeps the group count even
+        mma::cp_async_wait<1>();  // tile j has landed, tile j + 1 may fly
+        __syncthreads();
+
+        const uint32_t stage_bytes = stage * TILE * 2;
+#pragma unroll 1
+        for (int half = 0; half < DQ_KT / DQ_KH; ++half) {
+            const uint32_t keys = stage_bytes + half * DQ_KH * LD * 2;
+            // S and dP: 16 rows x DQ_KH keys, fragment jn holds keys
+            // 8 jn .. 8 jn + 7 of this half
+            float s[DQ_KH / 8][4], dp[DQ_KH / 8][4];
+#pragma unroll
+            for (int jn = 0; jn < DQ_KH / 8; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    s[jn][e] = 0.f;
+                    dp[jn][e] = 0.f;
+                }
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk) {
+                uint32_t qa[4], ga[4];
+                mma::ldmatrix_x4(qa, q_a + kk * 32);
+                mma::ldmatrix_x4(ga, g_a + kk * 32);
+#pragma unroll
+                for (int nb = 0; nb < DQ_KH / 16; ++nb) {
+                    const uint32_t off = keys + (nb * 16 * LD + kk * 16) * 2;
+                    uint32_t r[4];
+                    mma::ldmatrix_x4(r, k_b + off);
+                    mma::mma_bf16(s[2 * nb], qa, r[0], r[1]);
+                    mma::mma_bf16(s[2 * nb + 1], qa, r[2], r[3]);
+                    mma::ldmatrix_x4(r, v_b + off);
+                    mma::mma_bf16(dp[2 * nb], ga, r[0], r[1]);
+                    mma::mma_bf16(dp[2 * nb + 1], ga, r[2], r[3]);
+                }
+            }
+
+            // P = exp(S - lse) and dU = P o (dP - delta), in place; a key
+            // beyond N (zero-filled, S = 0) gets P = 0, whatever lse is
+            const int key0 = j * DQ_KT + half * DQ_KH;
+            const bool ragged = key0 + DQ_KH > N;
+#pragma unroll
+            for (int jn = 0; jn < DQ_KH / 8; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float p = mma::fast_exp2(
+                        fmaf(s[jn][e], mma::LOG2E, -lse2[e >> 1]));
+                    if (ragged && key0 + 8 * jn + 2 * t + (e & 1) >= N) p = 0.f;
+                    dp[jn][e] = p * (dp[jn][e] - dl[e >> 1]);
+                }
+
+            // dQ' += dU K, dU as two bf16 terms
+#pragma unroll
+            for (int kk = 0; kk < DQ_KH / 16; ++kk) {
+                uint32_t uh[4], ul[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
+                    const int jn = 2 * kk + (i >> 1);
+                    const int e = 2 * (i & 1);
+                    mma::split_bf16(dp[jn][e], dp[jn][e + 1], uh[i], ul[i]);
+                }
+#pragma unroll
+                for (int nd2 = 0; nd2 < KD; ++nd2) {
+                    const uint32_t off = keys + (kk * 16 * LD + nd2 * 16) * 2;
+                    uint32_t r[4];
+                    mma::ldmatrix_x4_trans(r, k_t + off);
+                    mma::mma_bf16(acc[2 * nd2], uh, r[0], r[1]);
+                    mma::mma_bf16(acc[2 * nd2], ul, r[0], r[1]);
+                    mma::mma_bf16(acc[2 * nd2 + 1], uh, r[2], r[3]);
+                    mma::mma_bf16(acc[2 * nd2 + 1], ul, r[2], r[3]);
+                }
+            }
+        }
+        __syncthreads();  // this stage may be refilled in the next pass
+    }
+
+    // dQ = Dh^-1/2 * dQ': rounded to bf16, scaled in fp32 and rounded again
+    // (the TPU wrapper's two casts), staged through the warp's own q' rows
+    // (no other warp ever read them), then written as 16-byte pieces of rows
+    bf16* Qw = Qs + warp * 16 * LD;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&Qw[g * LD + col]) = mma::pack_bf16(
+            round_to<bf16>(acc[nd][0]) * scale, round_to<bf16>(acc[nd][1]) * scale);
+        *reinterpret_cast<uint32_t*>(&Qw[(g + 8) * LD + col]) = mma::pack_bf16(
+            round_to<bf16>(acc[nd][2]) * scale, round_to<bf16>(acc[nd][3]) * scale);
+    }
+    __syncwarp();
+    constexpr int CPR = DH / 8;
+    for (int e = lane; e < 16 * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = q0 + warp * 16 + r;
+        if (n >= N) continue;
+        const long long at = (((long long)b * N + n) * H + h) * DH + c * 8;
+        *reinterpret_cast<uint4*>(dq + at) =
+            *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
+    }
+}
+
 struct Args {
     const void *q, *k, *v, *dout;
     const float *lse, *delta;
@@ -729,16 +956,31 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
     return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
-int launch_dq(const Args& a, void* dq) {
-    auto kernel = flash_attn_bwd_dq_kernel<T, DH>;
+template <int DH>
+int launch_dq_fma(const Args& a, void* dq) {
+    auto kernel = flash_attn_bwd_dq_kernel<float, DH>;
     constexpr size_t smem = dq_smem_bytes<DH>();
     if (int err = raise_smem_limit(kernel, smem)) return err;
     const dim3 grid((unsigned)((a.N + BQ - 1) / BQ), (unsigned)(a.B * a.H));
     kernel<<<grid, NT, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.delta, static_cast<T*>(dq), a.N, a.H, a.qs, a.ks, a.vs, a.gs,
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(dq), a.N, a.H, a.qs, a.ks, a.vs,
+        a.gs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dq_tc(const Args& a, void* dq) {
+    auto kernel = flash_bwd_dq_tc_kernel<DH>;
+    constexpr size_t smem = dq_tc_smem_bytes<DH>();
+    constexpr int BQT = 16 * TC_WARPS;
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.N + BQT - 1) / BQT), (unsigned)(a.B * a.H));
+    kernel<<<grid, TC_WARPS * 32, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+        a.delta, static_cast<bf16*>(dq), a.N, a.H, a.qs, a.ks, a.vs, a.gs,
         a.scale);
     return (int)cudaGetLastError();
 }
@@ -763,12 +1005,22 @@ int dispatch_dkv_tc(int Dh, const Args& a, void* dk, void* dv) {
     return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch_dq(int Dh, const Args& a, void* dq) {
+// float32: the FMA kernel, BQ query rows per block.
+int dispatch_dq_fma(int Dh, const Args& a, void* dq) {
     switch (Dh) {
-        case 32: return launch_dq<T, 32>(a, dq);
-        case 64: return launch_dq<T, 64>(a, dq);
-        case 128: return launch_dq<T, 128>(a, dq);
+        case 32: return launch_dq_fma<32>(a, dq);
+        case 64: return launch_dq_fma<64>(a, dq);
+        case 128: return launch_dq_fma<128>(a, dq);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16: the tensor-core kernel, TC_WARPS warps of 16 query rows per block.
+int dispatch_dq_tc(int Dh, const Args& a, void* dq) {
+    switch (Dh) {
+        case 32: return launch_dq_tc<32>(a, dq);
+        case 64: return launch_dq_tc<64>(a, dq);
+        case 128: return launch_dq_tc<128>(a, dq);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -800,11 +1052,11 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout: (B, N, H, Dh) of one type, read through the (batch, token,
 // head) strides in `strides` (a host array of 12 values in elements: q, k, v,
-// dout), last dimension contiguous; for flash_attn_bwd_dkv in bfloat16 every
-// row start must be 16-byte aligned. lse, delta: contiguous fp32 (B*H, N), the
-// forward's logsumexp and rowsum(dO o O). dk, dv (and dq): contiguous
-// (B, N, H, Dh) of the input type. A block owns 64 keys in either type.
-// flash_attn_bwd_dkv chooses its kernel by dtype, here: float32 runs the FMA
+// dout), last dimension contiguous; in bfloat16 every row start must be
+// 16-byte aligned. lse, delta: contiguous fp32 (B*H, N), the forward's
+// logsumexp and rowsum(dO o O). dk, dv (and dq): contiguous (B, N, H, Dh) of
+// the input type. A block owns 64 keys (dkv) or 64 query rows (dq) in either
+// type. Both entries choose their kernel by dtype, here: float32 runs the FMA
 // kernel, bfloat16 the tensor-core kernel; neither stands in for the other.
 // Each entry returns the cudaError_t of its launch (0 on success); launches on
 // `stream`, does not synchronise, allocates nothing.
@@ -829,7 +1081,7 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
     const Args a = make_args(q, k, v, dout, lse, delta, B, N, H, strides,
                              scale, stream);
-    if (dtype == MRI_DTYPE_F32) return dispatch_dq<float>(Dh, a, dq);
-    if (dtype == MRI_DTYPE_BF16) return dispatch_dq<__nv_bfloat16>(Dh, a, dq);
+    if (dtype == MRI_DTYPE_F32) return dispatch_dq_fma(Dh, a, dq);
+    if (dtype == MRI_DTYPE_BF16) return dispatch_dq_tc(Dh, a, dq);
     return (int)cudaErrorInvalidValue;
 }

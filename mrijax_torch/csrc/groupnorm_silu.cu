@@ -10,10 +10,24 @@
 // one and keep intermediates out of device memory.
 //
 // What the design does about it:
-// * Each thread owns one vector column (VEC consecutive channels that lie in
-//   one group) and walks rows, so a warp reads consecutive 4..16-byte pieces
-//   of a row and the per-channel gamma/beta and the group's mean/rstd are
-//   loaded once per thread, not once per element.
+// * In the stats pass each thread owns one vector column (VEC consecutive
+//   channels that lie in one group) and walks rows, so a warp reads
+//   consecutive 4..16-byte pieces of a row.
+// * The apply pass keeps enough loads in flight to fill the card at the
+//   UNet's small shapes: each thread issues a compile-time number R (1 or
+//   2) of independent loads of one vector column before any arithmetic,
+//   and kernels/groupnorm.py::apply_plan takes the largest R that still
+//   gives every SM a block of each batch entry (one vector a thread at
+//   (800, 512)). 4 loads a thread measured slower than 2 at every
+//   main-path shape but the largest, where they tie (PERF.md, PR 4). Its vectors are 16 bytes wherever C and the pointer allow,
+//   also across a group boundary (C = 32 in bf16: 4 channels a group): each
+//   channel carries its own mean, rstd * gamma and beta, as the TPU kernel
+//   broadcasts the group statistics to channels. The block computes them
+//   once into shared memory while its loads are in flight, and each thread
+//   reads its columns' in 16-byte pieces: computed by every thread from
+//   global memory they cost as much as the SiLU (PERF.md, PR 4).
+//   y = (x - mean) * (rstd * gamma) + beta: mean is subtracted before the
+//   scaling, which does not cancel when |mean| >> std.
 // * The TPU kernel carried its sums across a sequential grid axis in VMEM.
 //   Blocks here run in any order, so the stats pass writes one partial per
 //   (batch, row-chunk) and a tiny second kernel sums the partials in a fixed
@@ -122,46 +136,90 @@ __global__ void gn_silu_finalize_kernel(const float* __restrict__ partials,
     }
 }
 
-template <typename T, int VEC>
-__global__ void gn_silu_apply_kernel(const T* __restrict__ x,
-                                     const float* __restrict__ stats,
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ beta,
-                                     T* __restrict__ y, GnShape s) {
-    const int cols = s.C / VEC;
-    const int cpg = s.C / s.G;
-    const int tid = threadIdx.x;
-    const int x_id = tid % s.tx;
-    const int y_id = tid / s.tx;
-    const long long b = blockIdx.y;
-    const long long row0 = (long long)blockIdx.x * s.rows_per_chunk;
-    const long long row1 = min(row0 + (long long)s.rows_per_chunk, s.N);
-    const float* st = stats + b * 2 * s.G;
+// gn_silu_apply: a block of blockDim.x = tx vector columns by blockDim.y = ty
+// rows; each thread takes R rows ty apart in one vector column. Grid: row
+// chunks of ty * R rows, batch entries, column chunks of tx vector columns.
+struct ApplyShape {
+    long long N;
+    int C, G;
+};
 
-    for (int col = x_id; col < cols; col += s.tx) {
-        const int c0 = col * VEC;
-        const int g = c0 / cpg;
-        const float mean = st[g];
-        const float rstd = st[s.G + g];
-        float ga[VEC], be[VEC];
+// VEC consecutive floats of shared memory, 16 bytes at a time where VEC
+// allows (the arrays start at multiples of 4 floats then).
+template <int VEC>
+__device__ __forceinline__ void load_channels(const float* src,
+                                              float (&dst)[VEC]) {
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; i += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(src + i);
+            dst[i] = t.x;
+            dst[i + 1] = t.y;
+            dst[i + 2] = t.z;
+            dst[i + 3] = t.w;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+    }
+}
+
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(256)
+gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ beta, T* __restrict__ y,
+                     ApplyShape s) {
+    extern __shared__ float params[];  // [3][tx * VEC]: mean, rstd * gamma, beta
+    const int col = blockIdx.z * blockDim.x + threadIdx.x;
+    const bool col_ok = col * VEC < s.C;
+    const long long row0 =
+        (long long)blockIdx.x * blockDim.y * R + threadIdx.y;
+    const long long b = blockIdx.y;
+    const long long base = b * s.N * s.C + (long long)col * VEC;
+
+    // the R loads first, all in flight together
+    Pack<T, VEC> p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const long long row = row0 + (long long)r * blockDim.y;
+        if (col_ok && row < s.N)
+            p[r] = *reinterpret_cast<const Pack<T, VEC>*>(x + base + row * s.C);
+    }
+
+    // meanwhile the block computes each of its channels' parameters once
+    const int nch = blockDim.x * VEC;
+    const int ch0 = blockIdx.z * nch;
+    const int cpg = s.C / s.G;
+    const float* st = stats + b * 2 * s.G;
+    for (int j = threadIdx.y * blockDim.x + threadIdx.x;
+         j < nch && ch0 + j < s.C; j += blockDim.x * blockDim.y) {
+        const int c = ch0 + j;
+        const int g = c / cpg;
+        params[j] = st[g];
+        params[nch + j] = st[s.G + g] * gamma[c];
+        params[2 * nch + j] = beta[c];
+    }
+    __syncthreads();
+    if (!col_ok) return;
+
+    float mean[VEC], a[VEC], be[VEC];
+    const float* own = params + threadIdx.x * VEC;
+    load_channels<VEC>(own, mean);
+    load_channels<VEC>(own + nch, a);
+    load_channels<VEC>(own + 2 * nch, be);
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const long long row = row0 + (long long)r * blockDim.y;
+        if (row >= s.N) continue;
+        Pack<T, VEC> o;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-            ga[i] = gamma[c0 + i];
-            be[i] = beta[c0 + i];
+            const float v = (to_float<T>(p[r].v[i]) - mean[i]) * a[i] + be[i];
+            o.v[i] = from_float<T>(v / (1.f + expf(-v)));
         }
-        for (long long r = row0 + y_id; r < row1; r += s.ty) {
-            const long long off = (b * s.N + r) * s.C + c0;
-            const Pack<T, VEC> p =
-                *reinterpret_cast<const Pack<T, VEC>*>(x + off);
-            Pack<T, VEC> o;
-#pragma unroll
-            for (int i = 0; i < VEC; ++i) {
-                const float v =
-                    (to_float<T>(p.v[i]) - mean) * rstd * ga[i] + be[i];
-                o.v[i] = from_float<T>(v / (1.f + expf(-v)));
-            }
-            *reinterpret_cast<Pack<T, VEC>*>(y + off) = o;
-        }
+        *reinterpret_cast<Pack<T, VEC>*>(y + base + row * s.C) = o;
     }
 }
 
@@ -180,13 +238,32 @@ int launch_stats(const void* x, float* partials, float* stats, GnShape s,
     return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-int launch_apply(const void* x, const float* stats, const float* gamma,
-                 const float* beta, void* y, GnShape s, cudaStream_t stream) {
-    const dim3 grid((unsigned)s.chunks, (unsigned)s.B);
-    gn_silu_apply_kernel<T, VEC><<<grid, s.tx * s.ty, 0, stream>>>(
+template <typename T, int VEC, int R>
+int launch_apply_rows(const void* x, const float* stats, const float* gamma,
+                      const float* beta, void* y, ApplyShape s, long long B,
+                      int tx, int ty, int row_chunks, int col_chunks,
+                      cudaStream_t stream) {
+    const dim3 grid((unsigned)row_chunks, (unsigned)B, (unsigned)col_chunks);
+    const size_t smem = sizeof(float) * 3 * tx * VEC;
+    gn_silu_apply_kernel<T, VEC, R><<<grid, dim3(tx, ty), smem, stream>>>(
         static_cast<const T*>(x), stats, gamma, beta, static_cast<T*>(y), s);
     return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_apply(int rows_per_thread, const void* x, const float* stats,
+                 const float* gamma, const float* beta, void* y, ApplyShape s,
+                 long long B, int tx, int ty, int row_chunks, int col_chunks,
+                 cudaStream_t stream) {
+#define GN_APPLY_ROWS(R)                                                      \
+    launch_apply_rows<T, VEC, R>(x, stats, gamma, beta, y, s, B, tx, ty,     \
+                                 row_chunks, col_chunks, stream)
+    switch (rows_per_thread) {
+        case 1: return GN_APPLY_ROWS(1);
+        case 2: return GN_APPLY_ROWS(2);
+    }
+#undef GN_APPLY_ROWS
+    return (int)cudaErrorInvalidValue;
 }
 
 // Calls FN<T, VEC>(args...) for the runtime (dtype, vec) pair.
@@ -225,14 +302,19 @@ extern "C" int gn_silu_stats(const void* x, void* partials, void* stats,
                 static_cast<cudaStream_t>(stream));
 }
 
+// gn_silu_apply takes the fields of kernels/groupnorm.py::apply_plan: a
+// block of tx * ty threads covers tx vector columns and ty * rows_per_thread
+// rows (1 or 2 rows a thread); row_chunks * col_chunks blocks cover one
+// batch entry.
 extern "C" int gn_silu_apply(const void* x, const void* stats,
                              const void* gamma, const void* beta, void* y,
                              int dtype, int vec, long long B, long long N,
-                             int C, int G, int tx, int ty, int rows_per_chunk,
-                             int chunks, void* stream) {
-    const GnShape s{B, N, C, G, tx, ty, rows_per_chunk, chunks};
-    GN_DISPATCH(launch_apply, x, static_cast<const float*>(stats),
+                             int C, int G, int tx, int ty, int rows_per_thread,
+                             int row_chunks, int col_chunks, void* stream) {
+    const ApplyShape s{N, C, G};
+    GN_DISPATCH(launch_apply, rows_per_thread, x,
+                static_cast<const float*>(stats),
                 static_cast<const float*>(gamma),
-                static_cast<const float*>(beta), y, s,
-                static_cast<cudaStream_t>(stream));
+                static_cast<const float*>(beta), y, s, B, tx, ty, row_chunks,
+                col_chunks, static_cast<cudaStream_t>(stream));
 }

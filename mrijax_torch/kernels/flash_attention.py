@@ -14,11 +14,10 @@ CUDA kernels:
   ``_dq_kernel``) recompute the probabilities from the saved logsumexp, one
   KV-major pass for dK and dV and one Q-major pass for dQ, without atomics.
 
-For bfloat16 inputs ``flash_attn_fwd`` and ``flash_attn_bwd_dkv`` run on the
-tensor cores (bf16 ``mma``, bf16 tiles in shared memory filled by 16-byte
-asynchronous copies); for float32 inputs, and in ``flash_attn_bwd_dq``, every
-product is fp32 FMAs. The C entry picks by dtype. ``launch_plan`` chooses the
-rows per block.
+For bfloat16 inputs all three run on the tensor cores (bf16 ``mma``, bf16
+tiles in shared memory filled by 16-byte asynchronous copies); for float32
+inputs every product is fp32 FMAs. The C entry picks by dtype.
+``launch_plan`` chooses the forward's rows per block and reports the others'.
 
 API: q, k, v of shape (B, N, H, Dh) → out (B, N, H, Dh) in the input dtype,
 lse fp32 (B·H, N); scale = Dh**-0.5, folded into q and rounded to the input
@@ -49,13 +48,14 @@ SM_COUNT = 132                     # streaming multiprocessors of an H100
 MAX_SHARED_BYTES = 232448          # dynamic shared memory a block may ask for
 FORWARD_TILES = (128, 64)          # query rows per block of the bf16 forward: 4 warps of 32 or 16
 DKV_TILE = 64                      # keys per block of the bf16 dkv: 4 warps of 16
-INNER_TILE = 64                    # keys (forward) or query rows (dkv) per inner step
+DQ_TILE = 64                       # query rows per block of the bf16 dq: 4 warps of 16
+INNER_TILE = 64                    # keys (forward, dq) or query rows (dkv) per inner step
 COPY_ALIGNMENT = 16                # bytes moved by one asynchronous copy
 
 
 class LaunchPlan(NamedTuple):
-    """How ``flash_attn_fwd`` or ``flash_attn_bwd_dkv`` is launched."""
-    tile: int          # query rows (forward) or keys (dkv) owned by a block
+    """How one of the three flash-attention kernels is launched."""
+    tile: int          # query rows (forward, dq) or keys (dkv) owned by a block
     warps: int         # warps per block
     blocks: int        # B·H·⌈N/tile⌉
     shared_bytes: int  # dynamic shared memory per block, as the source computes it
@@ -79,14 +79,15 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     (``scripts/probe_torch_flash_tiles.py`` times 64 against 128).
     dkv: 64 keys, a constant of the source (32 measured 11–29 % slower, 128 no
     faster; its accumulators leave no registers for a second fragment of keys
-    a warp); its plan reports blocks and shared memory and steers nothing.
+    a warp); dq: 64 query rows, the same design turned Q-major. Their plans
+    report blocks and shared memory and steer nothing.
     Tiles are bf16 with a pitch of Dh + 8:
     forward Q + 2 stages of K and V; dkv K, V + 2 stages of Q, dO and of the
-    rows' lse and Δ.
+    rows' lse and Δ; dq Q, dO + 2 stages of K and V.
     float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
-    Dh + 4 and (64, 68) P (and dU) tiles.
+    Dh + 4 and (64, 68) P (and, in dkv, dU) tiles.
     """
-    if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv"):
+    if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         raise ValueError(f"no launch plan for {kernel!r}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
@@ -94,20 +95,22 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     forward = kernel == "flash_attn_fwd"
     if dtype == torch.float32:
         tile, warps = 64, 8
-        floats = (2 * 64 * (d + 4) + 64 * d + 64 * 68 if forward
-                  else 4 * 64 * (d + 4) + 2 * 64 * 68)
+        floats = {"flash_attn_fwd": 2 * 64 * (d + 4) + 64 * d + 64 * 68,
+                  "flash_attn_bwd_dkv": 4 * 64 * (d + 4) + 2 * 64 * 68,
+                  "flash_attn_bwd_dq": 4 * 64 * (d + 4) + 64 * 68}[kernel]
         shared = 4 * floats
     elif dtype == torch.bfloat16:
         big, small = FORWARD_TILES
         if not forward:
-            tile = DKV_TILE
+            tile = DKV_TILE if kernel == "flash_attn_bwd_dkv" else DQ_TILE
         elif d >= 64 and b * h * -(-n // big) >= SM_COUNT:
             tile = big
         else:
             tile = small
         warps = 4
         rows = tile + 4 * INNER_TILE if forward else 2 * tile + 4 * INNER_TILE
-        shared = 2 * rows * (d + 8) + (0 if forward else 4 * 4 * INNER_TILE)
+        stats = 4 * 4 * INNER_TILE if kernel == "flash_attn_bwd_dkv" else 0
+        shared = 2 * rows * (d + 8) + stats
     else:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
     if shared > MAX_SHARED_BYTES:
@@ -359,10 +362,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
     operands; ``outputs`` are the contiguous tensors the kernel writes."""
     b, n, h, d = q.shape
     code = _build.dtype_code(q.dtype)
-    if entry == "flash_attn_bwd_dkv":
-        _check_kernel_operands(q=q, k=k, v=v, dout=dout)
-    else:
-        _check_kernel_sizes(q)
+    _check_kernel_operands(q=q, k=k, v=v, dout=dout)
     strides = _BwdStrides(*[
         s for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
         for s in _token_strides(name, t)])

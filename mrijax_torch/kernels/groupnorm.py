@@ -4,7 +4,8 @@ Counterpart of ``mrijax/kernels/groupnorm_pallas.py``. Two hand-written CUDA
 kernels (``mrijax_torch/csrc/groupnorm_silu.cu``) take the place of the two
 Pallas kernels: ``gn_silu_stats`` (per-(batch, group) mean and 1/std in fp32)
 and ``gn_silu_apply`` (normalise, affine, SiLU, cast) — two reads and one
-write of the activation.
+write of the activation. ``launch_plan`` cuts the input up for the stats
+kernel, ``apply_plan`` for the apply kernel.
 
 For a CUDA tensor the wrappers launch their kernel or raise. The plain
 PyTorch versions beside them (``*_reference``) are what a CPU tensor gets,
@@ -31,13 +32,15 @@ launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply")
 
 MAX_GROUPS = 128          # the finalize kernel sums partials with 256 // G rows
 MAX_VECTOR_COLUMNS = 4096  # stats scratch in shared memory: 2 * cols floats
+SM_COUNT = 132             # streaming multiprocessors of an H100
+APPLY_ROWS_PER_THREAD = (2, 1)   # loads a thread compiled into gn_silu_apply, most first
 _THREADS = 256
 _ELEMENTS_PER_BLOCK = 16384
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """How the (B, N, C) activation is cut up for both kernels."""
+    """How the (B, N, C) activation is cut up for ``gn_silu_stats``."""
 
     vec: int             # channels moved per load; divides C // G
     tx: int              # threads across vector columns
@@ -77,6 +80,59 @@ def launch_plan(n: int, c: int, groups: int, itemsize: int,
     return LaunchPlan(vec, tx, ty, rows_per_chunk, chunks)
 
 
+@dataclass(frozen=True)
+class ApplyPlan:
+    """How one batch entry of the (B, N, C) activation is cut up for
+    ``gn_silu_apply``: blocks of ``tx`` vector columns by ``ty`` rows, each
+    thread taking ``rows_per_thread`` rows ``ty`` apart in one column."""
+
+    vec: int              # channels moved per load; divides C
+    tx: int               # threads across vector columns
+    ty: int               # threads across rows
+    rows_per_thread: int  # loads a thread issues before any arithmetic
+    row_chunks: int       # blocks across the rows of one batch entry
+    col_chunks: int       # blocks across the vector columns
+
+    @property
+    def blocks_per_batch(self) -> int:
+        return self.row_chunks * self.col_chunks
+
+
+@functools.lru_cache(maxsize=256)
+def apply_plan(n: int, c: int, groups: int, itemsize: int,
+               alignment: int = 16) -> ApplyPlan:
+    """Vector width, block shape and loads per thread of ``gn_silu_apply``
+    for an (·, n, c) input whose data pointer is aligned to ``alignment``
+    bytes.
+
+    ``vec`` is the largest power of two such that a vector is at most 16
+    bytes, ``c`` is a multiple of it and the pointer is aligned to it; a
+    vector may span groups (each channel has its own statistics in the
+    kernel). Blocks are 256 threads, ``tx`` of them across the vector
+    columns. ``rows_per_thread`` is 2 where that still gives every SM a
+    block of each batch entry, else 1: small shapes fill the card with one
+    load a thread. 4 loads a thread measured slower than 2 on an H100 at
+    every main-path shape but the largest, where they tie (PERF.md), and are
+    not compiled.
+    """
+    if c % groups != 0:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    if not 1 <= groups <= MAX_GROUPS:
+        raise ValueError(f"groups must be in 1..{MAX_GROUPS}, got {groups}")
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec != 0 or alignment % (vec * itemsize) != 0):
+        vec //= 2
+    cols = c // vec
+    tx = min(cols, _THREADS)
+    ty = _THREADS // tx
+    col_chunks = -(-cols // tx)
+    for rows_per_thread in APPLY_ROWS_PER_THREAD:
+        row_chunks = -(-n // (ty * rows_per_thread))
+        if row_chunks * col_chunks >= SM_COUNT:
+            break
+    return ApplyPlan(vec, tx, ty, rows_per_thread, row_chunks, col_chunks)
+
+
 def _check_input(x: torch.Tensor, groups: int) -> None:
     if x.dim() != 3:
         raise ValueError(f"expected (B, N, C), got shape {tuple(x.shape)}")
@@ -94,10 +150,17 @@ def _check_input(x: torch.Tensor, groups: int) -> None:
         raise ValueError(f"channels {x.shape[2]} not divisible by groups {groups}")
 
 
-def _plan_for(x: torch.Tensor, groups: int) -> LaunchPlan:
+def _alignment(x: torch.Tensor) -> int:
     ptr = x.data_ptr()
-    alignment = 16 if ptr % 16 == 0 else (ptr & -ptr)
-    return launch_plan(x.shape[1], x.shape[2], groups, x.element_size(), alignment)
+    return 16 if ptr % 16 == 0 else (ptr & -ptr)
+
+
+def _plan_for(x: torch.Tensor, groups: int) -> LaunchPlan:
+    return launch_plan(x.shape[1], x.shape[2], groups, x.element_size(), _alignment(x))
+
+
+def _apply_plan_for(x: torch.Tensor, groups: int) -> ApplyPlan:
+    return apply_plan(x.shape[1], x.shape[2], groups, x.element_size(), _alignment(x))
 
 
 def _library() -> ctypes.CDLL:
@@ -106,7 +169,7 @@ def _library() -> ctypes.CDLL:
         p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
         lib.gn_silu_stats.argtypes = [p, p, p, i, i, ll, ll, i, i, i, i, i, i, d, d, p]
         lib.gn_silu_stats.restype = i
-        lib.gn_silu_apply.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, i, i, i, i, p]
+        lib.gn_silu_apply.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, i, i, i, i, i, p]
         lib.gn_silu_apply.restype = i
     return lib
 
@@ -172,7 +235,7 @@ def _launch_stats(x: torch.Tensor, groups: int, eps: float,
 
 
 def _launch_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
+                  bias: torch.Tensor, plan: ApplyPlan) -> torch.Tensor:
     """Launch ``gn_silu_apply``; ``x`` as for ``_launch_stats``, the others
     contiguous float32 on the same device."""
     b, n, c = x.shape
@@ -191,8 +254,8 @@ def _launch_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     err = _library().gn_silu_apply(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         y.data_ptr(), _build.dtype_code(x.dtype), plan.vec, b, n, c,
-        groups, plan.tx, plan.ty, plan.rows_per_chunk, plan.chunks,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        groups, plan.tx, plan.ty, plan.rows_per_thread, plan.row_chunks,
+        plan.col_chunks, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check_launch(err, "gn_silu_apply")
     launches.bump("gn_silu_apply")
@@ -220,7 +283,7 @@ def gn_silu_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     groups = stats.shape[-1]
     _check_input(x, groups)
     with torch.cuda.device(x.device):
-        return _launch_apply(x, stats, scale, bias, _plan_for(x, groups))
+        return _launch_apply(x, stats, scale, bias, _apply_plan_for(x, groups))
 
 
 def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -235,10 +298,10 @@ def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         )
     x3 = x.view(shape[0], -1, shape[-1])
     _check_input(x3, groups)
-    plan = _plan_for(x3, groups)
     with torch.cuda.device(x.device):
-        stats = _launch_stats(x3, groups, eps, plan)
-        return _launch_apply(x3, stats, scale, bias, plan).view(shape)
+        stats = _launch_stats(x3, groups, eps, _plan_for(x3, groups))
+        return _launch_apply(x3, stats, scale, bias,
+                             _apply_plan_for(x3, groups)).view(shape)
 
 
 class _GroupNormSiLU(torch.autograd.Function):

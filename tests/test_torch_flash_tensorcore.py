@@ -5,10 +5,10 @@ wrappers.
 
 The arithmetic tests run no CUDA code. They hold the emulation against the
 port's own plain versions (``flash_attention_reference``,
-``flash_attn_bwd_dkv_reference``): they show that two bf16 terms of P and dU
-can meet the one-ulp bar and one cannot, not that the kernel does. One case
-holds the emulation against the JAX package's Pallas ``_dkv_kernel`` in
-interpret mode. The parity of the plain versions with the Pallas kernels is
+``flash_attn_bwd_dkv_reference``, ``flash_attn_bwd_dq_reference``): they show
+that two bf16 terms of P and dU can meet the bar of the card and one cannot,
+not that the kernel does. Two cases hold the emulations against the JAX
+package's Pallas ``_dkv_kernel`` and ``_dq_kernel`` in interpret mode. The parity of the plain versions with the Pallas kernels is
 in ``tests/test_torch_port_kernels.py`` and ``tests/test_torch_port_flash_bwd.py``;
 the kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``."""
@@ -23,6 +23,7 @@ from mrijax_torch.kernels import flash_attention as fa
 
 LOG2E = math.log2(math.e)
 ONE_BF16_ULP = dict(atol=1e-5, rtol=2 ** -7)   # the bar dk and dv are held to on the card
+TWO_BF16_ULPS = dict(atol=1e-5, rtol=2 ** -6)  # the bar bf16 dq is held to on the card
 SHAPES = [(1, 800, 1, 128), (1, 130, 3, 64), (1, 17, 2, 64)]
 
 
@@ -149,6 +150,97 @@ def test_two_term_emulation_bf16_matches_pallas_dkv_interpret():
                                    rtol=2e-2, atol=2e-3, err_msg=name)
 
 
+def _dq_emulation(q, k, v, dout, lse, delta, terms, k_tile=64):
+    """The dq kernel's arithmetic for bf16 inputs: per tile of 64 keys
+    S = q′·kᵀ and dP = dO·vᵀ from bf16 operands with fp32 sums,
+    P = 2^(S·log2e − lse·log2e), dU = P∘(dP − Δ), then dQ′ += dU·k with dU
+    split into ``terms`` bf16 terms, one product per term, summed in fp32;
+    dq = round(round(dQ′)·Dh^-1/2), the two casts of the TPU wrapper."""
+    b, n, h, d = q.shape
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    q_prime = (q.float() * scale).to(q.dtype).float()
+    do = dout.float()
+    lse2 = (lse * LOG2E).reshape(b, h, n, 1)
+    delta = delta.reshape(b, h, n, 1)
+    dq_prime = torch.zeros(b, h, n, d)
+    for start in range(0, n, k_tile):
+        keys = slice(start, start + k_tile)
+        kf = k[:, keys].float()
+        s = torch.einsum("bnhd,bmhd->bhnm", q_prime, kf)
+        dp = torch.einsum("bnhd,bmhd->bhnm", do, v[:, keys].float())
+        du = torch.exp2(s * LOG2E - lse2) * (dp - delta)
+        for part in _bf16_terms(du, terms):
+            dq_prime += torch.einsum("bhnm,bmhd->bhnd", part, kf)
+    dq_prime = dq_prime.permute(0, 2, 1, 3).to(q.dtype)
+    return (dq_prime.float() * scale).to(q.dtype)
+
+
+DQ_SHAPES = SHAPES + [(2, 800, 4, 128)]
+
+
+@pytest.mark.parametrize("shape", DQ_SHAPES)
+def test_two_bf16_terms_hold_dq_to_two_ulps(shape):
+    """dU as hi + lo: the fp32 sums differ from the plain version's in their
+    last digits, but dq is rounded twice (dQ′, then the scaled value), and
+    two roundings of sums taken in another order can land two bf16 ulps
+    apart: the bar of bf16 dq on the card is 2^-6 relative + 1e-5."""
+    q, k, v, dout, _, lse, delta = _operands(shape, torch.bfloat16, seed=20)
+    want = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+    got = _dq_emulation(q, k, v, dout, lse, delta, terms=2)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _outside(got, want, **TWO_BF16_ULPS) == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 800, 1, 128), (1, 130, 3, 64), (1, 17, 2, 64)])
+def test_one_bf16_rounding_of_du_misses_the_dq_bar(shape):
+    """Why dU is split: rounded to bf16 once (2^-9 relative per term), the
+    sums miss even the two-ulp bar wherever terms cancel."""
+    q, k, v, dout, _, lse, delta = _operands(shape, torch.bfloat16, seed=20)
+    want = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+    got = _dq_emulation(q, k, v, dout, lse, delta, terms=1)
+    assert _outside(got, want, **TWO_BF16_ULPS) > 0
+
+
+def test_two_casts_not_the_split_set_the_dq_bar():
+    """Three bf16 terms of dU (24 significant bits, as good as fp32) still
+    leave elements of dq outside one ulp at the generation shape, where two
+    terms leave more: the two roundings, not the split, push dq past one
+    ulp. Both stay inside two."""
+    q, k, v, dout, _, lse, delta = _operands((2, 800, 4, 128), torch.bfloat16, seed=20)
+    want = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+    three = _dq_emulation(q, k, v, dout, lse, delta, terms=3)
+    two = _dq_emulation(q, k, v, dout, lse, delta, terms=2)
+    assert 0 < _outside(three, want, **ONE_BF16_ULP) <= _outside(two, want, **ONE_BF16_ULP)
+    assert _outside(three, want, **TWO_BF16_ULPS) == 0
+
+
+def test_two_term_dq_emulation_bf16_matches_pallas_dq_interpret():
+    """dq of the two-term arithmetic against the JAX package's ``_dq_kernel``
+    run through ``_flash_backward`` in TPU interpret mode, on the Pallas
+    forward's own (out, lse), bf16 in and out. Tolerance 2e-2 relative +
+    2e-3, that of the plain version's own bf16 hold against Pallas
+    (``tests/test_torch_port_flash_bwd.py``): the TPU kernel runs dP from a
+    bf16 dO at default precision and rounds dq twice as well."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from mrijax.kernels.flash_attention_pallas import _flash_backward, _flash_forward_lse
+
+    rng = np.random.default_rng(24)
+    shape = (1, 200, 2, 32)
+    arrays = [rng.normal(size=shape).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in arrays)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _flash_forward_lse(jq, jk, jv)
+        want, _, _ = _flash_backward(jq, jk, jv, out, lse, jdo)
+    out = torch.from_numpy(np.array(out, np.float32)).bfloat16()
+    lse = torch.from_numpy(np.array(lse, np.float32)[..., 0])
+    got = _dq_emulation(q, k, v, dout, lse, fa.flash_attention_delta(out, dout), terms=2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-3)
+
+
 def _forward_emulation(q, k, v, k_tile=64):
     """The forward kernel's arithmetic: online softmax over tiles of 64 keys,
     exponentials as 2^(s·log2e − m·log2e), the row sum from the unrounded P,
@@ -247,13 +339,35 @@ def test_launch_plan_shared_memory_is_what_the_sources_lay_out():
         == 4 * (4 * 64 * 132 + 2 * 64 * 68)
 
 
+@pytest.mark.parametrize("b,n,h,d,blocks", [(2, 800, 4, 128, 104), (8, 800, 4, 128, 416),
+                                            (1, 51200, 4, 32, 3200), (1, 17, 2, 64, 2)])
+def test_dq_launch_plan_keeps_64_query_rows_a_block(b, n, h, d, blocks):
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = fa.launch_plan("flash_attn_bwd_dq", b, n, h, d, dtype)
+        assert (plan.tile, plan.blocks) == (64, blocks)
+        assert plan.warps == (4 if dtype == torch.bfloat16 else 8)
+
+
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+def test_dq_launch_plan_shared_memory_is_what_the_source_lays_out(d):
+    """bf16: q′ and dO of 64 rows + 2 stages of K and V of 64 keys, pitch
+    Dh + 8 (two blocks an SM at Dh = 128). float32: the FMA kernel's Q, dO,
+    K, V tiles of pitch Dh + 4 and one (64, 68) dU tile."""
+    bf16 = fa.launch_plan("flash_attn_bwd_dq", 8, 800, 4, d, torch.bfloat16)
+    assert bf16.shared_bytes == 2 * (2 * 64 + 4 * 64) * (d + 8)
+    fp32 = fa.launch_plan("flash_attn_bwd_dq", 8, 800, 4, d, torch.float32)
+    assert fp32.shared_bytes == 4 * (4 * 64 * (d + 4) + 64 * 68)
+    if d == 128:
+        assert bf16.shared_bytes == 104448 and 2 * bf16.shared_bytes <= 232448
+
+
 def test_launch_plan_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dims"):
         fa.launch_plan("flash_attn_fwd", 1, 64, 1, 48, torch.bfloat16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.launch_plan("flash_attn_fwd", 1, 64, 1, 32, torch.float16)
     with pytest.raises(ValueError, match="no launch plan"):
-        fa.launch_plan("flash_attn_bwd_dq", 1, 64, 1, 32, torch.bfloat16)
+        fa.launch_plan("flash_attn_bwd", 1, 64, 1, 32, torch.bfloat16)
 
 
 # -------------------------------------------------------------------- alignment
@@ -290,6 +404,21 @@ def test_alignment_check_names_the_operand_with_a_misfit_stride(name):
     assert wide.stride(3) == 1
     with pytest.raises(ValueError, match=rf"^{name}: head stride 36 elements is 72 bytes"):
         fa.check_copy_alignment(name, wide)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "dout"])
+def test_dq_launch_names_a_misaligned_bf16_operand(name):
+    """The bf16 dq kernel moves its tiles in 16-byte asynchronous copies too:
+    before anything is built or launched, its launch refuses an operand
+    that starts 8 bytes into its buffer, and names it."""
+    shape = (1, 40, 2, 32)
+    q, k, v, dout, _, lse, delta = _operands(shape, torch.bfloat16, seed=25)
+    operands = {"q": q, "k": k, "v": v, "dout": dout}
+    flat = torch.zeros(dout.numel() + 8, dtype=torch.bfloat16)
+    operands[name] = flat[4:4 + dout.numel()].view(shape)
+    dq = torch.empty(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=rf"^{name}: data pointer is not 16-byte aligned"):
+        fa._launch_backward("flash_attn_bwd_dq", *operands.values(), lse, delta, (dq,))
 
 
 def test_backward_copies_a_misaligned_output_gradient():

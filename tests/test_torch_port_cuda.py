@@ -66,6 +66,38 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,pointer_shift", [
+    ((2, 800, 512), 0.3, 0),      # one load a thread
+    ((2, 800, 1024), 0.3, 0),     # two
+    ((1, 51200, 128), 0.3, 0),    # four
+    ((1, 4096, 32), 0.3, 0),      # 16-byte bf16 vectors across two groups of 4 channels
+    ((2, 333, 24), 0.3, 0),       # 3 channels a group, ragged N
+    ((2, 100, 64), 200.0, 0),     # |mean| >> std
+    ((1, 70, 2048), 0.3, 0),      # more vector columns than a block has threads
+    ((1, 300, 64), 0.3, 1),       # a pointer one element off: narrower vectors
+])
+def test_gn_silu_apply_kernel_matches_plain_version(cuda, shape, offset, pointer_shift, dtype):
+    """``gn_silu_apply`` alone, on the plain version's statistics, at every
+    loads-per-thread count, vector width and column split ``apply_plan``
+    gives. fp32: 2e-5 absolute; bf16: one ulp of the output."""
+    rng = np.random.default_rng(5)
+    b, n, c = shape
+    groups = 16 if c == 2048 else 8
+    x32 = rng.normal(size=b * n * c + pointer_shift).astype(np.float32) * 1.5 + offset
+    flat = torch.from_numpy(x32).to(cuda, dtype)
+    x = flat[pointer_shift:].view(shape)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    stats = gn.gn_silu_stats_reference(x, groups)
+    gn.launches.reset()
+    got = gn.gn_silu_apply(x, stats, scale, bias)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 1}
+    want = gn.gn_silu_apply_reference(x, stats, scale, bias)
+    tol = dict(atol=2e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 16, 64, device=cuda)
     w = torch.ones(64, device=cuda)
@@ -84,9 +116,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("shape", [(8, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
                                    (1, 4100, 2, 32), (1, 17, 2, 64)])
 def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtype):
-    """fp32: 1e-4 absolute (tile-by-tile sums). bf16: 1e-5 + 2**-7 relative,
-    one bf16 ulp (float32 sums rounded to bf16 at the same points on both
-    sides: once, for dq twice)."""
+    """fp32: 1e-4 absolute (tile-by-tile sums). bf16 dk, dv: 1e-5 + 2**-7
+    relative, one bf16 ulp (float32 sums rounded to bf16 once on both
+    sides); bf16 dq: 1e-5 + 2**-6 relative, two ulps (rounded twice, around
+    the Dh^-1/2 multiply, after sums taken in another order)."""
     b, n, h, d = shape
     rng = np.random.default_rng(2)
     qkv = torch.from_numpy(rng.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(cuda, dtype)
@@ -98,10 +131,13 @@ def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtyp
     assert fa.launches.as_dict() == {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 1,
                                      "flash_attn_bwd_dq": 1}
     want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout)
-    tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=2 ** -7)
-    for g, w in zip(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.is_contiguous()
-        torch.testing.assert_close(g, w, **tol)
+        if dtype == torch.float32:
+            tol = dict(atol=1e-4, rtol=0)
+        else:
+            tol = dict(atol=1e-5, rtol=2 ** -6 if name == "dq" else 2 ** -7)
+        torch.testing.assert_close(g, w, **tol, msg=name)
 
 
 def test_flash_attention_autograd_route_launches_all_three_kernels(cuda):
