@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # everything, needs one card
     python3 chip_smoke.py --kernels-only   # build + compare + time the kernels
-    python3 chip_smoke.py --profile        # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile        # also torch.profiler breakdowns
 
 What it does, in order:
 
@@ -22,7 +22,8 @@ What it does, in order:
    flops / peak rate), and the host's time to issue one wrapper call; the
    flash kernels also at N = 51 200 (4 heads of 32), with the rate of the
    exponentials beside the operations bound; GroupNorm+SiLU also weighted by
-   its calls in one generate call;
+   its calls in one generate call; with ``--profile``, checks under
+   ``torch.profiler`` that a ``gn_silu_stats`` call is one kernel launch;
 4. checks a small float32 pipeline on the card (kernels) against the same
    pipeline on the CPU (plain versions);
 5. drives the generation path at full width: the flagship ``UNet3D`` (base
@@ -199,9 +200,14 @@ def compare_groupnorm(rng):
     kernel test; the sums are taken in another order). bf16 outputs: 1e-2
     relative + 1e-5, one bf16 ulp — both sides compute in fp32 and round once,
     so they differ by at most the last bit. Statistics are fp32 for either
-    input type and held to 2e-5. Every main-path shape is compared at the
-    batch the generation path gives it and, for the UNet's call sites, at the
-    training batch as well.
+    input type and held to 2e-5, and two calls must give bitwise the same
+    statistics (the kernel sums in a fixed order; only its ticket is an
+    atomic). Every main-path shape is compared at the batch the generation
+    path gives it and, for the UNet's call sites, at the training batch as
+    well. Last, ``gn_far_from_zero``: x = 200 + 1.5·N(0, 1) at (2, 100, 64),
+    where E[x²] − mean² cancels to 1/17 800 of E[x²]; kernel and plain
+    version each hold the variance (rstd⁻² − eps) within 16·2⁻²⁴·E[x²] of
+    the float64 variance (a few float32 ulps of E[x²]).
     """
 
     worst = {"gn_silu_stats": {"float32": 0.0, "bfloat16": 0.0},
@@ -218,6 +224,8 @@ def compare_groupnorm(rng):
             stats = gn.gn_silu_stats(x, GROUPS)
             e1 = check_close(f"{tag} stats", stats,
                              gn.gn_silu_stats_reference(x, GROUPS), atol=2e-5)
+            if not torch.equal(gn.gn_silu_stats(x, GROUPS), stats):
+                raise AssertionError(f"{tag} stats: two calls differ")
             y = gn.gn_silu_apply(x, stats, scale, bias)
             tol = dict(atol=2e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
             e2 = check_close(f"{tag} apply", y,
@@ -229,9 +237,33 @@ def compare_groupnorm(rng):
             worst["gn_silu_apply"][key] = max(worst["gn_silu_apply"][key], e2)
             del x, stats, y, fused
         del x32
+    far = compare_groupnorm_far_from_zero(rng)
     torch.cuda.synchronize()
-    print(f"compare groupnorm: {len(cases)} shapes x 2 dtypes ok, max abs err {json.dumps(worst)}")
+    print(f"compare groupnorm: {len(cases)} shapes x 2 dtypes ok, stats bitwise equal in two "
+          f"calls, max abs err {json.dumps(worst)}")
+    print("gn_far_from_zero " + json.dumps(far))
     return worst
+
+
+def compare_groupnorm_far_from_zero(rng, shape=(2, 100, 64), offset=200.0):
+    """The variance of ``gn_silu_stats`` and of its plain version where the
+    mean is far from zero, against float64 sums (float32 input)."""
+    b, n, c = shape
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    x.mul_(1.5).add_(offset)
+    xg = x.double().view(b, n, GROUPS, c // GROUPS)
+    ex2 = (xg * xg).mean(dim=(1, 3))
+    var64 = ex2 - xg.mean(dim=(1, 3)) ** 2
+    bar = 16 * 2.0 ** -24 * ex2
+    out = {"shape": list(shape), "offset": offset, "bar": float(bar.max())}
+    for name, stats in (("kernel", gn.gn_silu_stats(x, GROUPS)),
+                        ("plain", gn.gn_silu_stats_reference(x, GROUPS))):
+        err = (stats[:, 1].double() ** -2 - 1e-5 - var64).abs()
+        if not bool((err <= bar).all()):
+            raise AssertionError(f"far-from-zero mean: {name} variance off by {float(err.max()):.3e}, "
+                                 f"bar {float(bar.max()):.3e}")
+        out[f"{name}_var_err"] = float(err.max())
+    return out
 
 
 def flash_inputs(rng, shape, dtype):
@@ -442,6 +474,7 @@ def time_groupnorm(rng):
             "stats_library_ms": time_ms(
                 lambda: torch.var_mean(xg, dim=(1, 3), correction=0)),
             "stats_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "stats_host_issue_us": host_issue_us(lambda: gn.gn_silu_stats(x, GROUPS)),
             "apply_ms": time_ms(lambda: gn.gn_silu_apply(x, stats, scale, bias)),
             "apply_plain_ms": time_ms(
                 lambda: gn.gn_silu_apply_reference(x, stats, scale, bias)),
@@ -459,6 +492,7 @@ def time_groupnorm(rng):
             "fused_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
             "fused_host_issue_us": host_issue_us(
                 lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
+            "stats_plan": dataclasses.asdict(gn.launch_plan(n, c, GROUPS, x.element_size(), 16, b)),
             "apply_plan": dataclasses.asdict(gn.apply_plan(n, c, GROUPS, x.element_size())),
         }
         rows.append(row)
@@ -473,6 +507,34 @@ def time_groupnorm(rng):
     print("groupnorm_times " + json.dumps(rows))
     print("groupnorm_per_generate_call " + json.dumps(per_call))
     return rows
+
+
+def profile_groupnorm_stats(rng, calls=10):
+    """``--profile``: the kernels that ``calls`` calls of ``gn_silu_stats``
+    launch at the most frequent and the largest main-path shape, by name,
+    with device ms per call. One launch per call, or the run fails."""
+    out = {}
+    for n, c in ((800, 512), GN_BIG):
+        x = gn_inputs(rng, NUM_VOLUMES, n, c)[0].to(torch.bfloat16)
+        gn.gn_silu_stats(x, GROUPS)
+        torch.cuda.synchronize()
+        kernels = {}
+        for _ in range(3):   # the profiler now and then records no kernel at all: ask again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    gn.gn_silu_stats(x, GROUPS)
+                torch.cuda.synchronize()
+            kernels = {evt.key[:80]: {"launches_per_call": evt.count / calls,
+                                      "ms_per_call": getattr(evt, "self_device_time_total", 0)
+                                      / 1e3 / calls}
+                       for evt in prof.key_averages() if evt.device_type.name != "CPU"}
+            if kernels:
+                break
+        if sum(k["launches_per_call"] for k in kernels.values()) != 1:
+            raise AssertionError(f"gn_silu_stats at ({NUM_VOLUMES}, {n}, {c}) launched {kernels}")
+        out[f"({NUM_VOLUMES}, {n}, {c})"] = kernels
+        del x
+    print("profile_gn_stats " + json.dumps(out))
 
 
 def time_groupnorm_backward(rng):
@@ -1062,8 +1124,9 @@ def main() -> int:
                         help="stop after building, comparing and timing the kernels "
                              "(prints no result line)")
     parser.add_argument("--profile", action="store_true",
-                        help="after each main path, print a torch.profiler breakdown by "
-                             "kernel: 5 DDIM steps and one decode, then 3 training steps")
+                        help="print torch.profiler breakdowns by kernel: gn_silu_stats "
+                             "calls (one launch each), 5 DDIM steps and one decode, then "
+                             "3 training steps")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1092,6 +1155,8 @@ def main() -> int:
     compare_groupnorm_autograd(rng)
     torch.cuda.empty_cache()
     gn_rows = time_groupnorm(rng)
+    if args.profile:
+        profile_groupnorm_stats(rng)
     time_groupnorm_backward(rng)
     flash_rows = time_flash(rng)
     bwd_rows = time_flash_backward(rng)

@@ -10,9 +10,35 @@
 // one and keep intermediates out of device memory.
 //
 // What the design does about it:
-// * In the stats pass each thread owns one vector column (VEC consecutive
-//   channels that lie in one group) and walks rows, so a warp reads
-//   consecutive 4..16-byte pieces of a row.
+// * gn_silu_stats is one launch that fills the card. A block of tx vector
+//   columns by ty rows takes slabs of ty * R rows of one batch entry, slabs
+//   `blocks` apart, and each thread issues its R independent 16-byte loads
+//   (R a compile-time 2 or 4) before any addition.
+//   kernels/groupnorm.py::launch_plan takes R = 4 where that still gives
+//   the card a slab per SM, and a grid of at most two blocks per SM: one
+//   wave, no tail of a few blocks on an idle card. One load a thread never
+//   measured faster than two, a second finalize launch and thread-block
+//   clusters slower than the ticket (PERF.md).
+// * Its vectors are 16 bytes wherever C and the pointer allow, also across a
+//   group boundary (C = 32 in bf16: a vector holds two groups of 4
+//   channels): a thread keeps per-channel sums of x and x^2 for the VEC
+//   channels of its vector column, the column sum of the TPU kernel, and
+//   at the end adds the channels of each group it holds. The block then
+//   reduces rows (shuffles inside a warp, then shared memory across warps)
+//   and the group pieces of a row, all as trees, into one (2, G) partial.
+// * The TPU kernel carried its sums across a sequential grid axis in VMEM.
+//   Blocks here run in any order, so each writes its partial, and the block
+//   that draws the last ticket of its batch entry (one atomicAdd on a
+//   counter) sums that entry's partials and writes mean and 1/std. Only the
+//   ticket is an atomic: every sum is taken in a fixed order, so results
+//   are identical from run to run. The last block sets the counter back to
+//   0, so the wrapper's cached workspace needs no memset per call.
+// * Sums are trees, not long chains: at |mean| >> std, E[x^2] - mean^2
+//   cancels, and a long serial fp32 chain would make that worse. A thread
+//   adds its slab sums in runs of kChain and then the runs, so no chain is
+//   longer than kChain + slabs / kChain. Products
+//   and sums are __fmul_rn / __fadd_rn, never contracted into an FMA, so a
+//   plain-PyTorch emulation (tests/test_torch_gn_stats.py) repeats them.
 // * The apply pass keeps enough loads in flight to fill the card at the
 //   UNet's small shapes: each thread issues a compile-time number R (1 or
 //   2) of independent loads of one vector column before any arithmetic,
@@ -28,10 +54,6 @@
 //   global memory they cost as much as the SiLU (PERF.md, PR 4).
 //   y = (x - mean) * (rstd * gamma) + beta: mean is subtracted before the
 //   scaling, which does not cancel when |mean| >> std.
-// * The TPU kernel carried its sums across a sequential grid axis in VMEM.
-//   Blocks here run in any order, so the stats pass writes one partial per
-//   (batch, row-chunk) and a tiny second kernel sums the partials in a fixed
-//   order. No atomics: results are identical from run to run.
 // * The one-hot (C, G) matmul of the TPU kernel was a way to reduce over
 //   lanes on the matrix unit; here channels of a group are contiguous in a
 //   row, so the reduction is a few shared-memory adds.
@@ -45,95 +67,255 @@
 
 namespace {
 
-struct GnShape {
-    long long B, N;
+constexpr int kMaxGroups = 128;  // kernels/groupnorm.py::MAX_GROUPS
+constexpr int kChain = 32;       // kernels/groupnorm.py::SLAB_CHAIN
+
+struct StatsShape {
+    long long N;
     int C, G;
-    int tx, ty;          // thread grid: tx vector columns by ty rows per pass
-    int rows_per_chunk;  // rows of one batch entry handled by one block
-    int chunks;          // blocks per batch entry
+    int blocks;        // blocks, and partials, per batch entry
+    float count, eps;  // N * C / G; the variance's epsilon
 };
 
-template <typename T, int VEC>
-__global__ void gn_silu_stats_kernel(const T* __restrict__ x,
-                                     float* __restrict__ partials, GnShape s) {
-    extern __shared__ float red[];  // [2][ty][cols]
-    const int cols = s.C / VEC;
-    const int cpv = (s.C / s.G) / VEC;  // vector columns per group
-    const int tid = threadIdx.x;
-    const int x_id = tid % s.tx;
-    const int y_id = tid / s.tx;
-    const long long b = blockIdx.y;
-    const long long chunk = blockIdx.x;
-    const long long row0 = chunk * s.rows_per_chunk;
-    const long long row1 = min(row0 + (long long)s.rows_per_chunk, s.N);
-    const T* xb = x + b * s.N * s.C;
-
-    for (int col = x_id; col < cols; col += s.tx) {
-        float sum = 0.f, sumsq = 0.f;
-        for (long long r = row0 + y_id; r < row1; r += s.ty) {
-            const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(
-                xb + r * s.C + (long long)col * VEC);
+// Per (kind, group) pair p < pairs: the sum over j < count of
+// src[p * pair_stride + j * item_stride]. The block's threads split into
+// groups of L lanes, L the largest power of two up to 32 that gives every
+// pair its lanes; lane l adds j = l, l + L, ... in that order (loads eight
+// at a time, all in flight), then the L lanes add their results as a tree
+// (shuffles inside one warp). out[p] gets the total. kL2: src is global
+// memory written by other blocks of this launch, read through L2. Every
+// thread of the block must call it; the block is a whole number of warps.
+template <bool kL2>
+__device__ __forceinline__ void pair_sums(const float* src, int pairs,
+                                          long long pair_stride,
+                                          long long item_stride, int count,
+                                          float* out) {
+    constexpr int kLoads = 8;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y;
+    int L = 32;
+    while (L > 1 && L * pairs > nthreads) L /= 2;
+    for (int p0 = 0; p0 < pairs; p0 += nthreads / L) {
+        const int p = p0 + tid / L;
+        const int lane = tid % L;
+        float v = 0.f;
+        if (p < pairs) {
+            const float* q = src + p * pair_stride;
+            for (int j0 = lane; j0 < count; j0 += kLoads * L) {
+                float t[kLoads];
 #pragma unroll
-            for (int i = 0; i < VEC; ++i) {
-                const float f = to_float<T>(p.v[i]);
-                sum += f;
-                sumsq += f * f;
+                for (int u = 0; u < kLoads; ++u) {
+                    const int j = j0 + u * L;
+                    t[u] = j < count ? (kL2 ? __ldcg(q + j * item_stride)
+                                            : q[j * item_stride])
+                                     : 0.f;
+                }
+#pragma unroll
+                for (int u = 0; u < kLoads; ++u) v = __fadd_rn(v, t[u]);
             }
         }
-        red[y_id * cols + col] = sum;
-        red[(s.ty + y_id) * cols + col] = sumsq;
-    }
-    __syncthreads();
-
-    for (int g = tid; g < s.G; g += blockDim.x) {
-        float sum = 0.f, sumsq = 0.f;
-        for (int y = 0; y < s.ty; ++y) {
-            for (int c = g * cpv; c < (g + 1) * cpv; ++c) {
-                sum += red[y * cols + c];
-                sumsq += red[(s.ty + y) * cols + c];
-            }
-        }
-        float* out = partials + (b * s.chunks + chunk) * 2 * s.G;
-        out[g] = sum;
-        out[s.G + g] = sumsq;
+        for (int off = L / 2; off >= 1; off /= 2)
+            v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+        if (p < pairs && lane == 0) out[p] = v;
     }
 }
 
-// Sums the (B, chunks, 2, G) partials in a fixed order and writes
-// stats (B, 2, G): row 0 the mean, row 1 1/sqrt(var + eps).
-constexpr int FIN_THREADS = 256;
+// One block's (2, G) partial of batch entry xb: row 0 the group sums of x,
+// row 1 of x^2, written to out (global or shared memory). Thread (x, y) of
+// the tx by ty block walks vector column col = pass * tx + x and, in slab
+// s = block, block + blocks, ..., rows s * ty * R + r * ty + y (r < R): the
+// R loads first, then their sum as a tree, added to a run of at most kChain
+// slab sums per channel; each run is then added to the thread's sums. Then,
+// as trees: the thread's adjacent channels while they lie in one group (a
+// vector holds whole groups or lies in one: kernels/groupnorm.py::
+// launch_plan), the rows of a warp (shuffles), the warps' rows (shared
+// memory), the pieces of each group (pair_sums). smem: [2][ty / rows a
+// warp][tx * VEC] row sums, then [2][C] sums of group pieces.
+template <typename T, int VEC, int R>
+__device__ __forceinline__ void block_partial(const T* __restrict__ xb,
+                                              const StatsShape& s, int block,
+                                              float* smem, float* out) {
+    const int tx = blockDim.x, ty = blockDim.y;
+    const int x = threadIdx.x, y = threadIdx.y;
+    const int cols = s.C / VEC;
+    const int cpg = s.C / s.G;
+    const int piece = cpg < VEC ? cpg : VEC;  // channels summed in a thread
+    const int pieces = VEC / piece;           // group pieces a vector holds
+    const int rows_w = tx < 32 ? 32 / tx : 1; // rows a warp holds
+    const int slots = ty / rows_w;            // warps' rows left after shuffles
+    const int width = tx * pieces;
+    float* red = smem;                        // [2][slots][width]
+    float* chsum = smem + 2 * slots * tx * VEC;  // [2][cols * pieces]
+    const int row_pieces = cols * pieces;
+    const long long slab_rows = (long long)ty * R;
+    const long long slabs = (s.N + slab_rows - 1) / slab_rows;
 
-__global__ void gn_silu_finalize_kernel(const float* __restrict__ partials,
-                                        float* __restrict__ stats, int chunks,
-                                        int G, float count, float eps) {
-    __shared__ float fin[2][FIN_THREADS];
-    const int tid = threadIdx.x;
-    const int ty = FIN_THREADS / G;
-    const int g = tid % G;
-    const int y = tid / G;
-    const long long b = blockIdx.x;
-    const float* p = partials + b * chunks * 2 * G;
-    if (y < ty) {
-        float sum = 0.f, sumsq = 0.f;
-        for (long long ch = y; ch < chunks; ch += ty) {
-            sum += p[(ch * 2) * G + g];
-            sumsq += p[(ch * 2 + 1) * G + g];
+    for (int col0 = 0; col0 < cols; col0 += tx) {
+        const int col = col0 + x;
+        // slab sums go into run[] kChain at a time, each run then into sum[]
+        float sum[VEC], sq[VEC], run[VEC], run_sq[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) sum[i] = sq[i] = run[i] = run_sq[i] = 0.f;
+        if (col < cols) {
+            const T* xc = xb + (long long)col * VEC;
+            int in_run = 0;
+            for (long long slab = block; slab < slabs; slab += s.blocks) {
+                const long long row0 = slab * slab_rows + y;
+                // the R loads first, all in flight together
+                Pack<T, VEC> p[R];
+                bool ok[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const long long row = row0 + (long long)r * ty;
+                    ok[r] = row < s.N;
+                    if (ok[r])
+                        p[r] = *reinterpret_cast<const Pack<T, VEC>*>(xc + row * s.C);
+                }
+                float f[R][VEC], q[R][VEC];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        f[r][i] = ok[r] ? to_float<T>(p[r].v[i]) : 0.f;
+                        q[r][i] = __fmul_rn(f[r][i], f[r][i]);
+                    }
+                }
+#pragma unroll
+                for (int w = R / 2; w >= 1; w /= 2) {
+#pragma unroll
+                    for (int r = 0; r < w; ++r) {
+#pragma unroll
+                        for (int i = 0; i < VEC; ++i) {
+                            f[r][i] = __fadd_rn(f[r][i], f[r + w][i]);
+                            q[r][i] = __fadd_rn(q[r][i], q[r + w][i]);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) {
+                    run[i] = __fadd_rn(run[i], f[0][i]);
+                    run_sq[i] = __fadd_rn(run_sq[i], q[0][i]);
+                }
+                if (++in_run == kChain) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        sum[i] = __fadd_rn(sum[i], run[i]);
+                        sq[i] = __fadd_rn(sq[i], run_sq[i]);
+                        run[i] = run_sq[i] = 0.f;
+                    }
+                    in_run = 0;
+                }
+            }
         }
-        fin[0][tid] = sum;
-        fin[1][tid] = sumsq;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+            sum[i] = __fadd_rn(sum[i], run[i]);
+            sq[i] = __fadd_rn(sq[i], run_sq[i]);
+        }
+        // adjacent channels of one group, pairwise: pieces of 2, 4, ... channels
+#pragma unroll
+        for (int w = 1; w < VEC; w *= 2) {
+            if (w < piece) {
+#pragma unroll
+                for (int i = 0; i < VEC / (2 * w); ++i) {
+                    sum[i] = __fadd_rn(sum[2 * i], sum[2 * i + 1]);
+                    sq[i] = __fadd_rn(sq[2 * i], sq[2 * i + 1]);
+                }
+            }
+        }
+        // the rows of a warp: lanes x + k * tx hold column x
+        for (int off = 16; off >= tx; off /= 2) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+                if (i < pieces) {
+                    sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], off));
+                    sq[i] = __fadd_rn(sq[i], __shfl_xor_sync(0xffffffffu, sq[i], off));
+                }
+            }
+        }
+        const int slot = y / rows_w;
+        if (y % rows_w == 0) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+                if (i < pieces) {
+                    red[slot * width + x * pieces + i] = sum[i];
+                    red[(slots + slot) * width + x * pieces + i] = sq[i];
+                }
+            }
+        }
+        __syncthreads();
+        // the warps' rows, by the threads of slot 0: a tree over slots
+        if (y == 0 && col < cols) {
+            for (int k = 0; k < 2 * pieces; ++k) {
+                const int kind = k / pieces, i = k % pieces;
+                float v[8];  // slots: 8, or ty <= 8 where a warp holds one row
+#pragma unroll
+                for (int t = 0; t < 8; ++t)
+                    v[t] = t < slots ? red[(kind * slots + t) * width + x * pieces + i] : 0.f;
+#pragma unroll
+                for (int h = 4; h >= 1; h /= 2) {
+                    if (h < slots) {
+#pragma unroll
+                        for (int t = 0; t < h; ++t) v[t] = __fadd_rn(v[t], v[t + h]);
+                    }
+                }
+                chsum[kind * row_pieces + col * pieces + i] = v[0];
+            }
+        }
+        __syncthreads();
+    }
+    // the pieces of each group: chsum[kind][g * per_group + j] is pair
+    // kind * G + g, item j
+    const int per_group = row_pieces / s.G;
+    pair_sums<false>(chsum, 2 * s.G, per_group, 1, per_group, out);
+}
+
+// Sums the `parts` (2, G) partials of one batch entry (src[j * 2G + pair])
+// in a fixed order and writes its stats (2, G): row 0 the mean, row 1
+// 1/sqrt(var + eps). kL2 as for pair_sums.
+template <bool kL2>
+__device__ __forceinline__ void finalize_entry(const float* src, int parts,
+                                               const StatsShape& s,
+                                               float* __restrict__ stats) {
+    __shared__ float tot[2 * kMaxGroups];
+    pair_sums<kL2>(src, 2 * s.G, 1, 2 * s.G, parts, tot);
+    __syncthreads();
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    for (int g = tid; g < s.G; g += blockDim.x * blockDim.y) {
+        const float mean = __fdiv_rn(tot[g], s.count);
+        const float var = fmaxf(
+            __fsub_rn(__fdiv_rn(tot[s.G + g], s.count), __fmul_rn(mean, mean)), 0.f);
+        stats[g] = mean;
+        stats[s.G + g] = 1.f / sqrtf(__fadd_rn(var, s.eps));
+    }
+}
+
+// gn_silu_stats: grid (blocks, B), block (tx, ty). partials: (B, blocks, 2,
+// G) scratch; counters: B int32, 0 on entry and left 0 on exit.
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(256)
+gn_silu_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
+                     int* __restrict__ counters, float* __restrict__ stats,
+                     StatsShape s) {
+    extern __shared__ float smem[];
+    __shared__ bool last;
+    const long long b = blockIdx.y;
+    const int block = blockIdx.x;
+    float* entry = partials + b * s.blocks * 2 * s.G;
+    block_partial<T, VEC, R>(x + b * s.N * s.C, s, block, smem,
+                             entry + (long long)block * 2 * s.G);
+    // as a grid barrier of cooperative groups: the block's partial is out
+    // before its ticket is drawn, and the last block reads the others' after
+    __syncthreads();
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+        __threadfence();
+        last = atomicAdd(counters + b, 1) == s.blocks - 1;
+        __threadfence();
     }
     __syncthreads();
-    if (tid < G) {
-        float sum = 0.f, sumsq = 0.f;
-        for (int yy = 0; yy < ty; ++yy) {
-            sum += fin[0][yy * G + tid];
-            sumsq += fin[1][yy * G + tid];
-        }
-        const float mean = sum / count;
-        const float var = fmaxf(sumsq / count - mean * mean, 0.f);
-        stats[(b * 2) * G + tid] = mean;
-        stats[(b * 2 + 1) * G + tid] = 1.f / sqrtf(var + eps);
-    }
+    if (!last) return;
+    finalize_entry<true>(entry, s.blocks, s, stats + b * 2 * s.G);
+    if (threadIdx.x == 0 && threadIdx.y == 0) counters[b] = 0;
 }
 
 // gn_silu_apply: a block of blockDim.x = tx vector columns by blockDim.y = ty
@@ -223,19 +405,31 @@ gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     }
 }
 
-template <typename T, int VEC>
-int launch_stats(const void* x, float* partials, float* stats, GnShape s,
-                 double count, double eps, cudaStream_t stream) {
-    const dim3 grid((unsigned)s.chunks, (unsigned)s.B);
-    const int cols = s.C / VEC;
-    const size_t smem = sizeof(float) * 2 * s.ty * cols;
-    gn_silu_stats_kernel<T, VEC><<<grid, s.tx * s.ty, smem, stream>>>(
-        static_cast<const T*>(x), partials, s);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    gn_silu_finalize_kernel<<<(unsigned)s.B, FIN_THREADS, 0, stream>>>(
-        partials, stats, s.chunks, s.G, (float)count, (float)eps);
+template <typename T, int VEC, int R>
+int launch_stats_rows(const void* x, float* partials, int* counters,
+                      float* stats, StatsShape s, long long B, int tx, int ty,
+                      cudaStream_t stream) {
+    const dim3 grid((unsigned)s.blocks, (unsigned)B);
+    const int slots = tx < 32 ? ty * tx / 32 : ty;
+    const size_t smem = sizeof(float) * 2 * ((size_t)slots * tx * VEC + s.C);
+    gn_silu_stats_kernel<T, VEC, R><<<grid, dim3(tx, ty), smem, stream>>>(
+        static_cast<const T*>(x), partials, counters, stats, s);
     return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_stats(int rows_per_thread, const void* x, float* partials,
+                 int* counters, float* stats, StatsShape s, long long B,
+                 int tx, int ty, cudaStream_t stream) {
+#define GN_STATS_ROWS(R)                                                      \
+    launch_stats_rows<T, VEC, R>(x, partials, counters, stats, s, B, tx, ty, \
+                                 stream)
+    switch (rows_per_thread) {
+        case 2: return GN_STATS_ROWS(2);
+        case 4: return GN_STATS_ROWS(4);
+    }
+#undef GN_STATS_ROWS
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int VEC, int R>
@@ -291,15 +485,20 @@ int launch_apply(int rows_per_thread, const void* x, const float* stats,
 // Both entries return the cudaError_t of the launch (0 on success). They
 // launch on `stream`, do not synchronise and allocate nothing.
 
-extern "C" int gn_silu_stats(const void* x, void* partials, void* stats,
-                             int dtype, int vec, long long B, long long N,
-                             int C, int G, int tx, int ty, int rows_per_chunk,
-                             int chunks, double count, double eps,
-                             void* stream) {
-    const GnShape s{B, N, C, G, tx, ty, rows_per_chunk, chunks};
-    GN_DISPATCH(launch_stats, x, static_cast<float*>(partials),
-                static_cast<float*>(stats), s, count, eps,
-                static_cast<cudaStream_t>(stream));
+// gn_silu_stats takes the fields of kernels/groupnorm.py::launch_plan: a
+// block of tx * ty threads (a whole number of warps) takes slabs of
+// ty * rows_per_thread rows (2 or 4 loads a thread), `blocks` blocks a
+// batch entry. partials holds B * blocks * 2 * G floats; counters B int32
+// zeros, which the kernel leaves zero.
+extern "C" int gn_silu_stats(const void* x, void* partials, void* counters,
+                             void* stats, int dtype, int vec, long long B,
+                             long long N, int C, int G, int tx, int ty,
+                             int rows_per_thread, int blocks, double count,
+                             double eps, void* stream) {
+    const StatsShape s{N, C, G, blocks, (float)count, (float)eps};
+    GN_DISPATCH(launch_stats, rows_per_thread, x, static_cast<float*>(partials),
+                static_cast<int*>(counters), static_cast<float*>(stats), s, B,
+                tx, ty, static_cast<cudaStream_t>(stream));
 }
 
 // gn_silu_apply takes the fields of kernels/groupnorm.py::apply_plan: a

@@ -2,10 +2,10 @@
 
 Counterpart of ``mrijax/kernels/groupnorm_pallas.py``. Two hand-written CUDA
 kernels (``mrijax_torch/csrc/groupnorm_silu.cu``) take the place of the two
-Pallas kernels: ``gn_silu_stats`` (per-(batch, group) mean and 1/std in fp32)
-and ``gn_silu_apply`` (normalise, affine, SiLU, cast) — two reads and one
-write of the activation. ``launch_plan`` cuts the input up for the stats
-kernel, ``apply_plan`` for the apply kernel.
+Pallas kernels: ``gn_silu_stats`` (per-(batch, group) mean and 1/std in fp32,
+one launch) and ``gn_silu_apply`` (normalise, affine, SiLU, cast) — two reads
+and one write of the activation. ``launch_plan`` cuts the input up for the
+stats kernel, ``apply_plan`` for the apply kernel.
 
 For a CUDA tensor the wrappers launch their kernel or raise. The plain
 PyTorch versions beside them (``*_reference``) are what a CPU tensor gets,
@@ -22,6 +22,7 @@ port.
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -30,54 +31,102 @@ from mrijax_torch.kernels import _build
 
 launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply")
 
-MAX_GROUPS = 128          # the finalize kernel sums partials with 256 // G rows
-MAX_VECTOR_COLUMNS = 4096  # stats scratch in shared memory: 2 * cols floats
+MAX_GROUPS = 128           # the stats kernel sums (2, G) partials in 2 * 128 floats of shared memory
+MAX_CHANNELS = 3840        # stats: (2048 + C) * 8 bytes of dynamic shared memory beside 1 KB static fit 48 KB
 SM_COUNT = 132             # streaming multiprocessors of an H100
+STATS_ROWS_PER_THREAD = (4, 2)   # loads a thread compiled into gn_silu_stats, most first
+STATS_BLOCKS_PER_SM = 2    # blocks of the whole batch per SM that gn_silu_stats launches, at most
+STATS_SLABS_PER_SM = 8     # up to this many slabs an SM, one block per SM
+SLAB_CHAIN = 32            # slab sums a thread adds in one run (csrc kChain)
 APPLY_ROWS_PER_THREAD = (2, 1)   # loads a thread compiled into gn_silu_apply, most first
 _THREADS = 256
-_ELEMENTS_PER_BLOCK = 16384
 
 
-@dataclass(frozen=True)
-class LaunchPlan:
-    """How the (B, N, C) activation is cut up for ``gn_silu_stats``."""
+def _vector_width(c: int, itemsize: int, alignment: int) -> int:
+    """The largest power of two such that a vector is at most 16 bytes, ``c``
+    is a multiple of it and a pointer aligned to ``alignment`` bytes is
+    aligned to it. A vector may span groups: both kernels keep per-channel
+    sums or parameters."""
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec != 0 or alignment % (vec * itemsize) != 0):
+        vec //= 2
+    return vec
 
-    vec: int             # channels moved per load; divides C // G
-    tx: int              # threads across vector columns
-    ty: int              # threads across rows
-    rows_per_chunk: int  # rows of one batch entry per block
-    chunks: int          # blocks per batch entry
 
-
-@functools.lru_cache(maxsize=256)
-def launch_plan(n: int, c: int, groups: int, itemsize: int,
-                alignment: int = 16) -> LaunchPlan:
-    """Pick the vector width and the block grid for an (·, n, c) input.
-
-    ``vec`` is the largest power of two such that a vector is at most 16
-    bytes, lies inside one group and every row start stays aligned to it.
-    ``alignment`` is the alignment of the data pointer in bytes.
-    """
+def _check_groups(c: int, groups: int) -> None:
     if c % groups != 0:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     if not 1 <= groups <= MAX_GROUPS:
         raise ValueError(f"groups must be in 1..{MAX_GROUPS}, got {groups}")
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the (B, N, C) activation is cut up for ``gn_silu_stats``: blocks
+    of ``tx`` vector columns by ``ty`` rows take slabs of ``ty`` ·
+    ``rows_per_thread`` rows of one batch entry, ``blocks`` slabs apart;
+    each block leaves one (2, G) partial."""
+
+    vec: int              # channels moved per load; divides C
+    tx: int               # threads across vector columns
+    ty: int               # threads across rows
+    rows_per_thread: int  # R: loads a thread issues before any addition
+    blocks: int           # blocks, and partials, per batch entry
+    slabs: int            # slabs of ty * R rows in one batch entry
+
+    @property
+    def slab_rows(self) -> int:
+        return self.ty * self.rows_per_thread
+
+    @property
+    def slabs_per_block(self) -> int:
+        """Slab sums the busiest thread adds: in runs of ``SLAB_CHAIN``."""
+        return -(-self.slabs // self.blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, c: int, groups: int, itemsize: int, alignment: int = 16,
+                batch: int = 1) -> LaunchPlan:
+    """Vector width, block shape, loads per thread and blocks per batch entry
+    of ``gn_silu_stats`` for a (batch, n, c) input whose data pointer is
+    aligned to ``alignment`` bytes.
+
+    ``vec`` is as for ``apply_plan``, narrowed until a vector holds whole
+    groups or lies inside one (16 bytes at every main-path shape; 3 channels
+    a group take scalar loads): a thread adds its channels of one group
+    before the block's reductions.
+
+    Blocks are 256 threads, ``tx`` of them across the vector columns: the
+    power of two at or above their number, up to 256 (the threads beyond a
+    ragged C's columns only take part in the reductions; a thread walks the
+    rows again for each further 256 columns). ``rows_per_thread`` is 4
+    where that still gives the batch one slab per SM, else 2 (one load a
+    thread never measured faster on an H100: PERF.md).
+    ``blocks`` is ⌈per_sm·SM_COUNT/batch⌉, or the number of slabs
+    where that is fewer: the whole grid runs in one wave, and a block loops
+    over its slabs. ``per_sm`` is 1 where the batch has at most
+    ``STATS_SLABS_PER_SM`` slabs an SM, else ``STATS_BLOCKS_PER_SM`` (2): a
+    second block an SM hides load latency only where blocks loop over many
+    slabs, and otherwise only adds partials for the last block to sum
+    (PERF.md). A batch entry has at most ⌈2·SM_COUNT/batch⌉ partials.
+    """
+    _check_groups(c, groups)
+    if c > MAX_CHANNELS:
+        raise ValueError(f"{c} channels: the stats kernel takes at most {MAX_CHANNELS}")
+    vec = _vector_width(c, itemsize, alignment)
     cpg = c // groups
-    vec = 16 // itemsize
-    while vec > 1 and (cpg % vec != 0 or alignment % (vec * itemsize) != 0):
+    while cpg % vec and vec % cpg:   # a vector holds whole groups or lies in one
         vec //= 2
     cols = c // vec
-    if cols > MAX_VECTOR_COLUMNS:
-        raise ValueError(
-            f"{c} channels in vectors of {vec} give {cols} columns; "
-            f"the kernel takes at most {MAX_VECTOR_COLUMNS}"
-        )
-    tx = min(cols, _THREADS)
-    ty = max(_THREADS // cols, 1)
-    rows = -(-_ELEMENTS_PER_BLOCK // c)
-    rows_per_chunk = max(ty, -(-rows // ty) * ty)
-    chunks = -(-n // rows_per_chunk)
-    return LaunchPlan(vec, tx, ty, rows_per_chunk, chunks)
+    tx = min(1 << (cols - 1).bit_length(), _THREADS)
+    ty = _THREADS // tx
+    for r in STATS_ROWS_PER_THREAD:
+        slabs = -(-n // (ty * r))
+        if slabs * batch >= SM_COUNT:
+            break
+    per_sm = 1 if slabs * batch <= STATS_SLABS_PER_SM * SM_COUNT else STATS_BLOCKS_PER_SM
+    blocks = min(slabs, -(-per_sm * SM_COUNT // batch))
+    return LaunchPlan(vec, tx, ty, r, blocks, slabs)
 
 
 @dataclass(frozen=True)
@@ -115,13 +164,8 @@ def apply_plan(n: int, c: int, groups: int, itemsize: int,
     every main-path shape but the largest, where they tie (PERF.md), and are
     not compiled.
     """
-    if c % groups != 0:
-        raise ValueError(f"channels {c} not divisible by groups {groups}")
-    if not 1 <= groups <= MAX_GROUPS:
-        raise ValueError(f"groups must be in 1..{MAX_GROUPS}, got {groups}")
-    vec = 16 // itemsize
-    while vec > 1 and (c % vec != 0 or alignment % (vec * itemsize) != 0):
-        vec //= 2
+    _check_groups(c, groups)
+    vec = _vector_width(c, itemsize, alignment)
     cols = c // vec
     tx = min(cols, _THREADS)
     ty = _THREADS // tx
@@ -156,7 +200,8 @@ def _alignment(x: torch.Tensor) -> int:
 
 
 def _plan_for(x: torch.Tensor, groups: int) -> LaunchPlan:
-    return launch_plan(x.shape[1], x.shape[2], groups, x.element_size(), _alignment(x))
+    return launch_plan(x.shape[1], x.shape[2], groups, x.element_size(), _alignment(x),
+                       x.shape[0])
 
 
 def _apply_plan_for(x: torch.Tensor, groups: int) -> ApplyPlan:
@@ -167,7 +212,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("groupnorm_silu")
     if lib.gn_silu_stats.argtypes is None:
         p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-        lib.gn_silu_stats.argtypes = [p, p, p, i, i, ll, ll, i, i, i, i, i, i, d, d, p]
+        lib.gn_silu_stats.argtypes = [p, p, p, p, i, i, ll, ll, i, i, i, i, i, i, d, d, p]
         lib.gn_silu_stats.restype = i
         lib.gn_silu_apply.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, i, i, i, i, i, p]
         lib.gn_silu_apply.restype = i
@@ -215,19 +260,36 @@ def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
 # -------------------------------------------------------------------- wrappers
 
 
+# (device index, stream) -> (counters, partials): the stats kernel's scratch.
+# Counters are zeroed once when allocated and the kernel leaves them zero;
+# calls on one stream run in order, so they may share it.
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, batch: int,
+               partial_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    counters, partials = _workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < batch:
+        counters = torch.zeros(batch, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < partial_floats:
+        partials = torch.empty(partial_floats, dtype=torch.float32, device=device)
+    _workspaces[key] = (counters, partials)
+    return counters, partials
+
+
 def _launch_stats(x: torch.Tensor, groups: int, eps: float,
                   plan: LaunchPlan) -> torch.Tensor:
     """Launch ``gn_silu_stats`` on a checked, contiguous CUDA (B, N, C) tensor."""
     b, n, c = x.shape
-    partials = torch.empty((b, plan.chunks, 2, groups), dtype=torch.float32,
-                           device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters, partials = _workspace(x.device, stream, b, b * plan.blocks * 2 * groups)
     stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
     err = _library().gn_silu_stats(
-        x.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        x.data_ptr(), partials.data_ptr(), counters.data_ptr(), stats.data_ptr(),
         _build.dtype_code(x.dtype), plan.vec, b, n, c, groups,
-        plan.tx, plan.ty, plan.rows_per_chunk, plan.chunks,
-        float(n * (c // groups)), float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        plan.tx, plan.ty, plan.rows_per_thread, plan.blocks,
+        float(n * (c // groups)), float(eps), stream,
     )
     _build.check_launch(err, "gn_silu_stats")
     launches.bump("gn_silu_stats")

@@ -83,11 +83,12 @@ def test_apply_plan_gives_every_sm_a_block_at_small_shapes(n, c, itemsize):
 
 
 def test_apply_plan_at_the_most_frequent_shape():
-    """(2, 800, 512) bf16, 11 calls a UNet forward: the stats plan's 25
-    blocks of 32 rows a batch entry (8 serial loads a thread) become 200
-    blocks of 4 rows, one 16-byte vector a thread — 400 blocks at B = 2."""
-    stats = gn.launch_plan(800, 512, GROUPS, 2)
-    assert (stats.chunks, stats.rows_per_chunk // stats.ty) == (25, 8)
+    """(2, 800, 512) bf16, 11 calls a UNet forward: the stats plan's 66
+    blocks a batch entry over 100 slabs of 8 rows (two 16-byte loads a
+    thread) and apply's 200 blocks of 4 rows, one 16-byte vector a thread —
+    400 blocks at B = 2."""
+    stats = gn.launch_plan(800, 512, GROUPS, 2, 16, 2)
+    assert (stats.blocks, stats.slab_rows, stats.rows_per_thread) == (66, 8, 2)
     plan = gn.apply_plan(800, 512, GROUPS, 2)
     assert (plan.vec, plan.tx, plan.ty, plan.rows_per_thread) == (8, 64, 4, 1)
     assert 2 * plan.blocks_per_batch == 400

@@ -98,6 +98,43 @@ def test_gn_silu_apply_kernel_matches_plain_version(cuda, shape, offset, pointer
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,pointer_shift", [
+    ((2, 800, 512), 0.3, 0),      # two loads a thread, one slab a block
+    ((8, 800, 512), 0.3, 0),      # the training batch
+    ((1, 409600, 32), 0.3, 0),    # 16-byte bf16 vectors across groups, slabs in series
+    ((2, 333, 24), 0.3, 0),       # 3 channels a group, ragged N, idle columns
+    ((2, 100, 64), 200.0, 0),     # |mean| >> std
+    ((1, 70, 2048), 0.3, 0),      # more vector columns than a block has threads
+    ((1, 300, 64), 0.3, 1),       # a pointer one element off: narrower vectors
+])
+def test_gn_silu_stats_kernel_matches_plain_version(cuda, shape, offset, pointer_shift, dtype):
+    """``gn_silu_stats`` alone, one launch a call: mean and 1/std at 2e-5
+    absolute (another summation order), the same bits from two calls, and
+    counters left at 0 (the next call's tickets start there). At offset 200
+    the mean is held to 1e-6 relative (a few ulps of 200) and 1/std to 1e-2
+    relative: E[x²] − mean² cancels to 1/17 800 of E[x²] there, and each side
+    may miss the variance by 16·2⁻²⁴·E[x²] (``chip_smoke.py``'s bar), 0.85 %
+    of 1/std."""
+    rng = np.random.default_rng(6)
+    b, n, c = shape
+    groups = 16 if c == 2048 else 8
+    x32 = rng.normal(size=b * n * c + pointer_shift).astype(np.float32) * 1.5 + offset
+    x = torch.from_numpy(x32).to(cuda, dtype)[pointer_shift:].view(shape)
+    gn.launches.reset()
+    got = gn.gn_silu_stats(x, groups)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 0}
+    want = gn.gn_silu_stats_reference(x, groups)
+    if offset < 100:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got[:, 0], want[:, 0], atol=2e-5, rtol=1e-6)
+        torch.testing.assert_close(got[:, 1], want[:, 1], atol=0, rtol=1e-2)
+    assert torch.equal(gn.gn_silu_stats(x, groups), got)
+    for counters, _ in gn._workspaces.values():
+        assert int(counters.abs().sum()) == 0
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 16, 64, device=cuda)
     w = torch.ones(64, device=cuda)

@@ -124,23 +124,24 @@ def test_stats_and_apply_references_compose():
 
 @pytest.mark.parametrize("n,c,groups,itemsize,alignment,want_vec", [
     (51200, 128, 8, 2, 16, 8),
-    (3276800, 32, 8, 2, 16, 4),     # 4 channels a group: a vector may not span two groups
+    (3276800, 32, 8, 2, 16, 8),     # 4 channels a group: a vector spans two groups
     (409600, 64, 8, 4, 16, 4),
-    (1000, 24, 8, 4, 16, 1),        # 3 channels a group
+    (1000, 24, 8, 4, 16, 1),        # 3 channels a group: scalar loads
     (800, 1024, 8, 2, 16, 8),
     (800, 1024, 8, 2, 4, 2),        # a pointer aligned to 4 bytes only
     (800, 2048, 8, 4, 16, 4),       # more vector columns than threads
 ])
 def test_launch_plan_covers_the_tensor(n, c, groups, itemsize, alignment, want_vec):
-    """The Python side of the kernels' launch: vector width and block grid."""
-    plan = gn.launch_plan(n, c, groups, itemsize, alignment)
+    """The Python side of the stats kernel's launch: vector width, block
+    shape, and slabs of ty·R rows that cover the rows, ``blocks`` apart."""
+    plan = gn.launch_plan(n, c, groups, itemsize, alignment, 2)
     assert plan.vec == want_vec
-    assert (c // groups) % plan.vec == 0 and plan.vec * itemsize <= 16
+    assert c % plan.vec == 0 and plan.vec * itemsize <= 16
     cols = c // plan.vec
-    assert plan.tx == min(cols, 256) and plan.tx * plan.ty <= 256
-    assert plan.tx * plan.ty >= groups            # one thread per group writes the partial
-    assert plan.chunks * plan.rows_per_chunk >= n > (plan.chunks - 1) * plan.rows_per_chunk
-    assert plan.rows_per_chunk % plan.ty == 0
+    assert plan.tx == min(1 << (cols - 1).bit_length(), 256) and plan.tx * plan.ty == 256
+    assert plan.slabs * plan.slab_rows >= n > (plan.slabs - 1) * plan.slab_rows
+    assert plan.blocks * plan.slabs_per_block >= plan.slabs
+    assert plan.blocks <= -(-gn.STATS_BLOCKS_PER_SM * gn.SM_COUNT // 2)
 
 
 def test_launch_plan_rejects_what_the_kernel_does_not_take():
@@ -148,7 +149,7 @@ def test_launch_plan_rejects_what_the_kernel_does_not_take():
         gn.launch_plan(10, 30, 8, 4)
     with pytest.raises(ValueError, match="groups"):
         gn.launch_plan(10, 256, 256, 4)
-    with pytest.raises(ValueError, match="columns"):
+    with pytest.raises(ValueError, match="channels"):
         gn.launch_plan(10, 5000, 8, 4, alignment=4)
 
 
