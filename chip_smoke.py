@@ -41,7 +41,16 @@ What it does, in order:
    ``make_cached_latent_train_step`` — 2 warm-up steps, then 5 counted steps,
    once without rematerialisation and once with ``remat_levels=(0,)`` — again
    with the launch counts set to 0 just before the counted steps and read just
-   after.
+   after;
+8. drives the same training through the runtime (``trainer_path``):
+   ``preset_ddpm_3d_ldm`` through ``train.experiments._trainer`` and
+   ``Trainer`` for 2 epochs of 3 train and 1 val batches, straight (run A) and
+   with a real SIGUSR1 at epoch 1, step 0 followed by a resume from the
+   checkpoint (run B), each with the launch counts set to 0 just before and
+   read just after; checks exact counts, the same draws, states and learning
+   rates of the two runs, and a bitwise ``restore_host`` of the last
+   checkpoint, and prints seconds per step, bytes and seconds per save, and
+   peak memory.
 
 Any miss raises: the script exits non-zero and prints no result line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
@@ -53,10 +62,13 @@ names the card; the line before that is the ``{"kernels": [...]}`` record.
 import argparse
 import dataclasses
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,16 +76,28 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from mrijax_torch.config import preset_ddpm_3d_ldm
 from mrijax_torch.diffusion import GaussianDiffusion, cosine_beta_schedule, make_schedule
 from mrijax_torch.generate import generate_3d_volumes
+from mrijax_torch.io import load_state
 from mrijax_torch.kernels import _build
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
 from mrijax_torch.models import UNet3D, VAE3D
 from mrijax_torch.models.blocks import Conv3d, Downsample, Upsample
+from mrijax_torch.obs import MetricsLogger, install_signal_handlers, reset_termination
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.norms import group_norm_silu
-from mrijax_torch.train import create_train_state, make_cached_latent_train_step
+from mrijax_torch.train import (
+    Trainer,
+    create_train_state,
+    estimate_latent_scale_from_latents,
+    fixed_validation_timesteps,
+    make_cached_latent_eval_step,
+    make_cached_latent_train_step,
+    sample_timesteps,
+)
+from mrijax_torch.train.experiments import _trainer, build_diffusion, build_unet3d
 
 SEED = 0
 REPEATS = 15
@@ -122,6 +146,12 @@ TWO_ULPS = dict(atol=1e-5, rtol=2 ** -6)   # bf16 dq: rounded twice, around the 
 GN_REMAT_LEVEL0_CALLS = 8         # 4 res blocks at level 0, two norms each, run again in the backward
 GN_GRAD_SHAPES = [(51200, 128), (800, 512)]
 GENERATION_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_attn_fwd")
+
+TRAINER_EPOCHS = 2
+TRAINER_TRAIN_BATCHES = 3
+TRAINER_VAL_BATCHES = 1
+PREEMPT_AT = (1, 0)               # (epoch, step) at which run B gets its SIGUSR1
+RUN_TOL = 1e-3                    # relative: two runs of the same steps on the card
 
 
 def card_line() -> str:
@@ -911,8 +941,8 @@ def build_flagship_trainer(remat_levels):
     return unet, state, make_cached_latent_train_step(unet, diffusion, ema_decay=0.999)
 
 
-def train_latents():
-    rng = np.random.default_rng(SEED + 6)
+def train_latents(seed=SEED + 6):
+    rng = np.random.default_rng(seed)
     shape = (TRAIN_BATCH, *LATENT_SPATIAL, LATENT_CHANNELS)
     return {"latent": torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()}
 
@@ -985,7 +1015,286 @@ def train_path():
         "dtype": "bfloat16 compute, float32 parameters", "loss_type": "min_snr",
     })
     print("train_path " + json.dumps(result))
-    return counts_by_setting
+    return counts_by_setting, result
+
+
+class LatentLoader:
+    """In-memory latents on the card, as a loader of the trainer: ``set_epoch``,
+    ``__len__``, ``batch_size``. Sends this process a real SIGUSR1 while it
+    hands out the batch of (epoch, step) ``signal_at``."""
+
+    def __init__(self, batches, signal_at=None):
+        self.batches, self.signal_at = batches, signal_at
+        self.batch_size = batches[0]["latent"].shape[0]
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batches):
+            if (self.epoch, i) == self.signal_at:
+                os.kill(os.getpid(), signal.SIGUSR1)
+            yield batch
+
+
+def flat_state(state):
+    """Parameters, EMA shadow and Adam moments, each as one float32 vector."""
+    moments = [m for s in state.optimizer.state.values() for k, m in sorted(s.items())
+               if k != "step"]
+    return {"params": torch.cat([p.detach().flatten() for p in state.model.parameters()]),
+            "ema": torch.cat([e.flatten() for e in state.ema_params.values()]),
+            "adam": torch.cat([m.flatten() for m in moments])}
+
+
+def compare_states(tag, got, want):
+    """Relative L2 of parameters and EMA, and whether they are bitwise equal;
+    raises beyond ``RUN_TOL`` (cuDNN's weight gradients need not be bitwise
+    repeatable)."""
+    out = {}
+    for key in ("params", "ema"):
+        rel = float((got[key] - want[key]).norm() / want[key].norm())
+        out[f"{key}_rel_l2"] = rel
+        out[f"{key}_bitwise"] = bool(torch.equal(got[key], want[key]))
+        if not rel <= RUN_TOL:
+            raise AssertionError(f"{tag}: {key} differ by {rel:.3e} (relative L2)")
+    return out
+
+
+def by_epoch(logger, key):
+    """The last value the logger holds for each epoch (a re-run epoch logs again)."""
+    return {m["step"]: m["value"] for m in logger.read_metrics() if m["key"] == key}
+
+
+def trainer_path(bare_step):
+    """Stage-2 training through the runtime at full width: ``preset_ddpm_3d_ldm``
+    (2 epochs, EMA 0.999, 1 checkpoint kept), the flagship ``UNet3D`` with
+    seeded weights, the closures of the JAX package's 3D driver
+    (``latent_scale`` bound; the validation timestep from
+    ``fixed_validation_timesteps(400, 8)`` by batch index) and ``_trainer``,
+    over 3 train and 1 val batches of seeded latents on the card.
+
+    Run A goes straight through. Run B gets a real SIGUSR1 at epoch 1, step 0:
+    its checkpoint says ``epoch_complete`` False and leaves ``best/`` alone; a
+    new trainer on the same directory, into weights made from another seed,
+    resumes and runs epoch 1 again (the state saved at the signal holds the
+    step that ran, so B applies one update more than A: the JAX package's
+    semantics). Checks: exact launch counts of both runs; the same draws at
+    epoch 1, step 0 in A, B and B's resume; A after its 4th update and B at
+    the signal agree (``RUN_TOL``), so do B's end and B's preempted state
+    carried on in memory through the same epoch; the same learning rates; the
+    val loss of epoch 0 in A and B, and of epoch 1 in B and the carried-on run,
+    within ``RUN_TOL``; ``restore_host`` of B's last checkpoint loaded into
+    fresh weights equals B's end bitwise."""
+
+    batches = [train_latents(SEED + 8 + k)
+               for k in range(TRAINER_TRAIN_BATCHES + TRAINER_VAL_BATCHES)]
+    train_batches, val_batches = batches[:TRAINER_TRAIN_BATCHES], batches[TRAINER_TRAIN_BATCHES:]
+    latent_scale = estimate_latent_scale_from_latents(b["latent"] for b in train_batches)
+    previous_handlers = {s: signal.getsignal(s) for s in (signal.SIGUSR1, signal.SIGTERM)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        cfg = preset_ddpm_3d_ldm(**{"train.epochs": TRAINER_EPOCHS, "train.ema_decay": 0.999,
+                                    "train.max_checkpoints": 1, "train.checkpoint_dir": tmp,
+                                    "train.seed": SEED})
+        diffusion = build_diffusion(cfg.diffusion)
+        t_grid = fixed_validation_timesteps(cfg.diffusion.timesteps, 8)
+
+        def build(weight_seed):
+            """A fresh state and the two closures of the 3D driver. The train
+            step records the t it is about to draw (from a copy of the
+            generator) and, on request, the state after a given call."""
+            unet = seeded_weights(build_unet3d(cfg.unet), weight_seed).train()
+            state = create_train_state(unet, cfg.train.learning_rate,
+                                       ema=cfg.train.ema_decay is not None)
+            ldm_step = make_cached_latent_train_step(
+                unet, diffusion, t_min=cfg.diffusion.t_min, nan_guard=cfg.train.nan_guard,
+                ema_decay=cfg.train.ema_decay)
+            ldm_eval = make_cached_latent_eval_step(unet, diffusion)
+            record = {"t": [], "snapshot_after": None, "snapshot": None}
+
+            def train_step(state, batch, generator):
+                probe = torch.Generator(device=generator.device)
+                probe.set_state(generator.get_state())
+                record["t"].append(sample_timesteps(probe, batch["latent"].shape[0],
+                                                    diffusion.timesteps, cfg.diffusion.t_min))
+                state, loss = ldm_step(state, batch, generator, latent_scale)
+                if len(record["t"]) == record["snapshot_after"]:
+                    record["snapshot"] = flat_state(state)
+                return state, loss
+
+            def eval_step(params, batch, generator, batch_index=0):
+                t_fixed = t_grid[batch_index % len(t_grid)]
+                return ldm_eval(params, batch, generator, latent_scale, t_fixed)
+
+            return state, train_step, eval_step, record
+
+        loggers = {}
+
+        def trainer(run, train_step, eval_step, signal_at=None, checkpoints=True):
+            """``_trainer`` over the in-memory loaders, its saves timed; one
+            metrics log per run name (a resume appends to its run's)."""
+            if run not in loggers:
+                loggers[run] = MetricsLogger("chip_smoke", run_name=run,
+                                             root=os.path.join(tmp, "runs"))
+            logger = loggers[run]
+            t = _trainer(cfg.train, ckpt_dir=f"{run}/ldm", logger=logger,
+                         train_step=train_step, eval_step=eval_step,
+                         train_loader=LatentLoader(train_batches, signal_at),
+                         val_loader=LatentLoader(val_batches), prefix="ldm_",
+                         extra=lambda: {"latent_scale": float(latent_scale)})
+            saves = []
+            save = t.ckpt.save
+
+            def timed_save(step, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save(step, *args, **kw)
+                saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                              "bytes": os.path.getsize(t.ckpt.directory / f"{step}.pt"),
+                              "best": t.ckpt.best_step == step})
+
+            t.ckpt.save = timed_save
+            if not checkpoints:
+                t.ckpt, t.resume = None, False
+            return t, logger, saves
+
+        per_unet = GN_CALLS_PER_UNET
+
+        def want_counts(train_steps, val_steps):
+            gn_calls = (train_steps + val_steps) * per_unet
+            return {"gn_silu_stats": gn_calls, "gn_silu_apply": gn_calls,
+                    "flash_attn_fwd": train_steps + val_steps,
+                    "flash_attn_bwd_dkv": train_steps, "flash_attn_bwd_dq": train_steps}
+
+        # ---- run A: straight through
+        reset_termination()
+        state_a, step_a, eval_a, rec_a = build(SEED + 1)
+        rec_a["snapshot_after"] = TRAINER_TRAIN_BATCHES + 1      # after epoch 1, step 0
+        trainer_a, log_a, saves_a = trainer("a", step_a, eval_a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res_a = trainer_a.fit(state_a)
+        torch.cuda.synchronize()
+        seconds_a = time.perf_counter() - t0
+        counts_a = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps_a = TRAINER_EPOCHS * TRAINER_TRAIN_BATCHES
+        if counts_a != want_counts(steps_a, TRAINER_EPOCHS * TRAINER_VAL_BATCHES):
+            raise AssertionError(f"trainer run A: launch counts {counts_a}")
+        if (res_a.epochs_run, res_a.preempted, trainer_a.global_step, state_a.step) != (
+                TRAINER_EPOCHS, False, steps_a, steps_a):
+            raise AssertionError(f"trainer run A: {res_a.epochs_run} epochs, preempted "
+                                 f"{res_a.preempted}, global step {trainer_a.global_step}")
+        final_a, at_signal_a = flat_state(state_a), rec_a["snapshot"]
+        del state_a, step_a, eval_a, trainer_a, res_a
+        torch.cuda.empty_cache()
+
+        # ---- run B: a real SIGUSR1 at epoch 1, step 0, then a resume
+        install_signal_handlers()
+        try:
+            state_b, step_b, eval_b, rec_b = build(SEED + 1)
+            trainer_b1, log_b, saves_b = trainer("b", step_b, eval_b, signal_at=PREEMPT_AT)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            res_b1 = trainer_b1.fit(state_b)
+            preempted_step = trainer_b1.global_step
+            if not res_b1.preempted or preempted_step != TRAINER_TRAIN_BATCHES + 1:
+                raise AssertionError(f"trainer run B: preempted {res_b1.preempted} at global "
+                                     f"step {preempted_step}")
+            _, extra = trainer_b1.ckpt.restore_host()
+            if extra["epoch"] != PREEMPT_AT[0] or extra["epoch_complete"]:
+                raise AssertionError(f"trainer run B: the preemption saved {extra}")
+            if trainer_b1.ckpt.best_step != TRAINER_TRAIN_BATCHES or saves_b[-1]["best"]:
+                raise AssertionError(f"trainer run B: best/ moved to {trainer_b1.ckpt.best_step} "
+                                     "at the preemption")
+            reset_termination()
+            state_b2, step_b2, eval_b2, rec_b2 = build(SEED + 9)
+            trainer_b2, _, saves_b2 = trainer("b", step_b2, eval_b2)
+            res_b2 = trainer_b2.fit(state_b2)
+            torch.cuda.synchronize()
+            counts_b = all_launch_counts()
+        finally:
+            for s, handler in previous_handlers.items():
+                signal.signal(s, handler)
+        steps_b = TRAINER_TRAIN_BATCHES + 1 + TRAINER_TRAIN_BATCHES
+        if counts_b != want_counts(steps_b, 2 * TRAINER_VAL_BATCHES):
+            raise AssertionError(f"trainer run B: launch counts {counts_b}")
+        if (trainer_b2.start_epoch, res_b2.epochs_run, res_b2.preempted, trainer_b2.global_step,
+                state_b2.step) != (PREEMPT_AT[0], 1, False, steps_b, steps_b):
+            raise AssertionError(f"trainer run B resumed at epoch {trainer_b2.start_epoch}, ran "
+                                 f"{res_b2.epochs_run}, global step {trainer_b2.global_step}")
+
+        # the same draws at epoch 1, step 0: A, B before the signal, B's resume
+        first = {"a": rec_a["t"][TRAINER_TRAIN_BATCHES], "b": rec_b["t"][TRAINER_TRAIN_BATCHES],
+                 "b_resumed": rec_b2["t"][0]}
+        if not all(torch.equal(first["a"], v) for v in first.values()):
+            raise AssertionError(f"draws at epoch 1, step 0 differ: {first}")
+        agree = {"a_vs_b_at_signal": compare_states(
+            "A after 4 updates vs B at the signal", flat_state(state_b), at_signal_a)}
+
+        # B's end against B's preempted state carried on in memory
+        carried, log_c, _ = trainer("c", step_b, eval_b, checkpoints=False)
+        carried.start_epoch, carried.global_step = PREEMPT_AT[0], preempted_step
+        res_c = carried.fit(state_b)
+        final_b = flat_state(state_b2)
+        agree["b_vs_carried_on"] = compare_states("B's end vs carried on", final_b,
+                                                  flat_state(res_c.state))
+        agree["a_vs_b_final_rel_l2"] = float((final_b["params"] - final_a["params"]).norm()
+                                             / final_a["params"].norm())
+
+        lr_a, lr_b = by_epoch(log_a, "ldm_lr"), by_epoch(log_b, "ldm_lr")
+        val_a, val_b = by_epoch(log_a, "ldm_val_loss"), by_epoch(log_b, "ldm_val_loss")
+        if lr_a != lr_b or sorted(val_a) != sorted(val_b):
+            raise AssertionError(f"learning rates {lr_a} vs {lr_b}")
+        # epoch 0 validates the same state in A and B; B's epoch 1 validates
+        # one update more than A's, the same as the carried-on run's
+        val_c = by_epoch(log_c, "ldm_val_loss")
+        val_rel = {e: abs(val_b[e] - val_a[e]) / abs(val_a[e]) for e in val_a}
+        val_rel_carried = abs(val_b[1] - val_c[1]) / abs(val_c[1])
+        if not (val_rel[0] <= RUN_TOL and val_rel_carried <= RUN_TOL):
+            raise AssertionError(f"val losses: A {val_a}, B {val_b}, carried on {val_c}")
+
+        # the last checkpoint, read to the host and loaded into fresh weights
+        payload, extra = trainer_b2.ckpt.restore_host()
+        fresh, _, _, _ = build(SEED + 10)
+        load_state(fresh, payload)
+        got, want = flat_state(fresh), flat_state(state_b2)
+        if not (all(torch.equal(got[k], want[k]) for k in want) and fresh.step == state_b2.step
+                and fresh.optimizer.param_groups[0]["lr"]
+                == state_b2.optimizer.param_groups[0]["lr"]):
+            raise AssertionError("restore_host of B's last checkpoint is not B's end")
+        if extra["latent_scale"] != float(latent_scale) or not extra["epoch_complete"]:
+            raise AssertionError(f"B's last checkpoint holds {extra}")
+
+        steps_per_s = by_epoch(log_a, "ldm_steps_per_s")
+        saves = saves_a + saves_b + saves_b2
+        result = {
+            "preset": "ddpm_3d_ldm", "epochs": TRAINER_EPOCHS, "batch": TRAIN_BATCH,
+            "train_batches": TRAINER_TRAIN_BATCHES, "val_batches": TRAINER_VAL_BATCHES,
+            "latent_scale": latent_scale,
+            "trainer_seconds_per_step": {e: 1 / v for e, v in steps_per_s.items()},
+            "bare_seconds_per_step": bare_step,
+            "epoch_time_s": by_epoch(log_a, "ldm_epoch_time_s"),
+            "run_a_seconds": seconds_a,
+            "checkpoint_bytes": saves_a[0]["bytes"],
+            "seconds_per_save": [round(x["seconds"], 4) for x in saves],
+            "saves": len(saves),
+            "peak_memory_bytes_run_a": peak,
+            "peak_mem_gib_logged": by_epoch(log_a, "ldm_peak_mem_gib"),
+            "launches": {"a": counts_a, "b": counts_b},
+            "lr": lr_a, "val_loss_a": val_a, "val_loss_b": val_b, "val_loss_rel": val_rel,
+            "val_loss_rel_b_vs_carried_on": val_rel_carried,
+            "agreement": agree, "t_at_epoch1_step0": first["a"].tolist(),
+        }
+        for logger in loggers.values():
+            logger.finish()
+    print("trainer_path " + json.dumps(result))
+    return {"trainer_straight": counts_a, "trainer_preempted_resumed": counts_b}
 
 
 def profile_train_path():
@@ -1057,7 +1366,7 @@ def tensor_core_proof(libs):
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-                   generate_counts, train_counts):
+                   generate_counts, train_counts, trainer_counts):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
     ``launches`` adds up the counted runs of both main paths;
@@ -1072,7 +1381,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     def launches(name):
         by_path = {"generate": generate_counts[name],
                    "train_no_remat": train_counts["no_remat"][name],
-                   "train_remat_level0": train_counts["remat_level0"][name]}
+                   "train_remat_level0": train_counts["remat_level0"][name],
+                   **{path: counts[name] for path, counts in trainer_counts.items()}}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     return [
@@ -1174,13 +1484,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     small_training_check()
-    train_counts = train_path()
+    train_counts, train_result = train_path()
+    trainer_counts = trainer_path(train_result["no_remat"]["seconds_per_step"])
     if args.profile:
         profile_train_path()
 
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-        result["launches"], train_counts)}))
+        result["launches"], train_counts, trainer_counts)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ Ported so far: the 3D latent-diffusion family — generation (``UNet3D``
 sampling followed by ``VAE3D`` decode, ``generate.generate_3d_volumes``) and
 training (``train``: train state with fp32 Adam and EMA, the cached-latent,
 latent-diffusion and VAE steps) — with hand-written CUDA kernels for fused
-GroupNorm+SiLU and for the flash-attention forward and backward. Entry points
+GroupNorm+SiLU and for the flash-attention forward and backward; and the
+training runtime (``train.Trainer``, ``io.CheckpointManager``, ``config``,
+``obs`` and the builders of ``train.experiments``). Entry points
 take ``device=`` and default to ``"cuda"``; the kernels are compiled from
 ``mrijax_torch/csrc`` at their first CUDA call, so importing the package needs
 neither ``nvcc`` nor a GPU.

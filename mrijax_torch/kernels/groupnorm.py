@@ -225,12 +225,13 @@ def _library() -> ctypes.CDLL:
 def gn_silu_stats_reference(x: torch.Tensor, groups: int,
                             eps: float = 1e-5) -> torch.Tensor:
     """Plain version of ``gn_silu_stats``: (B, 2, G) fp32, row 0 the group
-    mean, row 1 ``1/sqrt(var + eps)`` with var = E[x²] − mean²."""
+    mean, row 1 ``1/sqrt(var + eps)`` with var the population variance over
+    (N, C/G), taken in two passes (``torch.var_mean``) as ``jnp.var`` does.
+    A one-pass E[x²] − mean² in float32 cancels where |mean| ≫ std (at mean
+    200, std 1.5 and N = 51 200 it was off by ~0.9 of a variance of 2.25)."""
     b, n, c = x.shape
     xg = x.float().reshape(b, n, groups, c // groups)
-    count = n * (c // groups)
-    mean = xg.sum(dim=(1, 3)) / count
-    var = ((xg * xg).sum(dim=(1, 3)) / count - mean * mean).clamp_min(0.0)
+    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0)
     return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
 
 

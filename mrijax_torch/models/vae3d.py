@@ -12,7 +12,10 @@ Counterpart of ``mrijax/models/vae3d.py``:
 
 Channels-last (B, D, H, W, C); compute dtype ``dtype`` configurable, parameters
 of the convolutions held in ``param_dtype`` (``None``: ``dtype``; training uses
-float32), μ/logσ²/output cast to fp32. Module names follow the reference PyTorch layout:
+float32), μ/logσ²/output cast to fp32. ``remat`` recomputes every res block of
+encoder and decoder in the backward pass (``torch.utils.checkpoint``,
+non-reentrant), as the JAX package's ``nn.remat``; the ``state_dict`` keys do
+not depend on it. Module names follow the reference PyTorch layout:
 ``encoder.in_conv``, ``encoder.downs.{k}`` (a flat list of res blocks and
 stride-2 convs), ``encoder.to_mu_logvar``, ``decoder.from_latent``,
 ``decoder.ups.{k}``, ``decoder.out_conv``.
@@ -22,17 +25,28 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mrijax_torch.models.blocks import Conv3d, Downsample, ResBlock3D, Upsample
+
+
+def _run(layer: nn.Module, h: torch.Tensor, remat: bool) -> torch.Tensor:
+    """One layer; a res block under ``remat`` is recomputed in the backward
+    pass."""
+    if remat and isinstance(layer, ResBlock3D) and torch.is_grad_enabled():
+        # the blocks draw no random numbers: no generator state to carry
+        return checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+    return layer(h)
 
 
 class Encoder3D(nn.Module):
     def __init__(self, in_channels: int = 4, base_channels: int = 32,
                  num_down: int = 3, latent_channels: int = 8, groups: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.in_conv = Conv3d(in_channels, base_channels, 3, padding=1, **kw)
         self.downs = nn.ModuleList()
@@ -48,7 +62,7 @@ class Encoder3D(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.in_conv(x.to(self.dtype))
         for layer in self.downs:
-            h = layer(h)
+            h = _run(layer, h, self.remat)
         mu, logvar = torch.chunk(self.to_mu_logvar(h).float(), 2, dim=-1)
         return mu, logvar
 
@@ -57,9 +71,10 @@ class Decoder3D(nn.Module):
     def __init__(self, out_channels: int = 4, base_channels: int = 32,
                  num_down: int = 3, latent_channels: int = 8, groups: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         cur = base_channels * (2 ** (num_down - 1))
         self.from_latent = Conv3d(latent_channels, cur, 3, padding=1, **kw)
@@ -75,7 +90,7 @@ class Decoder3D(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.from_latent(z.to(self.dtype))
         for layer in self.ups:
-            h = layer(h)
+            h = _run(layer, h, self.remat)
         return self.out_conv(h).float()
 
 
@@ -83,13 +98,13 @@ class VAE3D(nn.Module):
     def __init__(self, in_channels: int = 4, base_channels: int = 32,
                  num_down: int = 3, latent_channels: int = 8, groups: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.num_down = num_down
         self.encoder = Encoder3D(in_channels, base_channels, num_down,
-                                 latent_channels, groups, dtype, param_dtype)
+                                 latent_channels, groups, dtype, param_dtype, remat)
         self.decoder = Decoder3D(in_channels, base_channels, num_down,
-                                 latent_channels, groups, dtype, param_dtype)
+                                 latent_channels, groups, dtype, param_dtype, remat)
         # conv weights in the layout the channels-last convolutions read
         self.to(memory_format=torch.channels_last_3d)
 

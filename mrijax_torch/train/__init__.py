@@ -1,5 +1,7 @@
 """Training: train state, optimizer-step factories, plateau LR and early
-stopping. Counterpart of ``mrijax/train`` (``state`` and ``steps``)."""
+stopping, the epoch driver and the config builders. Counterpart of
+``mrijax/train`` (``state``, ``steps``, ``trainer`` and the builders of
+``experiments``)."""
 
 from mrijax_torch.train.state import (
     EarlyStopper,
@@ -25,3 +27,4 @@ from mrijax_torch.train.steps import (
     sample_timesteps,
     vae_loss,
 )
+from mrijax_torch.train.trainer import Trainer, TrainerResult
