@@ -50,7 +50,29 @@ What it does, in order:
    read just after; checks exact counts, the same draws, states and learning
    rates of the two runs, and a bitwise ``restore_host`` of the last
    checkpoint, and prints seconds per step, bytes and seconds per save, and
-   peak memory.
+   peak memory;
+9. checks the 2D family small (``small_2d_check``): a float32 UNet2D through
+   ``sample_2d`` (plain and guided), a 2.5D one through both pseudo-3D
+   generators over a seeded subject of 6 slices, and 3 steps of
+   ``make_diffusion_train_step``, on the card against the CPU;
+10. drives the 2D serving path at full width (``path_2d``):
+   ``preset_slice_cond_2d``'s UNet2D (base 64, mults (1, 2, 4, 8), bf16
+   weights, T = 1000 linear) through ``sample_2d`` (64 images at 128², 20
+   DDIM steps, plain and with guidance 3) and ``sample_pseudo3d_sweep`` (155
+   slices, 10 DPM-Solver steps); then the 2.5D path (``path_25d``):
+   ``preset_ddpm_25d``'s model over a seeded subject of 155 slices through
+   ``generate_pseudo3d_real_context`` (one chunk, 20 DDIM steps) and
+   ``generate_pseudo3d_hybrid`` (its first 8 slices, 10 steps, batch 1) —
+   each call with the launch counts set to 0 just before and read just after,
+   29 launches of each GroupNorm kernel per forward;
+11. drives the 2D training path at full width (``train_path_2d``): both
+   presets' models through ``make_diffusion_train_step`` at batch 64 (bf16
+   compute, float32 parameters, Adam 2e-4, EMA 0.999, guidance dropout 0.1),
+   2 warm-up and 5 counted steps each, the 2.5D batches with their context.
+
+The GroupNorm phases (2, 3) also take the UNet2D's seven (N, C) shapes:
+compared at B = 2 and once at B = 310, timed at the presets' batch of 64 and
+summed over one forward (``groupnorm_per_unet2d_forward``).
 
 Any miss raises: the script exits non-zero and prints no result line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
@@ -61,6 +83,7 @@ names the card; the line before that is the ``{"kernels": [...]}`` record.
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -76,14 +99,25 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mrijax_torch.config import preset_ddpm_3d_ldm
-from mrijax_torch.diffusion import GaussianDiffusion, cosine_beta_schedule, make_schedule
-from mrijax_torch.generate import generate_3d_volumes
+from mrijax_torch.config import preset_ddpm_25d, preset_ddpm_3d_ldm, preset_slice_cond_2d
+from mrijax_torch.diffusion import (
+    GaussianDiffusion,
+    cosine_beta_schedule,
+    linear_beta_schedule,
+    make_schedule,
+)
+from mrijax_torch.generate import (
+    generate_3d_volumes,
+    generate_pseudo3d_hybrid,
+    generate_pseudo3d_real_context,
+    sample_2d,
+    sample_pseudo3d_sweep,
+)
 from mrijax_torch.io import load_state
 from mrijax_torch.kernels import _build
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
-from mrijax_torch.models import UNet3D, VAE3D
+from mrijax_torch.models import UNet2D, UNet3D, VAE3D
 from mrijax_torch.models.blocks import Conv3d, Downsample, Upsample
 from mrijax_torch.obs import MetricsLogger, install_signal_handlers, reset_termination
 from mrijax_torch.ops.attention import multi_head_self_attention
@@ -95,9 +129,10 @@ from mrijax_torch.train import (
     fixed_validation_timesteps,
     make_cached_latent_eval_step,
     make_cached_latent_train_step,
+    make_diffusion_train_step,
     sample_timesteps,
 )
-from mrijax_torch.train.experiments import _trainer, build_diffusion, build_unet3d
+from mrijax_torch.train.experiments import _trainer, build_diffusion, build_unet2d, build_unet3d
 
 SEED = 0
 REPEATS = 15
@@ -147,6 +182,30 @@ GN_REMAT_LEVEL0_CALLS = 8         # 4 res blocks at level 0, two norms each, run
 GN_GRAD_SHAPES = [(51200, 128), (800, 512)]
 GENERATION_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_attn_fwd")
 
+# The 2D and 2.5D families (presets slice_cond_2d and ddpm_25d): UNet2D base 64,
+# mults (1, 2, 4, 8), time dim 256, at 128². GroupNorm+SiLU call sites of one
+# forward: (N, C) -> calls, from the topology (down path at 128², 64², 32²;
+# the bottleneck at 16²; the up path back; the head).
+GN_UNET2D = {
+    (16384, 128): 4,
+    (4096, 256): 4,
+    (1024, 512): 4,
+    (256, 512): 4,
+    (1024, 256): 4,
+    (4096, 128): 4,
+    (16384, 64): 5,
+}
+GN_CALLS_PER_UNET2D = sum(GN_UNET2D.values())   # 29
+GN_2D_WIDEST_BATCH = (310, 16384, 64)    # the guided sweep's batch at the 8-channel groups
+IMAGE_SIZE = 128
+BATCH_2D = 64                     # the presets' batch: training and grid sampling
+DDIM_STEPS_2D = 20
+SWEEP_SLICES = 155
+SWEEP_STEPS = 10                  # dpm
+GUIDANCE = 3.0
+HYBRID_SLICES = 8
+HYBRID_STEPS = 10
+
 TRAINER_EPOCHS = 2
 TRAINER_TRAIN_BATCHES = 3
 TRAINER_VAL_BATCHES = 1
@@ -162,11 +221,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, repeats: int = REPEATS) -> float:
+def time_ms(fn, repeats: int = REPEATS, spin: int = SPIN_CYCLES) -> float:
     """Median device time of one ``fn()`` in ms. Each sample puts a spin
     kernel on the stream first, so the host has issued all of ``fn``'s
     launches before the card reaches the start event: the time between the
-    two events is the card's alone, without the host's launch latency."""
+    two events is the card's alone, without the host's launch latency (as
+    long as ``spin`` cycles outlast the host's issue of ``fn``)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -174,7 +234,7 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         stop.record()
@@ -234,7 +294,12 @@ def compare_groupnorm(rng):
     statistics (the kernel sums in a fixed order; only its ticket is an
     atomic). Every main-path shape is compared at the batch the generation
     path gives it and, for the UNet's call sites, at the training batch as
-    well. Last, ``gn_far_from_zero``: x = 200 + 1.5·N(0, 1) at (2, 100, 64),
+    well; the UNet2D's seven shapes at B = 2 and at the presets' B = 64 (the
+    training batch and the grid's), and its shapes with 8- and 64-channel
+    groups also at the guided grid's B = 128 and the sweep's B = 155, and its
+    8-channel groups once at the guided sweep's B = 310: the launch plans
+    change with the batch (at B = 64 the stats kernel takes two blocks an SM,
+    each looping over tens of slabs). Last, ``gn_far_from_zero``: x = 200 + 1.5·N(0, 1) at (2, 100, 64),
     where E[x²] − mean² cancels to 1/17 800 of E[x²]; kernel and plain
     version each hold the variance (rstd⁻² − eps) within 16·2⁻²⁴·E[x²] of
     the float64 variance (a few float32 ulps of E[x²]).
@@ -245,6 +310,10 @@ def compare_groupnorm(rng):
     cases = [(2, n, c) for (n, c) in GN_MAIN_PATH if (n, c) != GN_BIG]
     cases += [(1, *GN_BIG)] + [(2, n, c) for n, c in GN_RAGGED]
     cases += [(TRAIN_BATCH, n, c) for (n, c), (per_unet, _) in GN_MAIN_PATH.items() if per_unet]
+    cases += [(2, n, c) for (n, c) in GN_UNET2D] + [GN_2D_WIDEST_BATCH]
+    cases += [(BATCH_2D, n, c) for (n, c) in GN_UNET2D]
+    cases += [(b, n, c) for b in (2 * BATCH_2D, SWEEP_SLICES) for (n, c) in GN_UNET2D
+              if c // GROUPS in (8, 64)]
     for b, n, c in cases:
         x32, scale, bias = gn_inputs(rng, b, n, c)
         for dtype in (torch.float32, torch.bfloat16):
@@ -480,63 +549,86 @@ def compare_groupnorm_autograd(rng):
     return worst
 
 
+def groupnorm_row(rng, b, n, c):
+    """Both kernels, their plain versions, the library yardsticks and the
+    bytes bounds at one (b, n, c) shape, bf16."""
+    x32, scale, bias = gn_inputs(rng, b, n, c)
+    x = x32.to(torch.bfloat16)
+    del x32
+    stats = gn.gn_silu_stats(x, GROUPS)
+    nbytes = x.numel() * x.element_size()
+    # channels-first view of the same buffer for the library calls
+    x_cf = x.view(b, n, 1, c).permute(0, 3, 1, 2)
+    xg = x.view(b, n, GROUPS, c // GROUPS)
+    return {
+        "shape": [b, n, c], "dtype": "bfloat16",
+        "stats_ms": time_ms(lambda: gn.gn_silu_stats(x, GROUPS)),
+        "stats_plain_ms": time_ms(lambda: gn.gn_silu_stats_reference(x, GROUPS)),
+        "stats_library_ms": time_ms(
+            lambda: torch.var_mean(xg, dim=(1, 3), correction=0)),
+        "stats_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "stats_host_issue_us": host_issue_us(lambda: gn.gn_silu_stats(x, GROUPS)),
+        "apply_ms": time_ms(lambda: gn.gn_silu_apply(x, stats, scale, bias)),
+        "apply_plain_ms": time_ms(
+            lambda: gn.gn_silu_apply_reference(x, stats, scale, bias)),
+        "apply_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+        # one read and one write of the same bytes: what the card takes
+        # for apply's traffic alone (a yardstick, not the same function)
+        "apply_copy_ms": time_ms(lambda: torch.empty_like(x).copy_(x)),
+        "fused_ms": time_ms(
+            lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
+        "fused_plain_ms": time_ms(
+            lambda: gn.group_norm_silu_reference(x, scale, bias, GROUPS)),
+        "fused_library_ms": time_ms(
+            lambda: F.silu(F.group_norm(x_cf, GROUPS, scale.to(x.dtype),
+                                        bias.to(x.dtype), 1e-5))),
+        "fused_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+        "fused_host_issue_us": host_issue_us(
+            lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
+        "stats_plan": dataclasses.asdict(gn.launch_plan(n, c, GROUPS, x.element_size(), 16, b)),
+        "apply_plan": dataclasses.asdict(gn.apply_plan(n, c, GROUPS, x.element_size())),
+    }
+
+
+GN_SUM_KEYS = ("stats_ms", "stats_bound_ms", "apply_ms", "apply_bound_ms", "apply_copy_ms")
+
+
+def weighted(rows, calls):
+    """Each timed quantity summed over ``calls(row)`` launches of its row."""
+    out = {k: sum(r[k] * calls(r) for r in rows) for k in GN_SUM_KEYS}
+    out["stats_above_bound_ms"] = out["stats_ms"] - out["stats_bound_ms"]
+    out["apply_above_bound_ms"] = out["apply_ms"] - out["apply_bound_ms"]
+    return out
+
+
 def time_groupnorm(rng):
     """Per main-path shape (bf16, B = 2): both kernels, their plain versions,
     the library yardsticks and the bytes bound; then each summed over the
-    calls of one generate call (``groupnorm_per_generate_call``)."""
+    calls of one generate call (``groupnorm_per_generate_call``). The same
+    at the UNet2D's shapes at the presets' batch of 64, summed over one
+    forward (``groupnorm_per_unet2d_forward``)."""
 
     rows = []
     for (n, c), (per_unet, per_decode) in GN_MAIN_PATH.items():
-        b = NUM_VOLUMES
-        x32, scale, bias = gn_inputs(rng, b, n, c)
-        x = x32.to(torch.bfloat16)
-        del x32
-        stats = gn.gn_silu_stats(x, GROUPS)
-        nbytes = x.numel() * x.element_size()
-        # channels-first view of the same buffer for the library calls
-        x_cf = x.view(b, n, 1, c).permute(0, 3, 1, 2)
-        xg = x.view(b, n, GROUPS, c // GROUPS)
-        row = {
-            "shape": [b, n, c], "dtype": "bfloat16",
-            "calls_per_unet_forward": per_unet, "calls_per_decode": per_decode,
-            "stats_ms": time_ms(lambda: gn.gn_silu_stats(x, GROUPS)),
-            "stats_plain_ms": time_ms(lambda: gn.gn_silu_stats_reference(x, GROUPS)),
-            "stats_library_ms": time_ms(
-                lambda: torch.var_mean(xg, dim=(1, 3), correction=0)),
-            "stats_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "stats_host_issue_us": host_issue_us(lambda: gn.gn_silu_stats(x, GROUPS)),
-            "apply_ms": time_ms(lambda: gn.gn_silu_apply(x, stats, scale, bias)),
-            "apply_plain_ms": time_ms(
-                lambda: gn.gn_silu_apply_reference(x, stats, scale, bias)),
-            "apply_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
-            # one read and one write of the same bytes: what the card takes
-            # for apply's traffic alone (a yardstick, not the same function)
-            "apply_copy_ms": time_ms(lambda: torch.empty_like(x).copy_(x)),
-            "fused_ms": time_ms(
-                lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
-            "fused_plain_ms": time_ms(
-                lambda: gn.group_norm_silu_reference(x, scale, bias, GROUPS)),
-            "fused_library_ms": time_ms(
-                lambda: F.silu(F.group_norm(x_cf, GROUPS, scale.to(x.dtype),
-                                            bias.to(x.dtype), 1e-5))),
-            "fused_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
-            "fused_host_issue_us": host_issue_us(
-                lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
-            "stats_plan": dataclasses.asdict(gn.launch_plan(n, c, GROUPS, x.element_size(), 16, b)),
-            "apply_plan": dataclasses.asdict(gn.apply_plan(n, c, GROUPS, x.element_size())),
-        }
+        row = groupnorm_row(rng, NUM_VOLUMES, n, c)
+        row.update(calls_per_unet_forward=per_unet, calls_per_decode=per_decode)
         rows.append(row)
-        del x, stats, x_cf, xg
     # one generate call: 20 UNet forwards and one decode, each at batch 2
-    per_call = {k: sum(r[k] * (DDIM_STEPS * r["calls_per_unet_forward"] + r["calls_per_decode"])
-                       for r in rows)
-                for k in ("stats_ms", "stats_bound_ms", "apply_ms", "apply_bound_ms",
-                          "apply_copy_ms")}
-    per_call["stats_above_bound_ms"] = per_call["stats_ms"] - per_call["stats_bound_ms"]
-    per_call["apply_above_bound_ms"] = per_call["apply_ms"] - per_call["apply_bound_ms"]
+    per_call = weighted(rows, lambda r: DDIM_STEPS * r["calls_per_unet_forward"]
+                        + r["calls_per_decode"])
     print("groupnorm_times " + json.dumps(rows))
     print("groupnorm_per_generate_call " + json.dumps(per_call))
-    return rows
+
+    rows_2d = []
+    for (n, c), calls in GN_UNET2D.items():
+        row = groupnorm_row(rng, BATCH_2D, n, c)
+        row["calls_per_unet2d_forward"] = calls
+        rows_2d.append(row)
+        torch.cuda.empty_cache()
+    per_forward = weighted(rows_2d, lambda r: r["calls_per_unet2d_forward"])
+    print("groupnorm_times_2d " + json.dumps(rows_2d))
+    print("groupnorm_per_unet2d_forward " + json.dumps({"batch": BATCH_2D, **per_forward}))
+    return rows, rows_2d
 
 
 def profile_groupnorm_stats(rng, calls=10):
@@ -770,19 +862,27 @@ def build_flagship():
     return unet, vae, diffusion
 
 
-def profile_window(prof, wall_ms, top=14):
-    """Device time by kernel name of one profiled window."""
-    rows = []
+def profile_window(prof, wall_ms, top=14, host_top=0):
+    """Device time by kernel name of one profiled window; with ``host_top``,
+    also the host operators that took the most host time of their own."""
+    rows, host = [], []
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0 and evt.device_type.name != "CPU":
             rows.append((dev_us / 1e3, evt.count, evt.key))
+        elif evt.device_type.name == "CPU" and evt.self_cpu_time_total > 0:
+            host.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
-    return {
+    host.sort(reverse=True)
+    out = {
         "wall_ms_under_profiler": wall_ms, "device_busy_ms": sum(r[0] for r in rows),
         "top": [{"ms": r[0], "count": r[1], "kernel": r[2][:90]} for r in rows[:top]],
     }
+    if host_top:
+        out["host_ms"] = sum(r[0] for r in host)
+        out["host_top"] = [{"ms": r[0], "count": r[1], "op": r[2][:60]} for r in host[:host_top]]
+    return out
 
 
 def profile_main_path(unet, vae, diffusion):
@@ -1315,6 +1415,460 @@ def profile_train_path():
     print("profile_train " + json.dumps({"train_3_steps": profile_window(prof, wall_ms, top=24)}))
 
 
+# ------------------------------------------------------- the 2D / 2.5D family
+
+
+class SubjectSlices:
+    """One subject's slices in memory, read as the 2.5D generators read a
+    dataset (``volume_paths``, ``slice_tuples``, ``slice_radius``,
+    ``__getitem__`` → numpy ``image`` / ``context`` / ``z_pos``): the real
+    neighbours as context (the center slice past the subject's edges),
+    dz-major and modality-minor; z = k / (depth − 1), ``depth`` the whole
+    subject's (a leading part of a subject keeps its slices' positions)."""
+
+    def __init__(self, volume, radius, depth=None):
+        self.volume, self.slice_radius = volume, radius
+        self.depth = depth or len(volume)
+        self.volume_paths = ["subject"]
+        self.slice_tuples = [("subject", k) for k in range(len(volume))]
+
+    def __len__(self):
+        return len(self.slice_tuples)
+
+    def __getitem__(self, i):
+        k, n, r = self.slice_tuples[i][1], len(self.volume), self.slice_radius
+        neighbours = [self.volume[k + dz] if 0 <= k + dz < n else self.volume[k]
+                      for dz in range(-r, r + 1) if dz]
+        return {"image": self.volume[k], "context": np.concatenate(neighbours, axis=-1),
+                "z_pos": np.float32(k / (self.depth - 1))}
+
+
+def seeded_subject(seed, slices, size, modalities=4):
+    """A subject of seeded values in [-1, 1] (model space), (S, H, W, 4)."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1, 1, size=(slices, size, size, modalities)).astype(np.float32)
+
+
+def check_output(tag, out, shape):
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.float32:
+        raise AssertionError(f"{tag}: output {out.dtype} {tuple(out.shape)}, want {shape}")
+    if not out.is_cuda or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: output not on the card or not finite")
+
+
+def expect_gn(tag, counts, forwards):
+    """Exactly 29 launches of each GroupNorm kernel per UNet2D forward, and
+    no flash-attention launch (the UNet2D has no attention)."""
+    want = {"gn_silu_stats": forwards * GN_CALLS_PER_UNET2D,
+            "gn_silu_apply": forwards * GN_CALLS_PER_UNET2D,
+            "flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+    if counts != want:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {want}")
+
+
+def small_2d_check():
+    """A small float32 UNet2D (base 16, mults (1, 2), 32²) on the card
+    (kernels) against the CPU (plain versions) from the same start:
+    ``sample_2d`` with 5 DDIM steps, plain and guided; then a 2.5D model
+    (radius 1) through ``generate_pseudo3d_real_context`` (chunks of 4 of 6
+    slices) and ``generate_pseudo3d_hybrid`` over a seeded subject of 6
+    slices; tolerance 1e-3 absolute (float32 sums in another order,
+    compounding over the steps). Then 3 float32 ``make_diffusion_train_step``
+    steps of the 2.5D model (EMA, guidance dropout with the mask given) on the
+    card and on the CPU from the same weights and draws: losses 1e-4
+    absolute, parameters 1e-3 relative L2, as ``small_training_check``."""
+
+    size, steps = 32, 5
+    diffusion = GaussianDiffusion(make_schedule(linear_beta_schedule(20)))
+    rng = np.random.default_rng(SEED + 11)
+    kw2d = dict(base_channels=16, channel_mults=(1, 2), time_emb_dim=32)
+    errs = {}
+
+    def both(tag, fn):
+        reset_launch_counts()
+        on_card = fn("cuda").cpu()
+        counts = all_launch_counts()
+        if min(counts["gn_silu_stats"], counts["gn_silu_apply"]) == 0:
+            raise AssertionError(f"small 2D {tag} skipped a GroupNorm kernel: {counts}")
+        errs[tag] = check_close(f"small 2D {tag}, card vs CPU", on_card, fn("cpu"), atol=1e-3)
+
+    model = seeded_weights(UNet2D(**kw2d), SEED + 12)
+    x_t = torch.from_numpy(rng.standard_normal((3, size, size, 1), dtype=np.float32))
+    for tag, guidance in (("sample_2d", None), ("sample_2d_guided", 2.0)):
+        both(tag, lambda dev: sample_2d(model, diffusion, num_samples=3, image_size=size,
+                                        z_pos=0.4, ddim_steps=steps, x_t=x_t,
+                                        guidance_scale=guidance, device=dev))
+
+    kw25 = dict(in_channels=12, out_channels=4, **kw2d)
+    model25 = seeded_weights(UNet2D(**kw25), SEED + 13)
+    data = SubjectSlices(seeded_subject(SEED + 14, 6, size), radius=1)
+    x_t = torch.from_numpy(rng.standard_normal((6, size, size, 4), dtype=np.float32))
+    both("real_context", lambda dev: generate_pseudo3d_real_context(
+        model25, diffusion, data, x_t=x_t, ddim_steps=steps, batch_size=4, device=dev))
+    both("hybrid", lambda dev: generate_pseudo3d_hybrid(
+        model25, diffusion, data, x_t=x_t, ddim_steps=steps, device=dev))
+
+    batches = [{
+        "image": torch.from_numpy(rng.uniform(-1, 1, (2, size, size, 4)).astype(np.float32)),
+        "context": torch.from_numpy(rng.uniform(-1, 1, (2, size, size, 8)).astype(np.float32)),
+        "z_pos": torch.from_numpy(rng.uniform(0, 1, 2).astype(np.float32)),
+        "t": torch.from_numpy(rng.integers(0, 20, size=2)),
+        "noise": torch.from_numpy(rng.standard_normal((2, size, size, 4), dtype=np.float32)),
+        "drop": torch.tensor([k == 1, False]),
+    } for k in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m = seeded_weights(UNet2D(**kw25), SEED + 15)
+        state = create_train_state(m, 1e-3, ema=True, device=device)
+        step = make_diffusion_train_step(m, diffusion, ema_decay=0.9, cond_dropout=0.1)
+        reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, loss = step(state, {k: b[k] for k in ("image", "context", "z_pos")},
+                               t=b["t"], noise=b["noise"], drop=b["drop"])
+            losses.append(loss)
+        if device == "cuda":
+            counts = all_launch_counts()
+            if min(counts["gn_silu_stats"], counts["gn_silu_apply"]) == 0:
+                raise AssertionError(f"small 2D training skipped a GroupNorm kernel: {counts}")
+        runs[device] = (torch.stack(losses).cpu(),
+                        torch.cat([p.detach().flatten().cpu() for p in m.parameters()]))
+    (loss_g, par_g), (loss_c, par_c) = runs["cuda"], runs["cpu"]
+    errs["train_losses"] = check_close("small 2D training losses, card vs CPU", loss_g, loss_c,
+                                       atol=1e-4)
+    rel = float((par_g - par_c).norm() / par_c.norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"small 2D training: parameters differ by {rel:.3e}")
+    errs["train_params_rel_l2"] = rel
+    print("small_2d_check " + json.dumps(errs))
+
+
+def build_unet2d_for_sampling(cfg, seed):
+    """A preset's UNet2D at full width from the fields of its ``unet``
+    config, as a sampling copy holds it (as ``build_flagship`` does for 3D):
+    bf16 compute with the convolutions' and linears' weights in bf16
+    (``param_dtype=None``), GroupNorm affine in float32; seeded weights, on
+    the card."""
+    u = cfg.unet
+    model = UNet2D(in_channels=u.in_channels, out_channels=u.out_channels,
+                   base_channels=u.base_channels, channel_mults=u.channel_mults,
+                   time_emb_dim=u.time_emb_dim, groups=u.groups, dtype=torch.bfloat16)
+    return seeded_weights(model, seed).cuda().eval()
+
+
+def unet2d_flops_per_image(model, in_channels):
+    """Operations of one UNet2D forward of one 128² image: 2 per
+    multiply-add of every convolution, transposed convolution and linear
+    (the elementwise work is left out), counted by forward hooks over one
+    forward at batch 1."""
+    total = [0]
+
+    def count(mod, inputs, out):
+        k = 1
+        for size in getattr(mod, "kernel_size", ()):
+            k *= size
+        if isinstance(mod, torch.nn.ConvTranspose2d):   # every input pixel meets k² outputs
+            total[0] += 2 * inputs[0][..., 0].numel() * mod.in_channels * mod.out_channels * k
+        elif isinstance(mod, torch.nn.Conv2d):          # every output pixel reads k² inputs
+            total[0] += 2 * out[..., 0].numel() * mod.in_channels * mod.out_channels * k
+        else:
+            total[0] += 2 * out[..., 0].numel() * mod.in_features * mod.out_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(1, IMAGE_SIZE, IMAGE_SIZE, in_channels, device="cuda"),
+              torch.ones(1, dtype=torch.long, device="cuda"), torch.zeros(1, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def forward_bound_ms(batch, flops_per_image):
+    """The least time of ``batch`` UNet2D forwards on the card: their
+    operations over the bf16 tensor-core peak."""
+    return batch * flops_per_image / PEAK_FLOPS["bfloat16"] * 1e3
+
+
+def timed(fn):
+    """``fn()`` between two synchronisations: (result, seconds, peak bytes,
+    launch counts), the counts set to 0 just before. Unreachable objects are
+    collected first, so that the peak holds no garbage of an earlier phase
+    (``trainer_path``'s trainers sit in reference cycles with their models
+    and optimizer state until a collection)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, torch.cuda.max_memory_allocated(), all_launch_counts()
+
+
+def path_2d(profile_steps=False):
+    """The 2D serving path at full width: ``preset_slice_cond_2d``'s UNet2D
+    (35 377 985 parameters) from the preset's fields with seeded weights held
+    in bf16, T = 1000 linear (``build_diffusion``). ``sample_2d`` of 64 images at
+    128² with 20 DDIM steps, plain and with ``guidance_scale`` 3 (one forward
+    of 128 a step); ``sample_pseudo3d_sweep`` of 155 slices with 10 DPM-Solver
+    steps. Each call is warmed up once at 2 steps first (cuDNN picks its
+    algorithms per batch size), then counted: exactly 29 launches of each
+    GroupNorm kernel per forward. With ``profile_steps`` (``--profile``), the
+    grid's device busy per step from ``torch.profiler`` over 5 DDIM steps
+    (``profile_2d`` prints that window by kernel)."""
+
+    cfg = preset_slice_cond_2d()
+    model = build_unet2d_for_sampling(cfg, SEED + 16)
+    diffusion = build_diffusion(cfg.diffusion).to("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = unet2d_flops_per_image(model, cfg.unet.in_channels)
+    calls = {
+        "grid": (DDIM_STEPS_2D, lambda steps, gen: sample_2d(
+            model, diffusion, num_samples=BATCH_2D, image_size=IMAGE_SIZE, ddim_steps=steps,
+            generator=gen), (BATCH_2D, IMAGE_SIZE, IMAGE_SIZE, 1)),
+        "grid_guided": (DDIM_STEPS_2D, lambda steps, gen: sample_2d(
+            model, diffusion, num_samples=BATCH_2D, image_size=IMAGE_SIZE, ddim_steps=steps,
+            generator=gen, guidance_scale=GUIDANCE), (BATCH_2D, IMAGE_SIZE, IMAGE_SIZE, 1)),
+        "sweep": (SWEEP_STEPS, lambda steps, gen: sample_pseudo3d_sweep(
+            model, diffusion, num_slices=SWEEP_SLICES, image_size=IMAGE_SIZE, ddim_steps=steps,
+            sampler="dpm", generator=gen), (SWEEP_SLICES, IMAGE_SIZE, IMAGE_SIZE, 1)),
+    }
+    result, counts_by_call = {"unet_params": n_params, "dtype": "bfloat16 weights and compute",
+                              "timesteps": cfg.diffusion.timesteps,
+                              "forward_gflop_per_image": flops / 1e9}, {}
+    for name, (steps, call, shape) in calls.items():
+        call(2, torch.Generator(device="cuda").manual_seed(SEED + 17))
+        out, seconds, peak, counts = timed(
+            lambda: call(steps, torch.Generator(device="cuda").manual_seed(SEED + 18)))
+        expect_gn(f"path_2d {name}", counts, steps)
+        check_output(f"path_2d {name}", out, shape)
+        counts_by_call[f"path_2d_{name}"] = counts
+        batch = shape[0] * (2 if name == "grid_guided" else 1)
+        result[name] = {"batch": batch, "steps": steps, "seconds_per_call": seconds,
+                        "seconds_per_step": seconds / steps,
+                        "flop_bound_ms_per_step": forward_bound_ms(batch, flops),
+                        "peak_memory_bytes": peak, "launches": counts,
+                        "output_std": float(out.std())}
+        del out
+    window = None
+    if profile_steps:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sample_2d(model, diffusion, num_samples=BATCH_2D, image_size=IMAGE_SIZE,
+                      ddim_steps=5, generator=gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        window = profile_window(prof, wall_ms, top=16)
+        result["grid"]["device_busy_ms_per_step"] = window["device_busy_ms"] / 5
+        result["grid"]["device_busy_share"] = window["device_busy_ms"] / wall_ms
+    print("path_2d " + json.dumps(result))
+    return model, diffusion, counts_by_call, window
+
+
+def path_25d(profile_slice=False):
+    """The 2.5D serving path at full width: ``preset_ddpm_25d``'s UNet2D (20
+    channels in, 4 out, radius 2) from the preset's fields, seeded weights
+    held in bf16, T = 1000 linear, over a seeded in-memory subject of 155 slices at
+    128². ``generate_pseudo3d_real_context`` denoises the whole subject as one
+    chunk of 155 with 20 DDIM steps; ``generate_pseudo3d_hybrid`` the first 8
+    slices (their context past slice 7 falls back to the center slice) with
+    10 DDIM steps, batch 1: host-bound, so the host's µs to issue one forward
+    are printed beside its device time and the wall time per forward. With
+    ``profile_slice`` (``--profile``), one slice of the hybrid under
+    ``torch.profiler``: device time by kernel and host time by operator."""
+
+    cfg = preset_ddpm_25d()
+    radius = cfg.data.slice_radius
+    model = build_unet2d_for_sampling(cfg, SEED + 19)
+    diffusion = build_diffusion(cfg.diffusion).to("cuda")
+    volume = seeded_subject(SEED + 20, SWEEP_SLICES, IMAGE_SIZE)
+    subject = SubjectSlices(volume, radius)
+    head = SubjectSlices(volume[:HYBRID_SLICES], radius, depth=SWEEP_SLICES)
+    flops = unet2d_flops_per_image(model, cfg.unet.in_channels)
+    result, counts_by_call = {"unet_params": sum(p.numel() for p in model.parameters()),
+                              "in_channels": cfg.unet.in_channels, "slice_radius": radius,
+                              "forward_gflop_per_image": flops / 1e9}, {}
+
+    generate_pseudo3d_real_context(model, diffusion, subject, ddim_steps=2)   # warm-up
+    out, seconds, peak, counts = timed(lambda: generate_pseudo3d_real_context(
+        model, diffusion, subject, ddim_steps=DDIM_STEPS_2D,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 21)))
+    expect_gn("path_25d real_context", counts, DDIM_STEPS_2D)
+    check_output("path_25d real_context", out, (SWEEP_SLICES, IMAGE_SIZE, IMAGE_SIZE, 4))
+    counts_by_call["path_25d_real_context"] = counts
+    result["real_context"] = {"slices": SWEEP_SLICES, "batch": SWEEP_SLICES,
+                              "steps": DDIM_STEPS_2D, "seconds_per_call": seconds,
+                              "seconds_per_step": seconds / DDIM_STEPS_2D,
+                              "flop_bound_ms_per_step": forward_bound_ms(SWEEP_SLICES, flops),
+                              "peak_memory_bytes": peak, "launches": counts}
+    del out
+
+    generate_pseudo3d_hybrid(model, diffusion, SubjectSlices(volume[:2], radius), ddim_steps=2)
+    out, seconds, peak, counts = timed(lambda: generate_pseudo3d_hybrid(
+        model, diffusion, head, ddim_steps=HYBRID_STEPS,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 22)))
+    forwards = HYBRID_SLICES * HYBRID_STEPS
+    expect_gn("path_25d hybrid", counts, forwards)
+    check_output("path_25d hybrid", out, (HYBRID_SLICES, IMAGE_SIZE, IMAGE_SIZE, 4))
+    counts_by_call["path_25d_hybrid"] = counts
+    one = head[len(head) // 2]
+    args = (torch.randn(1, IMAGE_SIZE, IMAGE_SIZE, 4, device="cuda"),
+            torch.tensor([500], device="cuda"), torch.tensor([float(one["z_pos"])], device="cuda"),
+            torch.from_numpy(one["context"])[None].cuda())
+    with torch.no_grad():
+        host_us = host_issue_us(lambda: model(*args), calls=10)
+        device_ms = time_ms(lambda: model(*args), spin=20 * SPIN_CYCLES)
+    result["hybrid"] = {"slices": HYBRID_SLICES, "batch": 1, "steps": HYBRID_STEPS,
+                        "seconds_per_call": seconds, "wall_ms_per_forward": seconds / forwards * 1e3,
+                        "host_issue_us_per_forward": host_us,
+                        "device_ms_per_forward": device_ms, "peak_memory_bytes": peak,
+                        "launches": counts}
+    if profile_slice:
+        one_slice = SubjectSlices(volume[:1], radius, depth=SWEEP_SLICES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate_pseudo3d_hybrid(model, diffusion, one_slice, ddim_steps=HYBRID_STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        result["hybrid"]["profile_one_slice"] = profile_window(prof, wall_ms, top=6,
+                                                               host_top=12)
+    print("path_25d " + json.dumps(result))
+    return counts_by_call
+
+
+def train_batches_2d(cfg, seed):
+    """A seeded batch of the presets' size on the card: images in [-1, 1],
+    z positions in [0, 1], and the 2.5D context where the model takes one."""
+    rng = np.random.default_rng(seed)
+    out_ch, ctx_ch = cfg.unet.out_channels, cfg.unet.in_channels - cfg.unet.out_channels
+    shape = (BATCH_2D, IMAGE_SIZE, IMAGE_SIZE)
+    batch = {"image": rng.uniform(-1, 1, (*shape, out_ch)).astype(np.float32),
+             "z_pos": rng.uniform(0, 1, BATCH_2D).astype(np.float32)}
+    if ctx_ch:
+        batch["context"] = rng.uniform(-1, 1, (*shape, ctx_ch)).astype(np.float32)
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def build_2d_trainer(cfg, seed):
+    """A preset's UNet2D as it is trained: float32 parameters, bf16 compute,
+    seeded weights, Adam at the preset's 2e-4 with an EMA shadow, on the card;
+    the 2D step with EMA 0.999 and guidance dropout 0.1."""
+    model = seeded_weights(build_unet2d(cfg.unet), seed).train()
+    state = create_train_state(model, cfg.train.learning_rate, ema=True)
+    step = make_diffusion_train_step(model, build_diffusion(cfg.diffusion), ema_decay=0.999,
+                                     cond_dropout=0.1)
+    return model, state, step
+
+
+def train_path_2d():
+    """``make_diffusion_train_step`` at full width and the presets' batch of
+    64 at 128²: ``preset_slice_cond_2d`` (1 channel) and ``preset_ddpm_25d``
+    (2.5D, the context in every batch). 2 warm-up steps, then 5 counted: 29
+    launches of each GroupNorm kernel a step, finite float32 losses, float32
+    master parameters that all moved."""
+
+    result, counts_by_run = {}, {}
+    for name, preset in (("slice_cond_2d", preset_slice_cond_2d),
+                         ("ddpm_25d", preset_ddpm_25d)):
+        cfg = preset()
+        model, state, step = build_2d_trainer(cfg, SEED + 23)
+        batch = train_batches_2d(cfg, SEED + 24)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        losses = []
+        for _ in range(TRAIN_WARMUP_STEPS):
+            state, loss = step(state, batch, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for p in model.parameters()]
+
+        def run():
+            nonlocal state
+            for _ in range(TRAIN_STEPS):
+                state, loss = step(state, batch, gen)
+                losses.append(loss)
+
+        _, seconds, peak, counts = timed(run)
+        expect_gn(f"train_path_2d {name}", counts, TRAIN_STEPS)
+        losses = torch.stack(losses).cpu()
+        if losses.dtype != torch.float32 or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"train_path_2d {name}: losses {losses.tolist()}")
+        for pname, p in model.named_parameters():
+            if p.dtype != torch.float32 or p.grad is None or p.grad.dtype != torch.float32:
+                raise AssertionError(f"train_path_2d {name}: {pname} is not a float32 master "
+                                     "parameter")
+        moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, model.parameters()))
+        if moved != len(before) or state.step != TRAIN_WARMUP_STEPS + TRAIN_STEPS:
+            raise AssertionError(f"train_path_2d {name}: {moved} of {len(before)} parameters "
+                                 f"moved in {state.step} updates")
+        counts_by_run[f"train_{name}"] = counts
+        result[name] = {"in_channels": cfg.unet.in_channels, "seconds_per_step": seconds / TRAIN_STEPS,
+                        "images_per_second": BATCH_2D * TRAIN_STEPS / seconds,
+                        "peak_memory_bytes": peak,
+                        "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+                        "losses": losses.tolist()}
+        del model, state, step, before, batch
+        torch.cuda.empty_cache()
+    result.update({"batch": BATCH_2D, "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP_STEPS,
+                   "dtype": "bfloat16 compute, float32 parameters", "learning_rate": 2e-4,
+                   "ema_decay": 0.999, "cond_dropout": 0.1, "loss_type": "mse"})
+    print("train_path_2d " + json.dumps(result))
+    return counts_by_run
+
+
+CUDA_CORE_BF16_FLOPS = 2 * PEAK_FLOPS["float32"]   # paired bf16 FMAs: the most without tensor cores
+
+
+def profile_2d(model, sample_window):
+    """``--profile``: the window of 5 DDIM steps of ``sample_2d`` (64 images)
+    that ``path_2d`` took, by kernel name; the time and rate of each of the
+    three stride-2 ``Downsample2D`` convolutions at batch 64 in bf16; and 3
+    train steps of the 1-channel model (batch 64), by kernel name.
+
+    A convolution whose rate is above what the CUDA cores can do in bf16
+    (2 × 67 TFLOP/s) runs on tensor cores (``tensor_cores``); the kernel
+    names of the sampling window say which families cuDNN picked."""
+
+    windows = {"sample_2d_5_ddim_steps": sample_window}
+    downs = []
+    size = IMAGE_SIZE
+    for block in model.downs:
+        down = block["down"]
+        x = torch.randn(BATCH_2D, size, size, down.in_channels, device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            ms = time_ms(lambda: down(x))
+        flops = 2 * BATCH_2D * (size // 2) ** 2 * down.out_channels * down.in_channels * 16
+        rate = flops / ms / 1e9
+        downs.append({"input": [BATCH_2D, size, size, down.in_channels], "ms": ms,
+                      "tflops_per_s": rate, "tensor_cores": rate * 1e12 > CUDA_CORE_BF16_FLOPS})
+        size //= 2
+        del x
+    windows["downsample_2d"] = downs
+
+    cfg = preset_slice_cond_2d()
+    tmodel, state, step = build_2d_trainer(cfg, SEED + 23)
+    batch = train_batches_2d(cfg, SEED + 24)
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    for _ in range(TRAIN_WARMUP_STEPS):
+        state, _ = step(state, batch, tgen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, batch, tgen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    windows["train_2d_3_steps"] = profile_window(prof, wall_ms, top=24)
+    windows["train_2d_3_steps"]["device_busy_share"] = (
+        windows["train_2d_3_steps"]["device_busy_ms"] / wall_ms)
+    print("profile_2d " + json.dumps(windows))
+    del tmodel, state, step, batch
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------- main
 
 
@@ -1366,11 +1920,11 @@ def tensor_core_proof(libs):
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-                   generate_counts, train_counts, trainer_counts):
+                   counts_by_path):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
-    ``launches`` adds up the counted runs of both main paths;
-    ``launches_by_path`` keeps them apart."""
+    ``launches`` adds up the counted runs of every path (``counts_by_path``:
+    path name → launch counts); ``launches_by_path`` keeps them apart."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
@@ -1379,10 +1933,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     src_bwd = "mrijax_torch/csrc/flash_attention_bwd.cu"
 
     def launches(name):
-        by_path = {"generate": generate_counts[name],
-                   "train_no_remat": train_counts["no_remat"][name],
-                   "train_remat_level0": train_counts["remat_level0"][name],
-                   **{path: counts[name] for path, counts in trainer_counts.items()}}
+        by_path = {path: counts[name] for path, counts in counts_by_path.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     return [
@@ -1435,8 +1986,9 @@ def main() -> int:
                              "(prints no result line)")
     parser.add_argument("--profile", action="store_true",
                         help="print torch.profiler breakdowns by kernel: gn_silu_stats "
-                             "calls (one launch each), 5 DDIM steps and one decode, then "
-                             "3 training steps")
+                             "calls (one launch each), 5 DDIM steps and one decode, "
+                             "3 training steps; 5 DDIM steps of sample_2d, the 2D "
+                             "stride-2 convolutions and 3 2D training steps")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1464,7 +2016,7 @@ def main() -> int:
     bwd_worst = compare_flash_backward(rng)
     compare_groupnorm_autograd(rng)
     torch.cuda.empty_cache()
-    gn_rows = time_groupnorm(rng)
+    gn_rows, _ = time_groupnorm(rng)
     if args.profile:
         profile_groupnorm_stats(rng)
     time_groupnorm_backward(rng)
@@ -1488,10 +2040,26 @@ def main() -> int:
     trainer_counts = trainer_path(train_result["no_remat"]["seconds_per_step"])
     if args.profile:
         profile_train_path()
+    torch.cuda.empty_cache()
 
+    gc.collect()   # the trainers of trainer_path and their state on the card
+    torch.cuda.empty_cache()
+    small_2d_check()
+    model_2d, _, counts_2d, sample_window = path_2d(profile_steps=args.profile)
+    if args.profile:
+        profile_2d(model_2d, sample_window)
+    del model_2d
+    torch.cuda.empty_cache()
+    counts_25d = path_25d(profile_slice=args.profile)
+    torch.cuda.empty_cache()
+    counts_train_2d = train_path_2d()
+
+    counts_by_path = {"generate": result["launches"],
+                      "train_no_remat": train_counts["no_remat"],
+                      "train_remat_level0": train_counts["remat_level0"],
+                      **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d}
     print(json.dumps({"kernels": kernel_records(
-        gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-        result["launches"], train_counts, trainer_counts)}))
+        gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

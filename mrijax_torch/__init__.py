@@ -7,15 +7,19 @@ and functions keep the names of their counterparts (``ops``, ``kernels``,
 the channels-last layouts of the JAX package.
 
 Ported so far: the 3D latent-diffusion family — generation (``UNet3D``
-sampling followed by ``VAE3D`` decode, ``generate.generate_3d_volumes``) and
-training (``train``: train state with fp32 Adam and EMA, the cached-latent,
-latent-diffusion and VAE steps) — with hand-written CUDA kernels for fused
-GroupNorm+SiLU and for the flash-attention forward and backward; and the
-training runtime (``train.Trainer``, ``io.CheckpointManager``, ``config``,
-``obs`` and the builders of ``train.experiments``). Entry points
-take ``device=`` and default to ``"cuda"``; the kernels are compiled from
-``mrijax_torch/csrc`` at their first CUDA call, so importing the package needs
-neither ``nvcc`` nor a GPU.
+sampling followed by ``VAE3D`` decode, ``generate.generate_3d_volumes``, and
+``generate.Vae3dDiagnostics``) and training (``train``: train state with fp32
+Adam and EMA, the cached-latent, latent-diffusion and VAE steps) — with
+hand-written CUDA kernels for fused GroupNorm+SiLU and for the flash-attention
+forward and backward; the training runtime (``train.Trainer``,
+``io.CheckpointManager``, ``config``, ``obs`` and the builders of
+``train.experiments``); the 2D slice-conditioned and 2.5D multimodal families
+(``models.UNet2D``, the samplers of ``generate`` with classifier-free
+guidance and the pseudo-3D generators, ``train.make_diffusion_train_step``);
+and ``io.torch_convert`` (reference PyTorch checkpoints) and ``io.images``.
+Entry points take ``device=`` and default to ``"cuda"``; the kernels are
+compiled from ``mrijax_torch/csrc`` at their first CUDA call, so importing
+the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ Leaf transforms:
 
 * Conv           flax (*k, I, O)  →  torch (O, I, *k)
 * ConvTranspose  flax (*k, I, O)  →  torch (I, O, *k), spatially flipped
-  (flax ``padding="SAME"``, kernel 4, stride 2 ≡ ``ConvTranspose3d(4, 2, 1)``)
+  (flax ``padding="SAME"``, kernel 4, stride 2 ≡ ``ConvTranspose{2,3}d(4, 2, 1)``)
 * Dense          flax (I, O)      →  torch (O, I)
 * GroupNorm      scale/bias       →  weight/bias (fp32)
 
@@ -18,9 +18,12 @@ The fused qkv ``Dense(3C)`` splits as (3, H, Dh) along its output axis in both
 packages, so it carries over without a permutation.
 
 flax auto-names follow creation order in the flax modules: ``Conv_0`` (stem),
-``ResBlock3D_{n}``, ``Downsample_{i}``, ``Upsample_{k}``, ``AttentionBlock3D_0``
-(bottleneck), ``DownAttn_{i}`` / ``UpAttn_{i}`` (``attention_levels``),
-``GroupNormSiLU_0`` + ``Conv_1`` (head).
+``ResBlock3D_{n}`` / ``ResBlock2D_{n}``, ``Downsample_{i}``, ``Upsample_{k}``,
+``AttentionBlock3D_0`` (bottleneck), ``DownAttn_{i}`` / ``UpAttn_{i}``
+(``attention_levels``), ``GroupNormSiLU_0`` + ``Conv_1`` (head); the 2D UNet
+adds ``TimeEmbedding_0`` and ``ScalarCondEmbedding_0``. Inside ``ResBlock2D``
+the convolutions are ``Conv_0``, ``Conv_1`` and the skip ``Conv_2``, created
+in that order.
 
 ``train_state_from_flax`` carries a whole flax ``TrainState`` over (params,
 Adam moments and count, learning rate, EMA shadow), so that both packages can
@@ -146,6 +149,49 @@ def unet3d_state_dict_from_flax(
     return sd
 
 
+def _put_resblock2d(sd: Dict, prefix: str, p: Mapping) -> None:
+    _put_conv(sd, f"{prefix}.conv1", p["Conv_0"])
+    _put_norm(sd, f"{prefix}.norm1", p["GroupNormSiLU_0"])
+    _put_linear(sd, f"{prefix}.time_mlp", p["Dense_0"])
+    _put_conv(sd, f"{prefix}.conv2", p["Conv_1"])
+    _put_norm(sd, f"{prefix}.norm2", p["GroupNormSiLU_1"])
+    if "Conv_2" in p:
+        _put_conv(sd, f"{prefix}.res_conv", p["Conv_2"])
+
+
+def unet2d_state_dict_from_flax(
+    params: Mapping, *, channel_mults: Sequence[int] = (1, 2, 4, 8),
+) -> Dict[str, torch.Tensor]:
+    """flax params of the JAX package's ``UNet2D`` → ``state_dict`` of
+    ``mrijax_torch.models.UNet2D`` built with the same configuration (1-channel
+    or 2.5D: the channel counts come with the tensors)."""
+    p = _unwrap(params)
+    n_trans = len(channel_mults) - 1
+    sd: Dict[str, torch.Tensor] = {}
+    _put_linear(sd, "time_mlp.1", p["TimeEmbedding_0"]["Dense_0"])
+    _put_linear(sd, "time_mlp.3", p["TimeEmbedding_0"]["Dense_1"])
+    _put_linear(sd, "slice_mlp.0", p["ScalarCondEmbedding_0"]["Dense_0"])
+    _put_linear(sd, "slice_mlp.2", p["ScalarCondEmbedding_0"]["Dense_1"])
+    _put_conv(sd, "init_conv", p["Conv_0"])
+    rb = 0
+    for i in range(n_trans):
+        _put_resblock2d(sd, f"downs.{i}.res1", p[f"ResBlock2D_{rb}"])
+        _put_resblock2d(sd, f"downs.{i}.res2", p[f"ResBlock2D_{rb + 1}"])
+        _put_conv(sd, f"downs.{i}.down", p[f"Downsample_{i}"]["Conv_0"])
+        rb += 2
+    _put_resblock2d(sd, "mid_block1", p[f"ResBlock2D_{rb}"])
+    _put_resblock2d(sd, "mid_block2", p[f"ResBlock2D_{rb + 1}"])
+    rb += 2
+    for j in range(n_trans):
+        _put_convt(sd, f"ups.{j}.up", p[f"Upsample_{j}"]["ConvTranspose_0"])
+        _put_resblock2d(sd, f"ups.{j}.res1", p[f"ResBlock2D_{rb}"])
+        _put_resblock2d(sd, f"ups.{j}.res2", p[f"ResBlock2D_{rb + 1}"])
+        rb += 2
+    _put_norm(sd, "out_norm", p["GroupNormSiLU_0"])
+    _put_conv(sd, "out_conv", p["Conv_1"])
+    return sd
+
+
 def vae3d_state_dict_from_flax(
     params: Mapping, num_down: int = 3
 ) -> Dict[str, torch.Tensor]:
@@ -200,8 +246,9 @@ def train_state_from_flax(
 
     ``convert`` maps a flax tree onto ``model``'s ``state_dict`` layout, for
     example ``functools.partial(unet3d_state_dict_from_flax,
-    channel_mults=...)``. ``mu``, ``nu`` and ``count`` are optax Adam's first
-    and second moments (trees like ``params``) and its step count,
+    channel_mults=...)`` (``unet2d_state_dict_from_flax`` likewise). ``mu``,
+    ``nu`` and ``count`` are optax Adam's first and second moments (trees
+    like ``params``) and its step count,
     ``learning_rate`` the injected hyperparameter, ``ema_params`` the shadow
     tree or ``None``.
     """

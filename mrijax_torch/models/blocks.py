@@ -1,22 +1,27 @@
-"""Shared building blocks of the 3D models, as ``nn.Module``s.
+"""Shared building blocks of the 2D and 3D models, as ``nn.Module``s.
 
-Counterpart of ``mrijax/models/blocks.py`` (3D blocks). Every module takes
-and returns channels-last activations ``(B, D, H, W, C)``, the layout of the
-JAX package. ``nn.Conv3d`` wants ``(B, C, D, H, W)``: the convolutions here
-run on a permuted *view* of the channels-last buffer, which is exactly a
-``torch.channels_last_3d`` tensor, so no copy is made and the GroupNorm+SiLU
-kernel sees a contiguous ``(B, N, C)`` buffer.
+Counterpart of ``mrijax/models/blocks.py``. Every module takes and returns
+channels-last activations, ``(B, H, W, C)`` or ``(B, D, H, W, C)``, the layout
+of the JAX package. ``nn.Conv2d`` / ``nn.Conv3d`` want channels first: the
+convolutions here run on a permuted *view* of the channels-last buffer, which
+is exactly a ``torch.channels_last`` / ``channels_last_3d`` tensor, so no copy
+is made and the GroupNorm+SiLU kernel sees a contiguous ``(B, N, C)`` buffer.
 
-Module and parameter names follow the reference PyTorch layout (``norm1``,
-``conv1``, ``time_mlp``, ``norm2``, ``conv2``, ``skip``; ``norm``, ``qkv``,
-``proj``), which ``mrijax_torch.io.flax_convert`` maps flax trees onto.
+Module and parameter names follow the reference PyTorch layout (3D:
+``norm1``, ``conv1``, ``time_mlp``, ``norm2``, ``conv2``, ``skip``; ``norm``,
+``qkv``, ``proj``; 2D: ``conv1``, ``norm1``, ``time_mlp``, ``conv2``,
+``norm2``, ``res_conv``), which ``mrijax_torch.io.flax_convert`` maps flax
+trees onto and reference checkpoints load into.
 
 Parity notes (math, not code):
+* 2D res blocks use conv→norm→act ordering and apply SiLU to the
+  conditioning projection before the broadcast add.
 * 3D res blocks use norm→act→conv (pre-activation) ordering and add the
   time projection without an activation.
 * GroupNorm(8) with eps 1e-5 everywhere.
 * Downsample: 4-kernel stride-2 conv, padding 1. Upsample: 4-kernel stride-2
-  transposed conv, padding 1 (output = 2× input spatially).
+  transposed conv, padding 1 (output = 2× input spatially; flax's
+  ``padding="SAME"``).
 
 Precision follows the flax modules: convolutions and linears compute in
 ``dtype`` (bf16 on the card) and hold their parameters in ``param_dtype``,
@@ -41,15 +46,17 @@ from mrijax_torch.ops.norms import group_norm, group_norm_silu_auto
 
 
 def _channels_last_call(conv_forward, x: torch.Tensor) -> torch.Tensor:
-    """Run a channels-first 3D convolution on a channels-last tensor.
+    """Run a channels-first 2D or 3D operation on a channels-last tensor.
 
-    ``x`` is (B, D, H, W, C) contiguous; its permutation to (B, C, D, H, W) is
-    a ``channels_last_3d`` view. The backend answers in the same memory
-    format, so permuting back is again a view; ``contiguous()`` is then a
-    no-op and only copies if a backend answered channels-first.
+    ``x`` is (B, *spatial, C) contiguous; its permutation to (B, C, *spatial)
+    is a ``channels_last`` (2D) or ``channels_last_3d`` view. The backend
+    answers in the same memory format, so permuting back is again a view;
+    ``contiguous()`` is then a no-op and only copies if a backend answered
+    channels-first.
     """
-    y = conv_forward(x.permute(0, 4, 1, 2, 3))
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    n = x.dim()
+    y = conv_forward(x.permute(0, n - 1, *range(1, n - 1)))
+    return y.permute(0, *range(2, n), 1).contiguous()
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -72,9 +79,9 @@ class Linear(nn.Linear):
                         _cast(self.bias, self.compute_dtype))
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` on channels-last (B, D, H, W, C) activations, computing
-    in ``dtype`` with parameters held in ``param_dtype``."""
+class _Conv:
+    """A convolution on channels-last activations that computes in ``dtype``
+    with parameters held in ``param_dtype`` (``None``: in ``dtype``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32,
@@ -89,7 +96,15 @@ class Conv3d(nn.Conv3d):
         return _channels_last_call(lambda t: self._conv_forward(t, weight, bias), x)
 
 
-class Downsample(Conv3d):
+class Conv3d(_Conv, nn.Conv3d):
+    """``nn.Conv3d`` on channels-last (B, D, H, W, C) activations."""
+
+
+class Conv2d(_Conv, nn.Conv2d):
+    """``nn.Conv2d`` on channels-last (B, H, W, C) activations."""
+
+
+class _Downsample:
     """4-kernel stride-2 conv, padding 1 (halves each spatial dim)."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
@@ -98,7 +113,15 @@ class Downsample(Conv3d):
                          param_dtype=param_dtype)
 
 
-class Upsample(nn.ConvTranspose3d):
+class Downsample(_Downsample, Conv3d):
+    pass
+
+
+class Downsample2D(_Downsample, Conv2d):
+    pass
+
+
+class _Upsample:
     """4-kernel stride-2 transposed conv, padding 1 (doubles each spatial dim)."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
@@ -111,7 +134,15 @@ class Upsample(nn.ConvTranspose3d):
         weight = _cast(self.weight, self.compute_dtype)
         bias = _cast(self.bias, self.compute_dtype)
         return _channels_last_call(
-            lambda t: F.conv_transpose3d(t, weight, bias, self.stride, self.padding), x)
+            lambda t: self._transpose(t, weight, bias, self.stride, self.padding), x)
+
+
+class Upsample(_Upsample, nn.ConvTranspose3d):
+    _transpose = staticmethod(F.conv_transpose3d)
+
+
+class Upsample2D(_Upsample, nn.ConvTranspose2d):
+    _transpose = staticmethod(F.conv_transpose2d)
 
 
 class GroupNorm(nn.Module):
@@ -160,6 +191,52 @@ class TimeEmbedding(nn.Sequential):
             nn.SiLU(),
             Linear(dim * 4, dim, dtype, param_dtype),
         )
+
+
+class ScalarCondEmbedding(nn.Sequential):
+    """Linear(4d) → SiLU → Linear(d) on a scalar condition (the slice position
+    z); the linears sit at indices 0 and 2 as in the reference layout
+    (``slice_mlp.0``, ``slice_mlp.2``)."""
+
+    def __init__(self, dim: int = 256, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(
+            Linear(1, dim * 4, dtype, param_dtype),
+            nn.SiLU(),
+            Linear(dim * 4, dim, dtype, param_dtype),
+        )
+        self.compute_dtype = dtype
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        # z is cast to the compute dtype before the first linear, as flax
+        # casts it: in bf16 that rounds the slice position
+        return super().forward(z.to(self.compute_dtype)[:, None])
+
+
+class ResBlock2D(nn.Module):
+    """conv3×3 → GN → SiLU → (+ SiLU(Linear(cond))) → conv3×3 → GN → SiLU →
+    + skip (a 1×1 ``res_conv`` where the channel count changes)."""
+
+    def __init__(self, in_ch: int, out_ch: int, cond_dim: int, groups: int = 8,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, **kw)
+        self.norm1 = GroupNormSiLU(out_ch, groups)
+        self.time_mlp = Linear(cond_dim, out_ch, **kw)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, **kw)
+        self.norm2 = GroupNormSiLU(out_ch, groups)
+        if in_ch != out_ch:
+            self.res_conv = Conv2d(in_ch, out_ch, 1, **kw)
+
+    def forward(self, x: torch.Tensor, cond_emb: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(self.conv1(x))
+        h = h + F.silu(self.time_mlp(cond_emb))[:, None, None, :]
+        h = self.norm2(self.conv2(h))
+        if hasattr(self, "res_conv"):
+            x = self.res_conv(x)
+        return h + x
 
 
 class ResBlock3D(nn.Module):

@@ -1,7 +1,7 @@
-"""Training: train state, optimizer-step factories, plateau LR and early
-stopping, the epoch driver and the config builders. Counterpart of
-``mrijax/train`` (``state``, ``steps``, ``trainer`` and the builders of
-``experiments``)."""
+"""Training: train state, the optimizer-step factories of all three
+families, plateau LR and early stopping, the epoch loop (``Trainer``) and
+the config builders. Counterpart of ``mrijax/train`` (``state``, ``steps``,
+``trainer`` and the builders of ``experiments``)."""
 
 from mrijax_torch.train.state import (
     EarlyStopper,
@@ -14,12 +14,15 @@ from mrijax_torch.train.state import (
     set_learning_rate,
 )
 from mrijax_torch.train.steps import (
+    CFG_NULL_Z,
     apply_if_finite,
     estimate_latent_scale,
     estimate_latent_scale_from_latents,
     fixed_validation_timesteps,
     make_cached_latent_eval_step,
     make_cached_latent_train_step,
+    make_diffusion_eval_step,
+    make_diffusion_train_step,
     make_latent_diffusion_eval_step,
     make_latent_diffusion_train_step,
     make_vae_eval_step,

@@ -1,7 +1,8 @@
 """Config → model, diffusion and trainer builders.
 
 Counterpart of the builders of ``mrijax/train/experiments.py``
-(``build_diffusion``, ``build_unet3d``, ``build_vae3d`` and ``_trainer``).
+(``build_diffusion``, ``build_unet2d``, ``build_unet3d``, ``build_vae3d`` and
+``_trainer``).
 Models are built with the config's compute dtype and float32 parameters, as
 flax holds them; on the card their kernels run, on the CPU the kernels' plain
 versions, so the JAX package's ``use_flash`` switch has no counterpart. The
@@ -21,7 +22,7 @@ from mrijax_torch.diffusion import (
     make_schedule,
 )
 from mrijax_torch.io.checkpoint import CheckpointManager
-from mrijax_torch.models import UNet3D, VAE3D
+from mrijax_torch.models import UNet2D, UNet3D, VAE3D
 from mrijax_torch.train.trainer import Trainer
 
 
@@ -38,6 +39,27 @@ def build_diffusion(cfg: DiffusionConfig) -> GaussianDiffusion:
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
     return GaussianDiffusion(
         make_schedule(betas), loss_type=cfg.loss_type, min_snr_gamma=cfg.min_snr_gamma
+    )
+
+
+def build_unet2d(cfg: UNetConfig) -> UNet2D:
+    if cfg.remat_levels is not None:
+        # refuse rather than ignore the knob, as the JAX package does: only
+        # the 3D UNet implements per-level selective remat
+        raise ValueError(
+            "unet.remat_levels is only supported by the 3D UNet "
+            "(ddpm_3d_ldm family); use unet.remat for the 2D/2.5D families"
+        )
+    return UNet2D(
+        in_channels=cfg.in_channels,
+        out_channels=cfg.out_channels,
+        base_channels=cfg.base_channels,
+        channel_mults=cfg.channel_mults,
+        time_emb_dim=cfg.time_emb_dim,
+        groups=cfg.groups,
+        remat=cfg.remat,
+        dtype=_dtype(cfg.compute_dtype),
+        param_dtype=torch.float32,
     )
 
 

@@ -1,5 +1,6 @@
-"""Train and eval steps of the 3D family: stage-1 VAE, stage-2 latent
-diffusion over volumes or over cached latents.
+"""Train and eval steps of all three families: the 2D / 2.5D DDPM step, and
+of the 3D family the stage-1 VAE and stage-2 latent diffusion over volumes or
+over cached latents.
 
 Counterpart of ``mrijax/train/steps.py``. Each factory returns a plain Python
 function that runs eagerly: timestep and noise sampling, ``q_sample``, model
@@ -8,15 +9,14 @@ the Adam moments and the EMA shadow of its ``TrainState`` in place and
 returns the same state, so the call shape ``state, loss = step(state, …)`` of
 the JAX package carries over. A ``torch.Generator`` on the batch's device
 takes the place of the PRNG key; because the two frameworks' random streams
-differ, every step also takes its random inputs (``t``, ``noise``, ``eps``)
-as explicit tensors.
+differ, every step also takes its random inputs (``t``, ``noise``, ``eps``,
+the guidance-dropout mask ``drop``) as explicit tensors.
 
 Conventions: batches are dicts of channels-last tensors; a batch is moved to
 the device of the model's parameters; a loss comes back as a float32 0-d
 tensor on that device, and a step makes no host synchronisation unless
 ``nan_guard=True`` (the guard reads one flag). ``donate`` of the JAX factories
-has no counterpart and is left out. The 2D / 2.5D step
-(``make_diffusion_train_step``) comes with the 2D family.
+has no counterpart and is left out.
 """
 
 from typing import Callable, Dict, Iterable, Optional
@@ -83,6 +83,108 @@ def _update(state: TrainState, loss: torch.Tensor, nan_guard: bool,
     if ema_decay is not None:
         ema_update(state, ema_decay)
     return state
+
+
+# --------------------------------------------------------------------- DDPM
+
+
+# classifier-free-guidance null token for the slice-position condition: real
+# z_pos lies in [0, 1]; the network learns -1 as "no condition" when trained
+# with cond_dropout > 0
+CFG_NULL_Z = -1.0
+
+
+def _draw(diffusion: GaussianDiffusion, x: torch.Tensor,
+          generator: Optional[torch.Generator], t: Optional[torch.Tensor],
+          noise: Optional[torch.Tensor], t_min: int):
+    """``t`` ~ U[t_min, T) and float32 noise like ``x``, each drawn from
+    ``generator`` (in that order) unless given, on ``x``'s device."""
+    if t is None:
+        if generator is None:
+            raise ValueError("need a generator when t is not given")
+        t = sample_timesteps(generator, x.shape[0], diffusion.timesteps, t_min)
+    noise = _randn_like(x, generator) if noise is None else noise
+    return t.to(x.device), noise.to(x.device)
+
+
+def _loss_update(state: TrainState, model_fn, diffusion: GaussianDiffusion,
+                 x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+                 nan_guard: bool, ema_decay: Optional[float]):
+    """Diffusion loss, backward, Adam (guarded where asked) and EMA."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = diffusion.p_losses(model_fn, x, t, noise)
+    loss.backward()
+    _update(state, loss.detach(), nan_guard, ema_decay)
+    return state, loss.detach()
+
+
+def _conditioning(batch, dev: torch.device):
+    """The batch's slice positions and its 2.5D context (or None) on ``dev``."""
+    context = batch.get("context")
+    return batch["z_pos"].to(dev), None if context is None else context.to(dev)
+
+
+def make_diffusion_train_step(
+    model: torch.nn.Module, diffusion: GaussianDiffusion, *, t_min: int = 0,
+    nan_guard: bool = False, ema_decay: Optional[float] = None,
+    cond_dropout: float = 0.0,
+) -> Callable:
+    """Train step of the 2D / 2.5D DDPMs.
+
+    ``train_step(state, batch, generator=None, *, t=None, noise=None,
+    drop=None)`` with batch {"image": (B, H, W, C), "z_pos": (B,)
+    [, "context": (B, H, W, Ck)]}; returns ``(state, loss)``.
+
+    ``t`` ~ U[t_min, T) and the noise are drawn from ``generator`` in that
+    order unless given. ``cond_dropout``: classifier-free-guidance training —
+    each sample's z_pos is replaced by ``CFG_NULL_Z`` with this probability,
+    teaching one network the conditional and the unconditional score
+    (``generate.sample_2d(guidance_scale=...)``). The (B,) boolean mask is
+    ``drop`` where given, else drawn after the noise; with ``cond_dropout=0``
+    nothing more is drawn, so the step draws exactly what it draws without
+    guidance training.
+    """
+
+    def train_step(state: TrainState, batch, generator=None, *, t=None, noise=None,
+                   drop=None):
+        _check_state(state, model)
+        dev = _device_of(model)
+        x = batch["image"].to(dev)
+        d = diffusion.to(dev)
+        t, noise = _draw(d, x, generator, t, noise, t_min)
+        z, context = _conditioning(batch, dev)
+        if cond_dropout > 0.0:
+            if drop is None:
+                if generator is None:
+                    raise ValueError("need a generator when drop is not given")
+                drop = torch.rand(z.shape, device=generator.device,
+                                  generator=generator) < cond_dropout
+            z = torch.where(drop.to(dev), torch.full_like(z, CFG_NULL_Z), z)
+        return _loss_update(state, lambda xx, tt: model(xx, tt, z, context), d, x, t,
+                            noise, nan_guard, ema_decay)
+
+    return train_step
+
+
+def make_diffusion_eval_step(model: torch.nn.Module, diffusion: GaussianDiffusion, *,
+                             t_min: int = 0) -> Callable:
+    """``eval_step(params, batch, generator=None, *, t=None, noise=None)`` →
+    loss of ``model`` run on ``params`` (for example
+    ``inference_params(state)``), with ``t`` ~ U[t_min, T) and the noise drawn
+    from ``generator`` unless given."""
+
+    @torch.no_grad()
+    def eval_step(params: Params, batch, generator=None, *, t=None, noise=None):
+        dev = _device_of(model)
+        x = batch["image"].to(dev)
+        d = diffusion.to(dev)
+        t, noise = _draw(d, x, generator, t, noise, t_min)
+        z, context = _conditioning(batch, dev)
+        return d.p_losses(
+            lambda xx, tt: functional_call(model, params, (xx, tt, z, context)),
+            x, t, noise)
+
+    return eval_step
 
 
 # ---------------------------------------------------------------------- VAE
@@ -181,16 +283,8 @@ def _diffusion_update(state: TrainState, unet: torch.nn.Module,
                       t_min: int, nan_guard: bool, ema_decay: Optional[float]):
     """What both stage-2 steps do once the scaled latent ``z`` is in hand."""
     diffusion = diffusion.to(z.device)
-    if t is None:
-        if generator is None:
-            raise ValueError("need a generator when t is not given")
-        t = sample_timesteps(generator, z.shape[0], diffusion.timesteps, t_min)
-    noise = _randn_like(z, generator) if noise is None else noise
-    state.optimizer.zero_grad(set_to_none=True)
-    loss = diffusion.p_losses(unet, z, t.to(z.device), noise.to(z.device))
-    loss.backward()
-    _update(state, loss.detach(), nan_guard, ema_decay)
-    return state, loss.detach()
+    t, noise = _draw(diffusion, z, generator, t, noise, t_min)
+    return _loss_update(state, unet, diffusion, z, t, noise, nan_guard, ema_decay)
 
 
 def make_latent_diffusion_train_step(

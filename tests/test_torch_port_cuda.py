@@ -9,11 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from mrijax_torch.diffusion import GaussianDiffusion, cosine_beta_schedule, make_schedule
+from mrijax_torch.diffusion import (
+    GaussianDiffusion,
+    cosine_beta_schedule,
+    linear_beta_schedule,
+    make_schedule,
+)
 from mrijax_torch.io import CheckpointManager
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
-from mrijax_torch.models import UNet3D
+from mrijax_torch.generate import sample_2d
+from mrijax_torch.models import UNet2D, UNet3D
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.norms import group_norm_silu
 from mrijax_torch.train import (
@@ -39,6 +45,14 @@ def cuda():
 @pytest.mark.parametrize("shape,groups", [
     ((2, 800, 512), 8), ((2, 1000, 64), 8), ((1, 5000, 32), 8), ((2, 333, 24), 8),
     ((1, 4, 5, 6, 128), 8), ((1, 70, 2048), 16),
+    # the UNet2D's sites at 128² (N, C): 8 and 16 channels a group, and up to 64
+    ((2, 128, 128, 128), 8), ((2, 64, 64, 256), 8), ((2, 32, 32, 512), 8),
+    ((2, 16, 16, 512), 8), ((2, 32, 32, 256), 8), ((2, 64, 64, 128), 8),
+    ((2, 128, 128, 64), 8), ((310, 16, 16, 512), 8),
+    # the same sites at the presets' batch of 64, where the launch plans differ
+    ((64, 128, 128, 128), 8), ((64, 64, 64, 256), 8), ((64, 32, 32, 512), 8),
+    ((64, 16, 16, 512), 8), ((64, 32, 32, 256), 8), ((64, 64, 64, 128), 8),
+    ((64, 128, 128, 64), 8),
 ])
 def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype):
     """fp32: 2e-5 absolute (another summation order). bf16: one ulp of the output."""
@@ -278,3 +292,30 @@ def test_trainer_runs_an_epoch_on_the_card_and_restores(cuda, tmp_path):
     for a, b in zip(list(fresh.model.parameters()) + list(fresh.ema_params.values()),
                     list(trained.model.parameters()) + list(trained.ema_params.values())):
         assert torch.equal(a, b)
+
+
+def test_unet2d_sampling_on_the_card_matches_the_cpu(cuda):
+    """A narrow float32 UNet2D through guided ``sample_2d`` on the card
+    (kernels) and on the CPU (plain versions), from the same start: 1e-3
+    absolute over 4 DDIM steps (float32 sums in another order; TF32 off).
+    Small weights and a linear schedule keep the output of order 1 (on the
+    CPU a 1e-7 relative change of the weights moves it by ~1e-6); torch's
+    default initialisation with a cosine T = 20 gives outputs near 2 000,
+    where float32 rounding alone exceeds any absolute bar of this size.
+    29 GroupNorm sites a forward at mults (1, 2, 4, 8); each guided step is
+    one forward."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = UNet2D(base_channels=16, channel_mults=(1, 2, 4, 8), time_emb_dim=32)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" not in name:
+                p.normal_(0.0, 0.02)
+    diffusion = GaussianDiffusion(make_schedule(linear_beta_schedule(20)))
+    x_t = torch.randn(3, 32, 32, 1)
+    kw = dict(num_samples=3, image_size=32, ddim_steps=4, x_t=x_t, guidance_scale=2.0)
+    gn.launches.reset()
+    got = sample_2d(model, diffusion, device="cuda", **kw)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 4 * 29, "gn_silu_apply": 4 * 29}
+    want = sample_2d(model, diffusion, device="cpu", **kw)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
