@@ -68,7 +68,21 @@ What it does, in order:
 11. drives the 2D training path at full width (``train_path_2d``): both
    presets' models through ``make_diffusion_train_step`` at batch 64 (bf16
    compute, float32 parameters, Adam 2e-4, EMA 0.999, guidance dropout 0.1),
-   2 warm-up and 5 counted steps each, the 2.5D batches with their context.
+   2 warm-up and 5 counted steps each, the 2.5D batches with their context;
+12. drives the data pipeline and the experiment drivers from BraTS files on
+   disk (``driver_path``): 10 cases at 240×240×155 per modality (3 subjects
+   written by ``data.synthetic``, copied under 7 more names), split with
+   ``split_subjects`` / ``apply_split``, packed with ``pack_volumes`` and, on
+   the card, ``pack_dataset`` and ``pack_multimodal_slices``; the loaders'
+   host seconds per batch, raw NIfTI against packed; ``preprocess_slice_batch``
+   and a small ``pack_latents`` on the card against the CPU; then
+   ``run_experiment`` on ``configs/ddpm_3d_ldm_tuned.json`` (both stages,
+   ``pack_latents`` of the 10 whole volumes, cut to 3 steps and 1 epoch a
+   stage and a latent batch of 8), the same call again (both stages resume,
+   the cache is reused), and on ``preset_slice_cond_2d`` and
+   ``preset_ddpm_25d`` (batch 64, 3 steps). Each stage's steps and kernel
+   launches are exact (counted from 0 at the stage's start), its losses
+   finite; one train step a stage is profiled for the card's busy share.
 
 The GroupNorm phases (2, 3) also take the UNet2D's seven (N, C) shapes:
 compared at B = 2 and once at B = 310, timed at the presets' batch of 64 and
@@ -78,28 +92,55 @@ Any miss raises: the script exits non-zero and prints no result line. It
 exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
-names the card; the line before that is the ``{"kernels": [...]}`` record.
+names the card; the line before that is the ``{"kernels": [...]}`` record,
+and before it the ``driver_path`` line.
 """
 
 import argparse
+import copy
 import dataclasses
 import gc
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mrijax_torch.config import preset_ddpm_25d, preset_ddpm_3d_ldm, preset_slice_cond_2d
+from mrijax_torch.config import (
+    ExperimentConfig,
+    preset_ddpm_25d,
+    preset_ddpm_3d_ldm,
+    preset_slice_cond_2d,
+)
+from mrijax_torch.data import (
+    BatchLoader,
+    PackedSliceDataset,
+    PackedVolumeDataset,
+    SliceDataset2D,
+    VolumeDataset3D,
+    apply_split,
+    nifti,
+    pack_dataset,
+    pack_latents,
+    pack_multimodal_slices,
+    pack_volumes,
+    preprocess_slice_batch,
+    split_subjects,
+)
+from mrijax_torch.data.packing import latent_cache_is_stale, latent_source_files, params_fingerprint
+from mrijax_torch.data.synthetic import MODALITIES, write_synthetic_brats
 from mrijax_torch.diffusion import (
     GaussianDiffusion,
     cosine_beta_schedule,
@@ -132,6 +173,7 @@ from mrijax_torch.train import (
     make_diffusion_train_step,
     sample_timesteps,
 )
+from mrijax_torch.train import experiments
 from mrijax_torch.train.experiments import _trainer, build_diffusion, build_unet2d, build_unet3d
 
 SEED = 0
@@ -211,6 +253,27 @@ TRAINER_TRAIN_BATCHES = 3
 TRAINER_VAL_BATCHES = 1
 PREEMPT_AT = (1, 0)               # (epoch, step) at which run B gets its SIGUSR1
 RUN_TOL = 1e-3                    # relative: two runs of the same steps on the card
+
+# The data pipeline and the experiment drivers (driver_path): a BraTS tree on
+# disk through the packers and run_experiment, every family.
+BRATS_SHAPE = (240, 240, 155)     # (H, W, D) of one BraTS modality
+DRIVER_SUBJECTS = 3               # written (about 9 s of gzip each); the other cases copy them
+DRIVER_CASES = 10
+DRIVER_STEPS = 3                  # debug_max_steps of every stage
+DRIVER_LATENT_BATCH = 8           # the tuned 32 needs >= 36 cases in the train split
+DRIVER_VAL_FRACTION_2D = 0.25     # 64 of the 256 debug items: one full validation batch
+TUNED_CONFIG = Path(__file__).resolve().parent / "configs" / "ddpm_3d_ldm_tuned.json"
+# the flagship as the tuned recipe has it: VAE (base, levels, latent channels, remat),
+# UNet (base, mults, attention, heads, remat levels, dtype), T, loss, cache_latents,
+# nan_guard, patch
+TUNED_MODEL = (32, 3, 16, True, 128, (1, 2, 4), True, 4, (0,), "bfloat16", 400, "min_snr",
+               True, True, (128, 160, 160))
+GN_VAE_FORWARD = 20               # VAE3D with 3 levels: 5 res blocks in the encoder, 5 in the
+GN_VAE_ENCODE = 10                # decoder, two norms each (remat runs them again in the backward)
+PREPROCESS_ATOL = 1e-5            # float32 per-slice statistics, card against CPU
+PACK_LATENTS_ATOL = 1e-4          # a float32 VAE: kernels and cuDNN against the plain CPU versions
+FINGERPRINT_RTOL = 1e-6           # the freshness bar of latent_cache_is_stale
+SMALL_VAE_CUT = (63, 95, 94)      # (D, H, W) of the small pack_latents check: odd, so it pads
 
 
 def card_line() -> str:
@@ -867,6 +930,8 @@ def profile_window(prof, wall_ms, top=14, host_top=0):
     also the host operators that took the most host time of their own."""
     rows, host = [], []
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue    # a record_function range (Optimizer.step) spans kernels counted already
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0 and evt.device_type.name != "CPU":
@@ -1818,6 +1883,435 @@ def train_path_2d():
     return counts_by_run
 
 
+# ------------------------------------------- the data pipeline and the drivers
+
+
+def write_brats_tree(root):
+    """``root/raw``: ``DRIVER_CASES`` BraTS cases at 240×240×155 per modality.
+    ``DRIVER_SUBJECTS`` distinct subjects are written by the port's
+    ``write_synthetic_brats`` (one thread each: numpy and gzip release the
+    interpreter lock), and case i gets the files of subject i mod 3."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DRIVER_SUBJECTS) as pool:
+        futures = [pool.submit(write_synthetic_brats, root / f"subject{k}", 1, BRATS_SHAPE,
+                               SEED + 30 + k) for k in range(DRIVER_SUBJECTS)]
+        written = [f.result() / "BraTS2021_00000" for f in futures]
+    t_write = time.perf_counter() - t0
+    raw = root / "raw"
+    for i in range(DRIVER_CASES):
+        case = f"BraTS2021_{i:05d}"
+        (raw / case).mkdir(parents=True)
+        for mod in MODALITIES:
+            shutil.copyfile(written[i % DRIVER_SUBJECTS] / f"BraTS2021_00000_{mod}.nii.gz",
+                            raw / case / f"{case}_{mod}.nii.gz")
+    for k in range(DRIVER_SUBJECTS):
+        shutil.rmtree(root / f"subject{k}")
+    return raw, {"write_subjects": t_write, "copy_cases": time.perf_counter() - t0 - t_write}
+
+
+def host_seconds_per_batch(dataset, batch_size, batches):
+    """Host seconds for one shuffled batch of ``dataset`` (the loader's own
+    work: decode, normalize, crop, stack; no prefetch, no copy to the card),
+    averaged over ``batches`` batches."""
+    it = iter(BatchLoader(dataset, batch_size, seed=SEED, prefetch=0, device_put=False))
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    seconds = (time.perf_counter() - t0) / batches
+    it.close()
+    return {"batch": batch_size, "batches": batches, "seconds_per_batch": seconds}
+
+
+def small_data_checks(raw, vol_dir, tmp):
+    """Card against CPU: ``preprocess_slice_batch`` over all 155 slices of one
+    FLAIR volume at 128² (``PREPROCESS_ATOL``), and ``pack_latents`` of a
+    narrow float32 VAE (base 8, 2 levels, seeded small weights) over the
+    centre 63×95×94 of one packed case, which pads to the downsample grid: kernels
+    and cuDNN on the card, plain versions on the CPU (``PACK_LATENTS_ATOL``);
+    the two index.json files equal, fingerprints within 1e-12 relative."""
+    flair = nifti.load(next(raw.rglob("*_flair.nii.gz")))
+    slices = torch.from_numpy(np.ascontiguousarray(np.moveaxis(flair, -1, 0)))
+    got = preprocess_slice_batch(slices.cuda(), IMAGE_SIZE).cpu()
+    err_pre = check_close("preprocess_slice_batch, card vs CPU", got,
+                          preprocess_slice_batch(slices, IMAGE_SIZE), atol=PREPROCESS_ATOL)
+
+    index = json.loads((vol_dir / "index.json").read_text())
+    first = index["files"][0]["path"]
+    with np.load(vol_dir / first) as z:
+        vol = z["volume"]
+    starts = [max((d - c) // 2, 0) for d, c in zip(vol.shape[1:], SMALL_VAE_CUT)]
+    cut = np.ascontiguousarray(vol[(slice(None),) + tuple(
+        slice(a, a + c) for a, c in zip(starts, SMALL_VAE_CUT))])
+    src = tmp / "one_case"
+    (src / first).parent.mkdir(parents=True)
+    np.savez(src / first, volume=cut)
+    (src / "index.json").write_text(json.dumps({**index, "files": [
+        {"path": first, "shape": list(cut.shape)}]}))
+    vae = seeded_weights(VAE3D(4, 8, 2, 4), SEED + 33)
+    reset_launch_counts()
+    on_card = pack_latents(src, tmp / "lat_card", copy.deepcopy(vae).cuda(), device="cuda")
+    counts = all_launch_counts()
+    on_cpu = pack_latents(src, tmp / "lat_cpu", vae, device="cpu")
+    want_gn = 6    # 3 res blocks in a 2-level encoder, two norms each
+    if (counts["gn_silu_stats"], counts["gn_silu_apply"]) != (want_gn, want_gn):
+        raise AssertionError(f"small pack_latents: launch counts {counts}")
+    fp_card, fp_cpu = on_card.pop("params_fingerprint"), on_cpu.pop("params_fingerprint")
+    if abs(fp_card - fp_cpu) > 1e-12 * fp_cpu or on_card != on_cpu:
+        raise AssertionError(f"small pack_latents: index {on_card} vs {on_cpu}")
+    lat = [torch.from_numpy(np.load(d / first)["latent"])
+           for d in (tmp / "lat_card", tmp / "lat_cpu")]
+    err_lat = check_close("pack_latents, card vs CPU", lat[0], lat[1], atol=PACK_LATENTS_ATOL)
+    print(f"small data checks: preprocess_slice_batch max abs err {err_pre:.3e}, "
+          f"pack_latents max abs err {err_lat:.3e} ok")
+    return {"preprocess_slice_batch_max_abs_err": err_pre, "pack_latents_max_abs_err": err_lat,
+            "pack_latents_latent_shape": list(lat[0].shape), "launches": counts}
+
+
+class DriverProbe:
+    """Wraps, for the time of a ``with`` block, what ``run_experiment`` calls
+    in ``mrijax_torch.train.experiments``: every step factory (each step is
+    timed between two synchronisations and counted as train or val of the
+    stage running; one train step a stage runs under ``torch.profiler`` for
+    the card's busy share), ``_trainer`` (each stage's ``fit``: launch counts
+    set to 0 before it and read after it, seconds, peak memory) and
+    ``pack_latents`` (the same). Stages are named by their checkpoint
+    directory; ``profile_at`` maps the last part of that name to the index of
+    the train step to profile."""
+
+    TRAIN = ("make_vae_train_step", "make_cached_latent_train_step",
+             "make_latent_diffusion_train_step", "make_diffusion_train_step")
+    EVAL = ("make_vae_eval_step", "make_cached_latent_eval_step",
+            "make_latent_diffusion_eval_step", "make_diffusion_eval_step")
+
+    def __init__(self, profile_at):
+        self.profile_at = profile_at
+        self.stages, self.stage, self._saved = {}, None, {}
+
+    def __enter__(self):
+        for name in self.TRAIN + self.EVAL + ("_trainer", "pack_latents"):
+            self._saved[name] = getattr(experiments, name)
+        for name in self.TRAIN + self.EVAL:
+            setattr(experiments, name, self._factory(name))
+        setattr(experiments, "_trainer", self._trainer)
+        setattr(experiments, "pack_latents", self._pack_latents)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(experiments, name, fn)
+
+    def _factory(self, name):
+        factory, kind = self._saved[name], "train" if name in self.TRAIN else "val"
+
+        def make(*args, **kwargs):
+            step = factory(*args, **kwargs)
+
+            def timed_step(*a, **kw):
+                rec = self.stages[self.stage]
+                index = rec[f"{kind}_steps"]
+                rec[f"{kind}_steps"] += 1
+                prof = None
+                if kind == "train" and index == self.profile_at.get(self.stage.split("/")[-1]):
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.start()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                if prof is not None:
+                    prof.stop()
+                    window = profile_window(prof, seconds * 1e3, top=8)
+                    busy = window["device_busy_ms"]
+                    rec["profiled_step"] = {
+                        "index": index, "wall_ms_under_profiler": seconds * 1e3,
+                        "device_busy_ms": busy,
+                        "device_busy_share": busy / (seconds * 1e3) if busy else None,
+                        "top": window["top"]}
+                else:
+                    rec[f"{kind}_step_seconds"].append(seconds)
+                return out
+
+            return timed_step
+
+        return make
+
+    def _open(self, stage):
+        self.stage = stage
+        self.stages[stage] = {"train_steps": 0, "val_steps": 0, "train_step_seconds": [],
+                              "val_step_seconds": []}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        return time.perf_counter()
+
+    def _close(self, t0):
+        torch.cuda.synchronize()
+        rec = self.stages[self.stage]
+        rec.update(seconds=time.perf_counter() - t0, launches=all_launch_counts(),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        self.stage = None
+
+    def _trainer(self, cfg_train, *, ckpt_dir, **kwargs):
+        trainer = self._saved["_trainer"](cfg_train, ckpt_dir=ckpt_dir, **kwargs)
+        fit = trainer.fit
+
+        def probed_fit(state):
+            t0 = self._open(ckpt_dir)
+            result = fit(state)
+            self._close(t0)
+            self.stages[ckpt_dir]["epochs_run"] = result.epochs_run
+            return result
+
+        trainer.fit = probed_fit
+        return trainer
+
+    def _pack_latents(self, *args, **kwargs):
+        t0 = self._open("pack_latents")
+        index = self._saved["pack_latents"](*args, **kwargs)
+        self._close(t0)
+        self.stages["pack_latents"]["volumes"] = len(index["files"])
+        return index
+
+
+def expect_stage(tag, rec, want_steps, per_train, per_val=None):
+    """Exact steps and launches of one stage: ``per_train`` / ``per_val`` are
+    the launches of one train / val step (kernel name → count)."""
+    per_val = per_val or {}
+    if (rec["train_steps"], rec["val_steps"]) != want_steps:
+        raise AssertionError(f"{tag}: {rec['train_steps']} train and {rec['val_steps']} val "
+                             f"steps, expected {want_steps}")
+    n_t, n_v = want_steps
+    want = {k: n_t * per_train.get(k, 0) + n_v * per_val.get(k, 0)
+            for k in all_launch_counts()}
+    if rec["launches"] != want:
+        raise AssertionError(f"{tag}: launch counts {rec['launches']}, expected {want}")
+
+
+def gn_calls(n):
+    return {"gn_silu_stats": n, "gn_silu_apply": n}
+
+
+def run_driver(cfg, tmp, profile_at):
+    """``run_experiment(cfg)`` on the card under a ``DriverProbe``."""
+    reset_termination()
+    logger = MetricsLogger("chip_smoke", run_name=f"{cfg.family}-{cfg.name}",
+                           root=str(tmp / "runs"))
+    with DriverProbe(profile_at) as probe:
+        result = experiments.run_experiment(cfg, logger=logger)
+    logger.finish()
+    return result, probe.stages, logger
+
+
+def check_losses(tag, logger, keys):
+    losses = {k: by_epoch(logger, k) for k in keys}
+    if not all(v and all(np.isfinite(x) for x in v.values()) for v in losses.values()):
+        raise AssertionError(f"{tag}: losses {losses}")
+    return losses
+
+
+def driver_3d(raw, vol_dir, tmp):
+    """``configs/ddpm_3d_ldm_tuned.json`` (read by ``ExperimentConfig.from_json``,
+    the model as it is) through ``run_experiment`` from the packed volumes, with
+    these cuts: ``latent_batch_size`` 8, ``debug_fast`` with 3 steps and 1
+    epoch in both stages, checkpoints in a temporary directory. Stage 1 trains
+    the VAE at 128×160×160 (3 steps, 1 val), ``pack_latents`` encodes the 10
+    whole volumes, stage 2 trains the UNet3D from latent crops of (8, 32, 40,
+    40, 16) (9 train latents: 1 step; the 1 val latent makes no full batch).
+    Then the same call again: both stages resume at their end, the cache is
+    fresh and not packed again, and no step runs."""
+    cfg = ExperimentConfig.from_json(TUNED_CONFIG)
+    model = (cfg.vae.base_channels, cfg.vae.num_down, cfg.vae.latent_channels, cfg.vae.remat,
+             cfg.unet.base_channels, cfg.unet.channel_mults, cfg.unet.use_attention,
+             cfg.unet.num_heads, cfg.unet.remat_levels, cfg.unet.compute_dtype,
+             cfg.diffusion.timesteps, cfg.diffusion.loss_type, cfg.train.cache_latents,
+             cfg.train.nan_guard, tuple(cfg.data.patch_size))
+    if model != TUNED_MODEL:
+        raise AssertionError(f"the tuned recipe is not the flagship: {model}")
+    ckpt = tmp / "ckpt"
+    cfg.name = "tuned"
+    cfg.data.root_dir, cfg.data.packed_dir = str(raw), str(vol_dir)
+    cfg.data.latent_batch_size = DRIVER_LATENT_BATCH
+    for t in (cfg.train, cfg.vae_train):
+        t.debug_fast, t.debug_max_steps, t.epochs, t.checkpoint_dir = (
+            True, DRIVER_STEPS, 1, str(ckpt))
+    t0 = time.perf_counter()
+    (vae_res, ldm_res, scale), stages, logger = run_driver(cfg, tmp, {"vae": 1, "ldm": 0})
+    seconds = time.perf_counter() - t0
+    run_dir = ckpt / cfg.family / cfg.name
+    vae_stage, ldm_stage = stages[f"{cfg.family}/{cfg.name}/vae"], stages[
+        f"{cfg.family}/{cfg.name}/ldm"]
+    remat = GN_VAE_FORWARD if cfg.vae.remat else 0
+    expect_stage("driver 3D stage 1", vae_stage, (DRIVER_STEPS, 1),
+                 gn_calls(GN_VAE_FORWARD + remat), gn_calls(GN_VAE_FORWARD))
+    packed_counts = stages["pack_latents"]["launches"]
+    if (stages["pack_latents"]["volumes"] != DRIVER_CASES
+            or packed_counts != {**dict.fromkeys(packed_counts, 0),
+                                 **gn_calls(DRIVER_CASES * GN_VAE_ENCODE)}):
+        raise AssertionError(f"driver 3D pack_latents: {stages['pack_latents']}")
+    flash = {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+    expect_stage("driver 3D stage 2", ldm_stage, (1, 0),
+                 {**gn_calls(GN_CALLS_PER_UNET + GN_REMAT_LEVEL0_CALLS), **flash},
+                 {**gn_calls(GN_CALLS_PER_UNET), "flash_attn_fwd": 1})
+    if (vae_res.epochs_run, ldm_res.epochs_run) != (1, 1) or not scale > 0:
+        raise AssertionError(f"driver 3D: epochs {vae_res.epochs_run}, {ldm_res.epochs_run}, "
+                             f"latent scale {scale}")
+    losses = check_losses("driver 3D", logger, ("vae_train_loss", "vae_val_loss",
+                                                "ldm_train_loss", "ldm_val_loss"))
+
+    # the latent cache: one (Cz, d, h, w) latent of every whole volume
+    idx_path = run_dir / "latent_cache" / "index.json"
+    index = json.loads(idx_path.read_text())
+    fp = params_fingerprint(vae_res.state.model)
+    f = 2 ** (cfg.vae.num_down - 1)
+    want_shape = [-(-BRATS_SHAPE[2] // f), BRATS_SHAPE[0] // f, BRATS_SHAPE[1] // f,
+                  cfg.vae.latent_channels]
+    if (index["kind"] != "latents3d" or index["downsample"] != f
+            or index["source_files"] != latent_source_files(vol_dir)
+            or [x["shape"] for x in index["files"]] != [want_shape] * DRIVER_CASES
+            or not abs(index["params_fingerprint"] - fp) <= FINGERPRINT_RTOL * abs(fp)):
+        raise AssertionError(f"driver 3D latent cache index: {index}")
+    latent = np.load(idx_path.parent / index["files"][0]["path"])["latent"]
+    if latent.shape != (want_shape[-1], *want_shape[:3]) or not np.isfinite(latent).all():
+        raise AssertionError(f"driver 3D latent cache: {latent.shape}")
+
+    # the same call again: resume, no repack, no step
+    mtime = idx_path.stat().st_mtime_ns
+    t0 = time.perf_counter()
+    (vae_again, ldm_again, scale_again), again, _ = run_driver(cfg, tmp, {})
+    resume_seconds = time.perf_counter() - t0
+    if ("pack_latents" in again or idx_path.stat().st_mtime_ns != mtime
+            or latent_cache_is_stale(idx_path, params_fingerprint(vae_again.state.model),
+                                     latent_source_files(vol_dir))):
+        raise AssertionError("driver 3D resume: the latent cache was packed again or is stale")
+    for tag, rec in again.items():
+        expect_stage(f"driver 3D resume {tag}", rec, (0, 0), {})
+    if (vae_again.epochs_run, ldm_again.epochs_run) != (0, 0) or scale_again != scale:
+        raise AssertionError(f"driver 3D resume: epochs {vae_again.epochs_run}, "
+                             f"{ldm_again.epochs_run}, latent scale {scale_again} vs {scale}")
+    print(f"driver 3D: stage 1 {vae_stage['train_steps']} + {vae_stage['val_steps']} steps, "
+          f"{stages['pack_latents']['volumes']} volumes packed, stage 2 "
+          f"{ldm_stage['train_steps']} + {ldm_stage['val_steps']} steps, resumed ok")
+    result = {"config": "configs/ddpm_3d_ldm_tuned.json", "seconds": seconds,
+              "resume_seconds": resume_seconds, "latent_scale": scale, "losses": losses,
+              "trainer_seconds_per_step": {k: {e: 1 / v for e, v in by_epoch(logger, k).items()}
+                                           for k in ("vae_steps_per_s", "ldm_steps_per_s")},
+              "latent_cache": {"volumes": len(index["files"]), "shape": want_shape,
+                               "params_fingerprint": index["params_fingerprint"],
+                               "trained_vae_fingerprint": fp},
+              "stages": {"vae": vae_stage, "pack_latents": stages["pack_latents"],
+                         "ldm": ldm_stage},
+              "resume": {k: {"train_steps": r["train_steps"], "launches": r["launches"]}
+                         for k, r in again.items()}}
+    counts = {"driver_3d_vae": vae_stage["launches"],
+              "driver_3d_pack_latents": stages["pack_latents"]["launches"],
+              "driver_3d_ldm": ldm_stage["launches"]}
+    return result, counts
+
+
+def driver_2d(raw, packed, tmp):
+    """``preset_slice_cond_2d`` and ``preset_ddpm_25d`` at full width (batch 64,
+    128²) through ``run_experiment`` from their packed shards: debug_fast with 3
+    steps, 1 epoch, ``val_fraction`` 0.25 (64 of the 256 debug items: one
+    full validation batch). 29 launches of each GroupNorm kernel a forward."""
+    result, counts = {}, {}
+    for preset, packed_dir in ((preset_slice_cond_2d, packed["slices"]),
+                               (preset_ddpm_25d, packed["multimodal"])):
+        cfg = preset(str(raw), **{
+            "name": "preset", "data.packed_dir": str(packed_dir),
+            "data.val_fraction": DRIVER_VAL_FRACTION_2D, "train.debug_fast": True,
+            "train.debug_max_steps": DRIVER_STEPS, "train.epochs": 1,
+            "train.checkpoint_dir": str(tmp / "ckpt")})
+        t0 = time.perf_counter()
+        res, stages, logger = run_driver(cfg, tmp, {"preset": 1})
+        seconds = time.perf_counter() - t0
+        rec = stages[f"{cfg.family}/preset"]
+        expect_stage(f"driver {cfg.family}", rec, (DRIVER_STEPS, 1),
+                     gn_calls(GN_CALLS_PER_UNET2D), gn_calls(GN_CALLS_PER_UNET2D))
+        if res.epochs_run != 1:
+            raise AssertionError(f"driver {cfg.family}: {res.epochs_run} epochs")
+        losses = check_losses(f"driver {cfg.family}", logger, ("train_loss", "val_loss"))
+        result[cfg.family] = {"seconds": seconds, "batch": cfg.data.batch_size,
+                              "in_channels": cfg.unet.in_channels, "losses": losses,
+                              "trainer_seconds_per_step": {
+                                  e: 1 / v for e, v in by_epoch(logger, "steps_per_s").items()},
+                              **rec}
+        counts[f"driver_{cfg.family}"] = rec["launches"]
+        del res
+    return result, counts
+
+
+def driver_path():
+    """The data pipeline and the experiment drivers at full width from BraTS
+    files on disk: the tree (``write_brats_tree``); ``split_subjects`` and
+    ``apply_split`` over it; ``pack_volumes`` and, on the card,
+    ``pack_dataset`` and ``pack_multimodal_slices`` over all 10 cases; the
+    loaders' host seconds per batch, raw NIfTI against packed; the small
+    card-against-CPU checks; then ``run_experiment`` of the 3D family on the
+    tuned recipe (``driver_3d``) and of the 2D and 2.5D presets
+    (``driver_2d``). Prints the ``driver_path`` line; returns the launch
+    counts of every stage."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp_name:
+        tmp = Path(tmp_name)
+        raw, seconds = write_brats_tree(tmp)
+
+        t0 = time.perf_counter()
+        cases = sorted(p for p in raw.iterdir() if p.is_dir())
+        split = split_subjects(cases, seed=42)
+        placed = apply_split(raw, tmp / "split", seed=42, mode="symlink")
+        n = {k: len(v) for k, v in placed.items()}
+        if n != {"train": 8, "val": 1, "test": 1} or placed != split or len(
+                list((tmp / "split" / "train").iterdir())) != 8:
+            raise AssertionError(f"split of {len(cases)} cases: {n}")
+        seconds["split"] = time.perf_counter() - t0
+
+        packed = {"volumes": tmp / "volumes", "slices": tmp / "slices",
+                  "multimodal": tmp / "multimodal"}
+        for name, fn in (("pack_volumes", lambda: pack_volumes(raw, packed["volumes"])),
+                         ("pack_dataset", lambda: pack_dataset(
+                             raw, packed["slices"], image_size=IMAGE_SIZE)),
+                         ("pack_multimodal_slices", lambda: pack_multimodal_slices(
+                             raw, packed["multimodal"], image_size=IMAGE_SIZE))):
+            t0 = time.perf_counter()
+            index = fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            if len(index["files"]) != DRIVER_CASES:
+                raise AssertionError(f"{name}: {len(index['files'])} files")
+        print("driver path: tree and packs " + json.dumps(seconds))
+
+        patch = tuple(ExperimentConfig.from_json(TUNED_CONFIG).data.patch_size)
+        loaders = {
+            "2d_raw_nifti": host_seconds_per_batch(SliceDataset2D(raw, IMAGE_SIZE), BATCH_2D, 1),
+            "2d_packed": host_seconds_per_batch(PackedSliceDataset(packed["slices"]),
+                                                BATCH_2D, 2),
+            "3d_raw_nifti": host_seconds_per_batch(VolumeDataset3D(raw, patch), 1, 2),
+            "3d_packed": host_seconds_per_batch(PackedVolumeDataset(packed["volumes"], patch),
+                                                1, 2),
+        }
+        small = small_data_checks(raw, packed["volumes"], tmp)
+        result_3d, counts_3d = driver_3d(raw, packed["volumes"], tmp)
+        seconds["pack_latents"] = result_3d["stages"]["pack_latents"]["seconds"]
+        result_2d, counts_2d = driver_2d(raw, packed, tmp)
+    result = {
+        "cases": DRIVER_CASES, "subjects_written": DRIVER_SUBJECTS,
+        "modality_shape": list(BRATS_SHAPE), "seconds": seconds,
+        "loader_host_seconds_per_batch": loaders, "small_checks": small,
+        "ddpm_3d_ldm": result_3d, **result_2d,
+        "cuts": ["data.latent_batch_size 8 (tuned: 32)", "debug_fast, debug_max_steps 3",
+                 "epochs 1 in both stages", "10 cases, 7 of them copies of 3 subjects",
+                 "checkpoint_dir a temporary directory",
+                 "2D / 2.5D: val_fraction 0.25 (preset: 0.1)"],
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    print("driver_path " + json.dumps(result))
+    return {**counts_3d, **counts_2d}
+
+
 CUDA_CORE_BF16_FLOPS = 2 * PEAK_FLOPS["float32"]   # paired bf16 FMAs: the most without tensor cores
 
 
@@ -2053,11 +2547,13 @@ def main() -> int:
     counts_25d = path_25d(profile_slice=args.profile)
     torch.cuda.empty_cache()
     counts_train_2d = train_path_2d()
+    counts_driver = driver_path()
 
     counts_by_path = {"generate": result["launches"],
                       "train_no_remat": train_counts["no_remat"],
                       "train_remat_level0": train_counts["remat_level0"],
-                      **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d}
+                      **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
+                      **counts_driver}
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path)}))
     print(card)

@@ -16,10 +16,14 @@ forward and backward; the training runtime (``train.Trainer``,
 ``train.experiments``); the 2D slice-conditioned and 2.5D multimodal families
 (``models.UNet2D``, the samplers of ``generate`` with classifier-free
 guidance and the pseudo-3D generators, ``train.make_diffusion_train_step``);
-and ``io.torch_convert`` (reference PyTorch checkpoints) and ``io.images``.
-Entry points take ``device=`` and default to ``"cuda"``; the kernels are
-compiled from ``mrijax_torch/csrc`` at their first CUDA call, so importing
-the package needs neither ``nvcc`` nor a GPU.
+``io.torch_convert`` (reference PyTorch checkpoints) and ``io.images``; and
+the data package (``data``: NIfTI, datasets, splits, packed shards, the
+batch loader) with the experiment drivers (``train.run_experiment``), which
+train every family from BraTS files on disk. Entry points take ``device=``
+and default to ``"cuda"``; the kernels are compiled from
+``mrijax_torch/csrc`` at their first CUDA call, and the NIfTI reader from
+``csrc/mrijax_io.cpp`` at its first use, so importing the package needs
+neither a compiler nor a GPU.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Training: train state, the optimizer-step factories of all three
-families, plateau LR and early stopping, the epoch loop (``Trainer``) and
-the config builders. Counterpart of ``mrijax/train`` (``state``, ``steps``,
-``trainer`` and the builders of ``experiments``)."""
+families, plateau LR and early stopping, the epoch loop (``Trainer``), the
+config builders and the experiment drivers (``run_experiment``).
+Counterpart of ``mrijax/train`` (``state``, ``steps``, ``trainer`` and
+``experiments``)."""
 
 from mrijax_torch.train.state import (
     EarlyStopper,
@@ -31,3 +32,9 @@ from mrijax_torch.train.steps import (
     vae_loss,
 )
 from mrijax_torch.train.trainer import Trainer, TrainerResult
+from mrijax_torch.train.experiments import (
+    run_experiment,
+    train_ddpm_25d,
+    train_ddpm_3d_ldm,
+    train_slice_cond_2d,
+)
