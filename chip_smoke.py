@@ -82,7 +82,21 @@ What it does, in order:
    the cache is reused), and on ``preset_slice_cond_2d`` and
    ``preset_ddpm_25d`` (batch 64, 3 steps). Each stage's steps and kernel
    launches are exact (counted from 0 at the stage's start), its losses
-   finite; one train step a stage is profiled for the card's busy share.
+   finite; one train step a stage is profiled for the card's busy share;
+13. scores the two 2D runs of phase 12 with the evaluation suite
+   (``eval_path``, inside phase 12's temporary tree): ``config.json`` beside
+   each run, Inception-v3 / ResNet-18 / AlexNet-LPIPS weight files from the
+   random-initialised torchvision-layout replicas of
+   ``tests/torch_replicas.py`` through the port's converters, then
+   ``evaluate_runs`` with them (128 samples a run from the raw NIfTI files,
+   batches of 64, DDIM-20, 64 diversity pairs, improved PR, split "all", the
+   2.5D run on channel 3). Each report carries every pretrained-path metric,
+   finite and unsuffixed; exactly 2320 launches of each GroupNorm kernel a
+   run (29 a forward × 20 steps × 4 sampler calls). The networks and SSIM on
+   the card against the CPU (features within 1e-4·max|f|, SSIM 1e-5), the
+   time of a run split into sampling, each extractor, SSIM, the host
+   statistics and the loader, the Inception forward against its bound, and
+   the host time of Dice / HD95 on BraTS-shaped label maps.
 
 The GroupNorm phases (2, 3) also take the UNet2D's seven (N, C) shapes:
 compared at B = 2 and once at B = 310, timed at the presets' batch of 64 and
@@ -93,13 +107,14 @@ exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
 names the card; the line before that is the ``{"kernels": [...]}`` record,
-and before it the ``driver_path`` line.
+and before it the ``eval_path`` line.
 """
 
 import argparse
 import copy
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -154,7 +169,28 @@ from mrijax_torch.generate import (
     sample_2d,
     sample_pseudo3d_sweep,
 )
-from mrijax_torch.io import load_state
+from mrijax_torch.evals import features as eval_features
+from mrijax_torch.evals import frechet as eval_frechet
+from mrijax_torch.evals import harness as eval_harness
+from mrijax_torch.evals import multi as eval_multi
+from mrijax_torch.evals import (
+    FeatureExtractor,
+    InceptionFeatureExtractor,
+    LPIPSDistance,
+    ResNet18FeatureExtractor,
+    dice_per_label,
+    evaluate_runs,
+    hd95_per_label,
+    ms_ssim,
+    ssim,
+)
+from mrijax_torch.io import (
+    convert_inception_v3,
+    convert_lpips_alex,
+    convert_resnet18,
+    load_state,
+    save_params_npz,
+)
 from mrijax_torch.kernels import _build
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
@@ -2214,8 +2250,10 @@ def driver_2d(raw, packed, tmp):
     """``preset_slice_cond_2d`` and ``preset_ddpm_25d`` at full width (batch 64,
     128²) through ``run_experiment`` from their packed shards: debug_fast with 3
     steps, 1 epoch, ``val_fraction`` 0.25 (64 of the 256 debug items: one
-    full validation batch). 29 launches of each GroupNorm kernel a forward."""
-    result, counts = {}, {}
+    full validation batch). 29 launches of each GroupNorm kernel a forward.
+    Returns the results, the launch counts and each family's (config, run
+    directory)."""
+    result, counts, runs = {}, {}, {}
     for preset, packed_dir in ((preset_slice_cond_2d, packed["slices"]),
                                (preset_ddpm_25d, packed["multimodal"])):
         cfg = preset(str(raw), **{
@@ -2238,8 +2276,9 @@ def driver_2d(raw, packed, tmp):
                                   e: 1 / v for e, v in by_epoch(logger, "steps_per_s").items()},
                               **rec}
         counts[f"driver_{cfg.family}"] = rec["launches"]
+        runs[cfg.family] = (cfg, Path(cfg.train.checkpoint_dir) / cfg.family / cfg.name)
         del res
-    return result, counts
+    return result, counts, runs
 
 
 def driver_path():
@@ -2250,8 +2289,9 @@ def driver_path():
     loaders' host seconds per batch, raw NIfTI against packed; the small
     card-against-CPU checks; then ``run_experiment`` of the 3D family on the
     tuned recipe (``driver_3d``) and of the 2D and 2.5D presets
-    (``driver_2d``). Prints the ``driver_path`` line; returns the launch
-    counts of every stage."""
+    (``driver_2d``). Prints the ``driver_path`` line; then, while the
+    temporary tree still exists, ``eval_path`` scores the two 2D runs. Returns
+    the launch counts of every stage and of each scored run."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2296,20 +2336,354 @@ def driver_path():
         small = small_data_checks(raw, packed["volumes"], tmp)
         result_3d, counts_3d = driver_3d(raw, packed["volumes"], tmp)
         seconds["pack_latents"] = result_3d["stages"]["pack_latents"]["seconds"]
-        result_2d, counts_2d = driver_2d(raw, packed, tmp)
+        result_2d, counts_2d, runs_2d = driver_2d(raw, packed, tmp)
+        result = {
+            "cases": DRIVER_CASES, "subjects_written": DRIVER_SUBJECTS,
+            "modality_shape": list(BRATS_SHAPE), "seconds": seconds,
+            "loader_host_seconds_per_batch": loaders, "small_checks": small,
+            "ddpm_3d_ldm": result_3d, **result_2d,
+            "cuts": ["data.latent_batch_size 8 (tuned: 32)", "debug_fast, debug_max_steps 3",
+                     "epochs 1 in both stages", "10 cases, 7 of them copies of 3 subjects",
+                     "checkpoint_dir a temporary directory",
+                     "2D / 2.5D: val_fraction 0.25 (preset: 0.1)"],
+            "phase_seconds": time.perf_counter() - t_phase,
+        }
+        print("driver_path " + json.dumps(result))
+        # the evaluation suite scores the two runs while their directory lives
+        counts_eval = eval_path(tmp, runs_2d)
+    return {**counts_3d, **counts_2d, **counts_eval}
+
+
+# ------------------------------------------------------------ the evaluation suite
+
+EVAL_SAMPLES = 128                # the protocol's 1000, cut
+EVAL_BATCH = 64
+EVAL_DDIM_STEPS = 20              # the protocol's full-T ancestral sampling, cut
+EVAL_PAIRS = 64
+EVAL_CHANNEL_25D = 3
+EVAL_CALLS = 4                    # two real batches of 64, then the two diversity draws
+EVAL_FEATURE_REL = 1e-4           # card against CPU, TF32 off: |Δ| ≤ 1e-4·max|f|
+EVAL_SSIM_ATOL = 1e-5
+EVAL_CHECK_IMAGES = 4
+EVAL_KEYS = ("fid", "kid_mean", "kid_std", "fid_per_z_bin", "diversity_ssim_mean",
+             "diversity_lpips_mean", "improved_precision", "improved_recall", "memorization")
+REPLICAS = Path(__file__).resolve().parent / "tests" / "torch_replicas.py"
+
+
+def load_replicas():
+    """``tests/torch_replicas.py``: torch modules with torchvision's and
+    lpips' state_dict layouts (Inception-v3, ResNet-18, AlexNet-LPIPS) and
+    ``randomize_``, which draws every weight and BatchNorm statistic."""
+    spec = importlib.util.spec_from_file_location("torch_replicas", REPLICAS)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_eval_weights(tmp):
+    """The three pretrained-path weight files: each random-initialised
+    replica converted by the port's ``convert_*`` and saved with
+    ``save_params_npz``. Returns (paths, the converted trees, seconds)."""
+    replicas = load_replicas()
+    paths, trees = {}, {}
+    t0 = time.perf_counter()
+    for i, (kind, make, convert) in enumerate((
+            ("inception", replicas.InceptionV3Trunk, convert_inception_v3),
+            ("resnet18", replicas.ResNet18Trunk, convert_resnet18),
+            ("lpips", replicas.LPIPSAlexReplica, convert_lpips_alex))):
+        trees[kind] = convert(replicas.randomize_(make(), seed=SEED + 40 + i).state_dict())
+        paths[kind] = tmp / "eval_weights" / f"{kind}.npz"
+        save_params_npz(paths[kind], trees[kind])
+    return paths, trees, time.perf_counter() - t0
+
+
+class EvalProbe:
+    """Wraps, for the time of a ``with`` block, what ``evaluate_runs`` calls:
+    ``_evaluate_one`` (one record a run: launch counts set to 0 before it and
+    read after it, seconds, peak memory), the sampler (``ddim_sample``,
+    between two synchronisations), each extractor's and LPIPS' call (the
+    same), SSIM, the host statistics of the harness (FID accumulation and
+    distances, KID, precision/recall, memorization) and the loader's host
+    work (``BatchLoader._host_batch``: read, preprocess, stack)."""
+
+    HOST_MATH = ("frechet_distance", "kid_from_features", "improved_precision_recall",
+                 "memorization_stats")
+
+    def __init__(self):
+        self.runs, self.run, self._saved = {}, None, []
+
+    def _patch(self, owner, name, wrapper):
+        original = getattr(owner, name)
+        self._saved.append((owner, name, original))
+        setattr(owner, name, wrapper(original))
+
+    def __enter__(self):
+        self._patch(eval_multi, "_evaluate_one", self._one)
+        self._patch(GaussianDiffusion, "ddim_sample", lambda f: self._synced(f, "sampling"))
+        self._patch(eval_features._Embedder, "__call__",
+                    lambda f: self._synced(f, "features", by_type=True))
+        self._patch(LPIPSDistance, "__call__",
+                    lambda f: self._synced(f, "features", by_type=True))
+        self._patch(eval_harness, "ssim", lambda f: self._synced(f, "ssim"))
+        self._patch(eval_frechet.FidAccumulator, "update",
+                    lambda f: self._host(f, "fid_accumulate"))
+        for name in self.HOST_MATH:
+            self._patch(eval_harness, name, lambda f, n=name: self._host(f, n))
+        self._patch(BatchLoader, "_host_batch", lambda f: self._host(f, "loader"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+
+    def _add(self, key, seconds, images=None):
+        rec = self.runs[self.run].setdefault(key, {"calls": 0, "seconds": 0.0})
+        rec["calls"] += 1
+        rec["seconds"] += seconds
+        if images is not None:
+            rec["images"] = rec.get("images", 0) + images
+
+    def _synced(self, fn, key, by_type=False):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if by_type:   # an extractor: args[0] is the extractor, args[1] the images
+                self._add(f"{key}:{type(args[0]).__name__}", time.perf_counter() - t0,
+                          images=int(args[1].shape[0]))
+            else:
+                self._add(key, time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def _host(self, fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._add(key, time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def _one(self, fn):
+        def wrapped(rc, fe, out_path, **kwargs):
+            self.run = Path(out_path).name.removesuffix(".metrics.json")
+            self.runs[self.run] = {}
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(rc, fe, out_path, **kwargs)
+            torch.cuda.synchronize()
+            self.runs[self.run].update(seconds=time.perf_counter() - t0,
+                                       launches=all_launch_counts(),
+                                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+            return out
+        return wrapped
+
+
+def all_finite(value) -> bool:
+    if isinstance(value, dict):
+        return all(all_finite(v) for v in value.values())
+    if isinstance(value, list):
+        return all(all_finite(v) for v in value)
+    if isinstance(value, str):
+        return True
+    return bool(np.isfinite(value))
+
+
+def check_eval_report(name, report):
+    """Every key of the pretrained path, none with ``_rand``, every number
+    finite, 128 samples, improved PR in ResNet-18 space."""
+    missing = [k for k in EVAL_KEYS if k not in report]
+    labeled = [k for k in report if "_rand" in k]
+    if (missing or labeled or report["num_samples"] != EVAL_SAMPLES
+            or report.get("improved_pr_feature_space") != "resnet18"
+            or not all_finite(report)):
+        raise AssertionError(f"eval {name}: missing {missing}, labeled {labeled}, "
+                             f"report {json.dumps(report)[:2000]}")
+
+
+def conv_flops(net, x):
+    """Operations of one forward of ``net`` on ``x``: 2 per multiply-add of
+    every ``nn.Conv2d`` (the pools, ReLUs and concatenations are left out),
+    counted by forward hooks."""
+    total = [0]
+
+    def count(mod, inputs, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2 * out.numel() * mod.in_channels // mod.groups * k
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def eval_card_vs_cpu(trees):
+    """The networks and SSIM on the card against the same functions on the
+    CPU, on a few seeded images at 128²: Inception (resized to 299),
+    ResNet-18 and ``ConvFeatureNet`` features and LPIPS within
+    ``EVAL_FEATURE_REL``·max|f|; ``ssim`` at 128² and ``ms_ssim`` with 5
+    levels at 176² within ``EVAL_SSIM_ATOL``."""
+    rng = np.random.default_rng(SEED + 44)
+    x = rng.uniform(-1, 1, size=(EVAL_CHECK_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 1)).astype(np.float32)
+    y = rng.uniform(-1, 1, size=x.shape).astype(np.float32)
+    makers = {
+        "inception": lambda d: InceptionFeatureExtractor(params=trees["inception"], device=d),
+        "resnet18": lambda d: ResNet18FeatureExtractor(params=trees["resnet18"], device=d),
+        "conv_feature_net": lambda d: FeatureExtractor(device=d),
+    }
+    errs = {}
+
+    def relative(name, got, want):
+        """The worst difference over the largest |f| (the bar's unit)."""
+        scale = float(want.abs().max())
+        err = check_close(f"eval {name}, card vs CPU", got, want, atol=EVAL_FEATURE_REL * scale)
+        errs[name] = {"max_abs_err": err, "max_abs": scale, "relative": err / scale}
+
+    for name, make in makers.items():
+        relative(f"{name} features", make("cuda")(x).cpu(), make("cpu")(x))
+    relative("lpips", LPIPSDistance(params=trees["lpips"], device="cuda")(x, y).cpu(),
+             LPIPSDistance(params=trees["lpips"], device="cpu")(x, y))
+    for name, fn, size, kw in (("ssim", ssim, IMAGE_SIZE, {}),
+                               ("ms_ssim", ms_ssim, 176, {"levels": 5})):
+        a = rng.uniform(0, 1, size=(EVAL_CHECK_IMAGES, size, size, 1)).astype(np.float32)
+        b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+        errs[name] = check_close(f"eval {name}, card vs CPU",
+                                 fn(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+                                    data_range=1.0, **kw).cpu(),
+                                 fn(a, b, data_range=1.0, **kw), atol=EVAL_SSIM_ATOL)
+    print("eval card vs CPU: " + ", ".join(
+        f"{k} {v['relative']:.3e}·max|f|" if isinstance(v, dict) else f"{k} {v:.3e}"
+        for k, v in errs.items())
+          + f" (features <= {EVAL_FEATURE_REL}·max|f|, SSIM <= {EVAL_SSIM_ATOL}) ok")
+    return errs
+
+
+def inception_forward(trees):
+    """The Inception trunk alone at a batch of 64 on ImageNet-normalised
+    299² input: ms per batch (``time_ms``) against its multiply-adds over the
+    float32 peak (TF32 is off)."""
+    net = InceptionFeatureExtractor(params=trees["inception"], device="cuda").net
+    x = torch.randn(EVAL_BATCH, 299, 299, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED + 45))
+    flops = conv_flops(net, x[:1])
+    with torch.no_grad():
+        ms = time_ms(lambda: net(x), repeats=5)
+    return {"batch": EVAL_BATCH, "ms": ms, "gflop_per_image": flops / 1e9,
+            "bound_ms": EVAL_BATCH * flops / PEAK_FLOPS["float32"] * 1e3,
+            "bound_by": "operations (float32)"}
+
+
+def segmentation_host_seconds():
+    """``dice_per_label`` and ``hd95_per_label`` on one pair of seeded
+    BraTS-shaped 240×240×155 label maps (nested blobs of labels 2, 1, 4;
+    the prediction shifted), host seconds each."""
+    rng = np.random.default_rng(SEED + 46)
+    grids = np.ogrid[tuple(slice(0, n) for n in BRATS_SHAPE)]
+    maps = []
+    for shift in (0, 3):
+        lab = np.zeros(BRATS_SHAPE, np.uint8)
+        for label, radius in ((2, 40.0), (1, 22.0), (4, 10.0)):
+            c = [n / 2 + shift + rng.uniform(-4, 4) for n in BRATS_SHAPE]
+            lab[sum((g - ci) ** 2 for g, ci in zip(grids, c)) <= radius ** 2] = label
+        maps.append(lab)
+    t0 = time.perf_counter()
+    dice = dice_per_label(*maps)
+    t1 = time.perf_counter()
+    hd = hd95_per_label(*maps)
+    t2 = time.perf_counter()
+    if not (all(0 < v < 1 for v in dice.values()) and all(np.isfinite(v) for v in hd.values())):
+        raise AssertionError(f"segmentation metrics: dice {dice}, hd95 {hd}")
+    return {"shape": list(BRATS_SHAPE), "dice_seconds": t1 - t0, "hd95_seconds": t2 - t1,
+            "dice": dice, "hd95": hd}
+
+
+def eval_path(tmp, runs):
+    """The evaluation suite on the two full-width 2D runs ``driver_2d`` just
+    trained (``runs``: family → (config, run directory)): ``config.json``
+    written beside each run's checkpoints, as the CLI's ``train`` does; the
+    three weights files (``write_eval_weights``); then ``evaluate_runs`` with
+    them — 128 samples a run in batches of 64, DDIM-20, 64 diversity pairs,
+    improved PR on, split "all", the 2.5D run scored on channel 3 — under an
+    ``EvalProbe``. Checks each report (``check_eval_report``), the summary
+    and exactly 29 × 20 × 4 = 2320 launches of each GroupNorm kernel a run;
+    then the networks on the card against the CPU, the Inception forward
+    against its bound and the segmentation metrics' host time. Prints the
+    ``eval_path`` line; returns each run's launch counts."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cfg, run_dir in runs.values():
+        cfg.to_json(run_dir / "config.json")
+    paths, trees, weights_seconds = write_eval_weights(tmp)
+    run_configs = [{"run_dir": str(run_dir), "name": family, "num_samples": EVAL_SAMPLES,
+                    "batch_size": EVAL_BATCH, "ddim_steps": EVAL_DDIM_STEPS,
+                    "diversity_pairs": EVAL_PAIRS, "compute_pr": True, "split": "all",
+                    **({"eval_channel": EVAL_CHANNEL_25D} if family == "ddpm_25d" else {})}
+                   for family, (_, run_dir) in runs.items()]
+    out = tmp / "eval"
+    t0 = time.perf_counter()
+    with EvalProbe() as probe:
+        summary = evaluate_runs(run_configs, out, inception_weights=str(paths["inception"]),
+                                resnet18_weights=str(paths["resnet18"]),
+                                lpips_weights=str(paths["lpips"]), progress=False)
+    eval_seconds = time.perf_counter() - t0
+    if set(summary) != set(runs) or any("error" in v for v in summary.values()):
+        raise AssertionError(f"evaluate_runs summary: {summary}")
+    if json.loads((out / "summary.json").read_text()) != summary:
+        raise AssertionError("summary.json differs from the returned summary")
+    per_run, counts = {}, {}
+    for family in runs:
+        report = json.loads((out / f"{family}.metrics.json").read_text())
+        check_eval_report(family, report)
+        rec = probe.runs[family]
+        expect_gn(f"eval {family}", rec["launches"], EVAL_CALLS * EVAL_DDIM_STEPS)
+        counts[f"eval_{family}"] = rec["launches"]
+        if rec["sampling"]["calls"] != EVAL_CALLS:
+            raise AssertionError(f"eval {family}: {rec['sampling']['calls']} sampler calls")
+        feats = {k.split(":", 1)[1]: {**v, "ms_per_batch_of_64": v["seconds"] / v["images"]
+                                      * EVAL_BATCH * 1e3}
+                 for k, v in rec.items() if k.startswith("features:")}
+        host = {k: rec[k]["seconds"] for k in ("fid_accumulate",) + EvalProbe.HOST_MATH}
+        accounted = (rec["sampling"]["seconds"] + sum(v["seconds"] for v in feats.values())
+                     + rec["ssim"]["seconds"] + sum(host.values()) + rec["loader"]["seconds"])
+        per_run[family] = {
+            "seconds": rec["seconds"], "sampling_seconds": rec["sampling"]["seconds"],
+            "sampling_seconds_per_step": rec["sampling"]["seconds"] / (EVAL_CALLS
+                                                                       * EVAL_DDIM_STEPS),
+            "features": feats, "ssim_seconds": rec["ssim"]["seconds"],
+            "host_math_seconds": host,
+            "frechet_distance_calls": rec["frechet_distance"]["calls"],
+            "loader": {"batches": rec["loader"]["calls"], "seconds": rec["loader"]["seconds"],
+                       "seconds_per_batch": rec["loader"]["seconds"] / rec["loader"]["calls"]},
+            "other_seconds": rec["seconds"] - accounted,
+            "peak_memory_bytes": rec["peak_memory_bytes"], "launches": rec["launches"],
+            "headline": summary[family],
+        }
+    print(f"eval: {', '.join(runs)} scored, {EVAL_CALLS * EVAL_DDIM_STEPS * GN_CALLS_PER_UNET2D} "
+          "launches of each GroupNorm kernel a run, reports complete and finite ok")
+    errs = eval_card_vs_cpu(trees)
     result = {
-        "cases": DRIVER_CASES, "subjects_written": DRIVER_SUBJECTS,
-        "modality_shape": list(BRATS_SHAPE), "seconds": seconds,
-        "loader_host_seconds_per_batch": loaders, "small_checks": small,
-        "ddpm_3d_ldm": result_3d, **result_2d,
-        "cuts": ["data.latent_batch_size 8 (tuned: 32)", "debug_fast, debug_max_steps 3",
-                 "epochs 1 in both stages", "10 cases, 7 of them copies of 3 subjects",
-                 "checkpoint_dir a temporary directory",
-                 "2D / 2.5D: val_fraction 0.25 (preset: 0.1)"],
+        "runs": per_run, "evaluate_runs_seconds": eval_seconds,
+        "weights_seconds": weights_seconds, "card_vs_cpu_max_abs_err": errs,
+        "inception_forward": inception_forward(trees),
+        "segmentation": segmentation_host_seconds(),
+        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                 "matmul": torch.backends.cuda.matmul.allow_tf32},
+        "cuts": [f"{EVAL_SAMPLES} samples a run (protocol: 1000)",
+                 f"DDIM-{EVAL_DDIM_STEPS} (protocol: full-T ancestral)",
+                 'split "all" (protocol: the test split, 1 case of these 10)',
+                 "random-initialised torchvision-layout weights (protocol: ImageNet)"],
         "phase_seconds": time.perf_counter() - t_phase,
     }
-    print("driver_path " + json.dumps(result))
-    return {**counts_3d, **counts_2d}
+    print("eval_path " + json.dumps(result))
+    return counts
 
 
 CUDA_CORE_BF16_FLOPS = 2 * PEAK_FLOPS["float32"]   # paired bf16 FMAs: the most without tensor cores

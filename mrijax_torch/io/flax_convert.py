@@ -29,6 +29,12 @@ in that order.
 Adam moments and count, learning rate, EMA shadow), so that both packages can
 go on from the same mid-run state. The leaf transforms are permutations, so
 the moments take the same route as the parameters they belong to.
+
+The evaluation suite's networks (``mrijax_torch.evals``: ``ConvFeatureNet``,
+``InceptionV3``, ``ResNet18``, ``LPIPS``) carry the flax tree's names as
+module names, so their bridge is mechanical: a ``{kernel, bias}`` node is a
+convolution, a ``{scale, bias}`` node a GroupNorm, a bare array (LPIPS's
+``lin{i}`` heads) a parameter as it is; the path joined by ``.`` is the key.
 """
 
 from typing import Callable, Dict, Mapping, Optional, Sequence, Union
@@ -227,6 +233,51 @@ def vae3d_state_dict_from_flax(
             k += 1
     _put_conv(sd, "decoder.out_conv", dec["Conv_1"])
     return sd
+
+
+def _feature_net_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, value in node.items():
+            name = prefix + str(key)
+            if not isinstance(value, Mapping):
+                sd[name] = _tensor(value)
+            elif "kernel" in value:
+                _put_conv(sd, name, value)
+            elif "scale" in value:
+                _put_norm(sd, name, value)
+            else:
+                walk(value, name + ".")
+
+    walk(_unwrap(params), "")
+    return sd
+
+
+def conv_feature_net_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params of the JAX package's ``ConvFeatureNet`` (``Conv_{2i}``,
+    ``GroupNorm_{i}``, ``Conv_{2i+1}`` per width) → ``state_dict`` of
+    ``mrijax_torch.evals.ConvFeatureNet`` of the same widths."""
+    return _feature_net_state_dict(params)
+
+
+def inception_v3_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax tree of the JAX package's ``InceptionV3`` (a flax init, or
+    ``convert_inception_v3`` of a torchvision checkpoint) → ``state_dict`` of
+    ``mrijax_torch.evals.InceptionV3``."""
+    return _feature_net_state_dict(params)
+
+
+def resnet18_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax tree of the JAX package's ``ResNet18`` (or
+    ``convert_resnet18``'s) → ``state_dict`` of ``mrijax_torch.evals.ResNet18``."""
+    return _feature_net_state_dict(params)
+
+
+def lpips_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax tree of the JAX package's ``LPIPS`` (or
+    ``convert_lpips_alex``'s) → ``state_dict`` of ``mrijax_torch.evals.LPIPS``."""
+    return _feature_net_state_dict(params)
 
 
 def train_state_from_flax(
