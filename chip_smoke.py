@@ -98,6 +98,27 @@ What it does, in order:
    statistics and the loader, the Inception forward against its bound, and
    the host time of Dice / HD95 on BraTS-shaped label maps.
 
+14. drives every subcommand of ``python -m mrijax_torch.cli`` at full width
+   (``cli_path``, inside phase 12's temporary tree, through ``cli.main`` in
+   this process so that the launch counts see it): ``doctor``, ``split``,
+   ``preprocess`` of the three families (bitwise phase 12's shards), ``train``
+   of both 2D presets and of the tuned 3D recipe at phase 12's cuts (each
+   stage's steps and launches exact; ``energy_*`` metrics from NVML with the
+   average power in (0, the power limit]; ``info``; ``obs.analyze``),
+   ``export``, ``sample`` in all six modes (each bitwise a direct call of the
+   library with the documented generator on the exported weights, launches
+   exact), ``export-aot`` and ``serve`` of the 2D and 3D runs (the ``.pt2``
+   holds no weight; served batches bitwise the eager sampler's, launches
+   twice the eager call's; export seconds, first-batch and steady-state
+   seconds), ``eval`` and ``eval-multi`` with phase 13's weight files,
+   ``eval-seg``, ``convert-features`` (bitwise phase 13's files) and
+   ``import-torch`` of the torch twins' reference-layout checkpoints at the
+   presets' widths, each imported run sampled.
+
+Phase 3 also prints the host time to issue one GroupNorm+SiLU pair and one
+flash forward through the ``torch.library`` custom ops (the route of the
+exported programs) beside the direct route that eager callers take.
+
 The GroupNorm phases (2, 3) also take the UNet2D's seven (N, C) shapes:
 compared at B = 2 and once at B = 310, timed at the presets' batch of 64 and
 summed over one forward (``groupnorm_per_unet2d_forward``).
@@ -107,15 +128,20 @@ exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
 names the card; the line before that is the ``{"kernels": [...]}`` record,
-and before it the ``eval_path`` line.
+and before it the ``cli_path`` line.
 """
 
 import argparse
+import ast
+import contextlib
 import copy
 import dataclasses
 import gc
 import importlib.util
+import inspect
+import io
 import json
+import math
 import os
 import re
 import shutil
@@ -133,14 +159,18 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from mrijax_torch import aot, cli
+from mrijax_torch import generate as generate_module
 from mrijax_torch.config import (
     ExperimentConfig,
+    _apply_overrides,
     preset_ddpm_25d,
     preset_ddpm_3d_ldm,
     preset_slice_cond_2d,
 )
 from mrijax_torch.data import (
     BatchLoader,
+    MultiModalSliceDataset25D,
     PackedSliceDataset,
     PackedVolumeDataset,
     SliceDataset2D,
@@ -163,6 +193,7 @@ from mrijax_torch.diffusion import (
     make_schedule,
 )
 from mrijax_torch.generate import (
+    Vae3dDiagnostics,
     generate_3d_volumes,
     generate_pseudo3d_hybrid,
     generate_pseudo3d_real_context,
@@ -188,6 +219,7 @@ from mrijax_torch.io import (
     convert_inception_v3,
     convert_lpips_alex,
     convert_resnet18,
+    load_params_npz,
     load_state,
     save_params_npz,
 )
@@ -196,7 +228,8 @@ from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
 from mrijax_torch.models import UNet2D, UNet3D, VAE3D
 from mrijax_torch.models.blocks import Conv3d, Downsample, Upsample
-from mrijax_torch.obs import MetricsLogger, install_signal_handlers, reset_termination
+from mrijax_torch.obs import MetricsLogger, analyze, install_signal_handlers, reset_termination
+from mrijax_torch.obs.energy import NvmlPowerSensor
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.norms import group_norm_silu
 from mrijax_torch.train import (
@@ -210,7 +243,13 @@ from mrijax_torch.train import (
     sample_timesteps,
 )
 from mrijax_torch.train import experiments
-from mrijax_torch.train.experiments import _trainer, build_diffusion, build_unet2d, build_unet3d
+from mrijax_torch.train.experiments import (
+    _trainer,
+    build_diffusion,
+    build_unet2d,
+    build_unet3d,
+    build_vae3d,
+)
 
 SEED = 0
 REPEATS = 15
@@ -684,6 +723,9 @@ def groupnorm_row(rng, b, n, c):
         "fused_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
         "fused_host_issue_us": host_issue_us(
             lambda: gn.group_norm_silu_fused(x, scale, bias, GROUPS)),
+        # the same pair through the two custom ops (the exported programs' route)
+        "fused_op_host_issue_us": host_issue_us(
+            lambda: gn.gn_silu_apply_op(x, gn.gn_silu_stats_op(x, GROUPS, 1e-5), scale, bias)),
         "stats_plan": dataclasses.asdict(gn.launch_plan(n, c, GROUPS, x.element_size(), 16, b)),
         "apply_plan": dataclasses.asdict(gn.apply_plan(n, c, GROUPS, x.element_size())),
     }
@@ -825,6 +867,8 @@ def time_flash(rng):
             "exp_ms": b * h * n * n / EXP_PER_S * 1e3,
             "host_issue_us": host_issue_us(lambda: fa.flash_attention_forward(q, k, v),
                                            calls=200 if shape != FLASH_LONG else 3),
+            "op_host_issue_us": host_issue_us(lambda: fa.flash_attn_fwd_op(q, k, v),
+                                              calls=200 if shape != FLASH_LONG else 3),
             "plan": flash_plan_note("flash_attn_fwd", shape, dtype),
         })
     print("flash_times " + json.dumps(rows))
@@ -2147,6 +2191,40 @@ def check_losses(tag, logger, keys):
     return losses
 
 
+def driver_3d_cuts(raw, vol_dir, ckpt):
+    """``driver_path``'s cuts of the tuned recipe as dotted overrides: the data
+    on disk, latent batch 8, ``debug_fast`` with 3 steps and 1 epoch in both
+    stages, checkpoints under ``ckpt``."""
+    return {"data.root_dir": str(raw), "data.packed_dir": str(vol_dir),
+            "data.latent_batch_size": DRIVER_LATENT_BATCH,
+            **{f"{t}.{k}": v for t in ("train", "vae_train") for k, v in (
+                ("debug_fast", True), ("debug_max_steps", DRIVER_STEPS), ("epochs", 1),
+                ("checkpoint_dir", str(ckpt)))}}
+
+
+def expect_driver_3d(tag, stages, cfg):
+    """Exact steps and launches of the three stages of the tuned recipe at
+    ``driver_path``'s cuts: stage 1 takes ``DRIVER_STEPS`` train and 1 val step
+    (the VAE rematerialised in the backward), ``pack_latents`` encodes every
+    case, stage 2 takes 1 train step (9 train latents) and no val step.
+    Returns the stage-1 and stage-2 records."""
+    vae_stage, ldm_stage = stages[f"{cfg.family}/{cfg.name}/vae"], stages[
+        f"{cfg.family}/{cfg.name}/ldm"]
+    remat = GN_VAE_FORWARD if cfg.vae.remat else 0
+    expect_stage(f"{tag} stage 1", vae_stage, (DRIVER_STEPS, 1),
+                 gn_calls(GN_VAE_FORWARD + remat), gn_calls(GN_VAE_FORWARD))
+    packed_counts = stages["pack_latents"]["launches"]
+    if (stages["pack_latents"]["volumes"] != DRIVER_CASES
+            or packed_counts != {**dict.fromkeys(packed_counts, 0),
+                                 **gn_calls(DRIVER_CASES * GN_VAE_ENCODE)}):
+        raise AssertionError(f"{tag} pack_latents: {stages['pack_latents']}")
+    flash = {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+    expect_stage(f"{tag} stage 2", ldm_stage, (1, 0),
+                 {**gn_calls(GN_CALLS_PER_UNET + GN_REMAT_LEVEL0_CALLS), **flash},
+                 {**gn_calls(GN_CALLS_PER_UNET), "flash_attn_fwd": 1})
+    return vae_stage, ldm_stage
+
+
 def driver_3d(raw, vol_dir, tmp):
     """``configs/ddpm_3d_ldm_tuned.json`` (read by ``ExperimentConfig.from_json``,
     the model as it is) through ``run_experiment`` from the packed volumes, with
@@ -2167,29 +2245,12 @@ def driver_3d(raw, vol_dir, tmp):
         raise AssertionError(f"the tuned recipe is not the flagship: {model}")
     ckpt = tmp / "ckpt"
     cfg.name = "tuned"
-    cfg.data.root_dir, cfg.data.packed_dir = str(raw), str(vol_dir)
-    cfg.data.latent_batch_size = DRIVER_LATENT_BATCH
-    for t in (cfg.train, cfg.vae_train):
-        t.debug_fast, t.debug_max_steps, t.epochs, t.checkpoint_dir = (
-            True, DRIVER_STEPS, 1, str(ckpt))
+    _apply_overrides(cfg, driver_3d_cuts(raw, vol_dir, ckpt))
     t0 = time.perf_counter()
     (vae_res, ldm_res, scale), stages, logger = run_driver(cfg, tmp, {"vae": 1, "ldm": 0})
     seconds = time.perf_counter() - t0
     run_dir = ckpt / cfg.family / cfg.name
-    vae_stage, ldm_stage = stages[f"{cfg.family}/{cfg.name}/vae"], stages[
-        f"{cfg.family}/{cfg.name}/ldm"]
-    remat = GN_VAE_FORWARD if cfg.vae.remat else 0
-    expect_stage("driver 3D stage 1", vae_stage, (DRIVER_STEPS, 1),
-                 gn_calls(GN_VAE_FORWARD + remat), gn_calls(GN_VAE_FORWARD))
-    packed_counts = stages["pack_latents"]["launches"]
-    if (stages["pack_latents"]["volumes"] != DRIVER_CASES
-            or packed_counts != {**dict.fromkeys(packed_counts, 0),
-                                 **gn_calls(DRIVER_CASES * GN_VAE_ENCODE)}):
-        raise AssertionError(f"driver 3D pack_latents: {stages['pack_latents']}")
-    flash = {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
-    expect_stage("driver 3D stage 2", ldm_stage, (1, 0),
-                 {**gn_calls(GN_CALLS_PER_UNET + GN_REMAT_LEVEL0_CALLS), **flash},
-                 {**gn_calls(GN_CALLS_PER_UNET), "flash_attn_fwd": 1})
+    vae_stage, ldm_stage = expect_driver_3d("driver 3D", stages, cfg)
     if (vae_res.epochs_run, ldm_res.epochs_run) != (1, 1) or not scale > 0:
         raise AssertionError(f"driver 3D: epochs {vae_res.epochs_run}, {ldm_res.epochs_run}, "
                              f"latent scale {scale}")
@@ -2246,6 +2307,18 @@ def driver_3d(raw, vol_dir, tmp):
     return result, counts
 
 
+def expect_driver_2d(tag, rec):
+    """Exact steps and launches of a 2D / 2.5D run at ``driver_path``'s cuts:
+    ``DRIVER_STEPS`` train and 1 val step of 29 launches of each GroupNorm
+    kernel."""
+    expect_stage(tag, rec, (DRIVER_STEPS, 1),
+                 gn_calls(GN_CALLS_PER_UNET2D), gn_calls(GN_CALLS_PER_UNET2D))
+
+
+DRIVER_2D_CUTS = {"data.val_fraction": DRIVER_VAL_FRACTION_2D, "train.debug_fast": True,
+                  "train.debug_max_steps": DRIVER_STEPS, "train.epochs": 1}
+
+
 def driver_2d(raw, packed, tmp):
     """``preset_slice_cond_2d`` and ``preset_ddpm_25d`` at full width (batch 64,
     128²) through ``run_experiment`` from their packed shards: debug_fast with 3
@@ -2257,16 +2330,13 @@ def driver_2d(raw, packed, tmp):
     for preset, packed_dir in ((preset_slice_cond_2d, packed["slices"]),
                                (preset_ddpm_25d, packed["multimodal"])):
         cfg = preset(str(raw), **{
-            "name": "preset", "data.packed_dir": str(packed_dir),
-            "data.val_fraction": DRIVER_VAL_FRACTION_2D, "train.debug_fast": True,
-            "train.debug_max_steps": DRIVER_STEPS, "train.epochs": 1,
+            "name": "preset", "data.packed_dir": str(packed_dir), **DRIVER_2D_CUTS,
             "train.checkpoint_dir": str(tmp / "ckpt")})
         t0 = time.perf_counter()
         res, stages, logger = run_driver(cfg, tmp, {"preset": 1})
         seconds = time.perf_counter() - t0
         rec = stages[f"{cfg.family}/preset"]
-        expect_stage(f"driver {cfg.family}", rec, (DRIVER_STEPS, 1),
-                     gn_calls(GN_CALLS_PER_UNET2D), gn_calls(GN_CALLS_PER_UNET2D))
+        expect_driver_2d(f"driver {cfg.family}", rec)
         if res.epochs_run != 1:
             raise AssertionError(f"driver {cfg.family}: {res.epochs_run} epochs")
         losses = check_losses(f"driver {cfg.family}", logger, ("train_loss", "val_loss"))
@@ -2351,7 +2421,8 @@ def driver_path():
         print("driver_path " + json.dumps(result))
         # the evaluation suite scores the two runs while their directory lives
         counts_eval = eval_path(tmp, runs_2d)
-    return {**counts_3d, **counts_2d, **counts_eval}
+        counts_cli = cli_path(tmp, raw, packed)
+    return {**counts_3d, **counts_2d, **counts_eval, **counts_cli}
 
 
 # ------------------------------------------------------------ the evaluation suite
@@ -2580,10 +2651,9 @@ def inception_forward(trees):
             "bound_by": "operations (float32)"}
 
 
-def segmentation_host_seconds():
-    """``dice_per_label`` and ``hd95_per_label`` on one pair of seeded
-    BraTS-shaped 240×240×155 label maps (nested blobs of labels 2, 1, 4;
-    the prediction shifted), host seconds each."""
+def brats_label_maps():
+    """A pair of seeded BraTS-shaped 240×240×155 label maps: nested blobs of
+    labels 2, 1, 4, the second (the prediction) shifted."""
     rng = np.random.default_rng(SEED + 46)
     grids = np.ogrid[tuple(slice(0, n) for n in BRATS_SHAPE)]
     maps = []
@@ -2593,6 +2663,13 @@ def segmentation_host_seconds():
             c = [n / 2 + shift + rng.uniform(-4, 4) for n in BRATS_SHAPE]
             lab[sum((g - ci) ** 2 for g, ci in zip(grids, c)) <= radius ** 2] = label
         maps.append(lab)
+    return maps
+
+
+def segmentation_host_seconds():
+    """``dice_per_label`` and ``hd95_per_label`` on ``brats_label_maps``,
+    host seconds each."""
+    maps = brats_label_maps()
     t0 = time.perf_counter()
     dice = dice_per_label(*maps)
     t1 = time.perf_counter()
@@ -2684,6 +2761,479 @@ def eval_path(tmp, runs):
     }
     print("eval_path " + json.dumps(result))
     return counts
+
+
+# ----------------------------------------------------------- the command line
+
+CLI_SEED = 0
+CLI_GRID = 64                      # images of `sample --mode grid` and of a served 2D batch
+CLI_VOLUMES = 2                    # volumes of `sample --mode volume3d` and of a served 3D batch
+CLI_HYBRID_STEPS = 10
+CLI_SERVE_BATCHES = 2
+TWIN_SOURCES = {"test_torch_parity.py": ("TorchSinPosEmb", "TorchResBlock", "TorchDown",
+                                         "TorchUp", "TorchRefUNet"),
+                "test_torch_parity_3d.py": ("TRes3D", "TAttn3D", "TSinEmb", "TUNet3D",
+                                            "TEnc3D", "TDec3D", "TVAE3D")}
+
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+class CliRun:
+    """``mrijax_torch.cli.main`` in this process, one call at a time: the
+    launch counts set to 0 just before a call and read just after, its
+    seconds and peak memory, and what it printed (echoed)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __call__(self, name, *argv):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        text = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, text)):
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": all_launch_counts()}
+        if rc != 0:
+            raise AssertionError(f"cli {name}: exit code {rc}")
+        if name in self.calls:
+            raise AssertionError(f"cli {name}: called twice")
+        self.calls[name] = rec
+        return rec, text.getvalue()
+
+
+class Captured:
+    """Wraps, for the time of a ``with`` block, ``mrijax_torch.generate.<name>``
+    (and the diagnostics' methods) to keep what they return to the CLI."""
+
+    def __init__(self, *names):
+        self.names, self.out, self._saved = names, {}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            self._saved[name] = fn = getattr(generate_module, name)
+            setattr(generate_module, name, self._keep(name, fn))
+        return self
+
+    def _keep(self, name, fn):
+        def wrapped(*args, **kwargs):
+            self.out.setdefault(name, []).append(fn(*args, **kwargs))
+            return self.out[name][-1]
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(generate_module, name, fn)
+
+
+def expect_same(tag, got, want):
+    """Bitwise equality of what the CLI computed and a direct library call."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = ((got.float() - want.float()).abs().max().item()
+                if got.shape == want.shape else "shape")
+        raise AssertionError(f"cli {tag}: differs from the direct library call by {diff}")
+
+
+def expect_launches(tag, counts, gn, flash=0):
+    want = {**dict.fromkeys(counts, 0), **gn_calls(gn), "flash_attn_fwd": flash}
+    if counts != want:
+        raise AssertionError(f"cli {tag}: launch counts {counts}, expected {want}")
+
+
+def npz_model(model, path):
+    """``model`` on the card holding the weights of an ``export`` npz."""
+    weights, meta = load_params_npz(path)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()}, strict=True)
+    return model.cuda().eval(), meta
+
+
+def load_twins():
+    """The torch twins of the reference topology, from the test files that
+    hold the JAX converters against them: their class definitions only,
+    executed over torch (the files' JAX imports are not run)."""
+    ns = {"torch": torch, "tnn": torch.nn, "F": F, "math": math, "np": np}
+    for name, classes in TWIN_SOURCES.items():
+        path = REPLICAS.parent / name
+        body = [n for n in ast.parse(path.read_text()).body
+                if isinstance(n, ast.ClassDef) and n.name in classes]
+        exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"), ns)
+    return ns
+
+
+def serve_seconds(text):
+    """First-batch and steady-state seconds from ``serve``'s last line."""
+    first = float(re.search(r"([0-9.]+)s first batch", text).group(1))
+    steady = float(re.search(r"([0-9.]+)s/batch steady-state", text).group(1))
+    return first, steady
+
+
+def energy_metrics(run_name, family):
+    path = Path("runs") / family / run_name / "metrics.jsonl"
+    return {r["key"]: r["value"] for r in map(json.loads, path.read_text().splitlines())
+            if r["key"].startswith("energy_")}
+
+
+def cli_train(run, tag, argv, tmp, family, power_limit):
+    """``train`` under a ``DriverProbe``; ``config.json``, the energy metrics
+    (NVML: power in (0, limit]) and ``analyze_run`` of the metrics."""
+    with DriverProbe({}) as probe:
+        rec, _ = run(tag, "train", *argv)
+    # the probe sets the counts to 0 at each stage's start: the call's are their sum
+    rec["launches"] = {k: sum(st["launches"][k] for st in probe.stages.values())
+                       for k in rec["launches"]}
+    run_dir = tmp / "cli_ckpt" / family / "cli"
+    cfg = ExperimentConfig.from_json(run_dir / "config.json")
+    energy = energy_metrics("cli", family)
+    if not (0 < energy["energy_avg_power_w"] <= power_limit and energy["energy_energy_joules"] > 0
+            and 0 < energy["energy_device_busy_s"] <= energy["energy_runtime_s"]):
+        raise AssertionError(f"cli {tag}: energy {energy}")
+    report = analyze.analyze_run(Path("runs") / family / "cli")
+    run(f"info_{family}", "info", "--run-dir", run_dir)
+    rec.update(stages={name: {k: v for k, v in st.items() if not k.endswith("_step_seconds")}
+                       for name, st in probe.stages.items()},
+               energy=energy, analyze={k: v for k, v in report.items() if isinstance(v, dict)})
+    return cfg, run_dir
+
+
+def cli_path(tmp, raw, packed):
+    """Every subcommand of ``python -m mrijax_torch.cli`` at full width, in
+    this process (``cli.main``), inside ``driver_path``'s temporary tree:
+
+    ``doctor``; ``split --dry-run`` and ``split``; ``preprocess`` of the three
+    families (bitwise the shards ``driver_path`` packed); ``train`` of
+    ``preset_slice_cond_2d``, ``preset_ddpm_25d`` (batch 64) and
+    ``configs/ddpm_3d_ldm_tuned.json`` (both stages, ``pack_latents``) at
+    ``driver_path``'s cuts, each stage's steps and launches exact, the energy
+    metrics from NVML, ``info`` and ``analyze_run``; ``export`` of each run;
+    ``sample`` in every mode, bitwise a direct call of the library with the
+    documented generator on the exported weights, launches exact;
+    ``export-aot`` and ``serve`` (2D: 64 images, 3D: 2 volumes, 20 DDIM
+    steps, 2 batches): batch 0 bitwise ``sample``'s, batch 1 bitwise the
+    library's, launches twice the eager call's, no weight in the file;
+    ``eval`` and ``eval-multi`` with the replica weight files of
+    ``eval_path`` (its report keys); ``eval-seg``, ``convert-features``
+    (bitwise ``eval_path``'s files) and ``import-torch`` of the torch twins'
+    checkpoints at the presets' widths, each run sampled. Prints the
+    ``cli_path`` line; returns each call's launch counts."""
+    t_phase = time.perf_counter()
+    run, cwd = CliRun(), os.getcwd()
+    os.chdir(tmp)   # the metrics logger writes runs/ under the working directory
+    try:
+        result = _cli_path(run, tmp, raw, packed)
+    finally:
+        os.chdir(cwd)
+    result.update(calls=run.calls, phase_seconds=time.perf_counter() - t_phase)
+    print("cli_path " + json.dumps(result))
+    return {f"cli_{name}": rec["launches"] for name, rec in run.calls.items()
+            if any(rec["launches"].values())}
+
+
+def _cli_path(run, tmp, raw, packed):
+    power_limit = NvmlPowerSensor(torch.cuda.current_device()).power_limit_w()
+    out, checks = tmp / "cli_out", {}
+    _, text = run("doctor", "doctor")
+    if "kernel library groupnorm_silu: built" not in text:
+        raise AssertionError("cli doctor: the kernel libraries are not reported as built")
+
+    # split and preprocess against driver_path's
+    for dry in (True, False):
+        _, text = run(f"split{'_dry_run' if dry else ''}", "split", "--src", raw,
+                      "--out-root", tmp / "cli_split", "--mode", "symlink",
+                      *(["--dry-run"] if dry else []))
+        if text.splitlines()[-1] != "{'train': 8, 'val': 1, 'test': 1}":
+            raise AssertionError(f"cli split: {text.splitlines()[-1]}")
+    if sorted(p.name for p in (tmp / "cli_split" / "train").iterdir()) != sorted(
+            p.name for p in (tmp / "split" / "train").iterdir()):
+        raise AssertionError("cli split: another train split than driver_path's")
+    for family, key in (("2d", "slices"), ("25d", "multimodal"), ("3d", "volumes")):
+        dst = tmp / f"cli_packed_{family}"
+        run(f"preprocess_{family}", "preprocess", "--root-dir", raw, "--output-dir", dst,
+            "--family", family, "--image-size", IMAGE_SIZE)
+        index = json.loads((dst / "index.json").read_text())
+        if index != json.loads((packed[key] / "index.json").read_text()):
+            raise AssertionError(f"cli preprocess {family}: another index than driver_path's")
+        for entry in index["files"]:
+            with np.load(dst / entry["path"]) as got, np.load(packed[key] / entry["path"]) as want:
+                if got.files != want.files or not all(np.array_equal(got[k], want[k])
+                                                       for k in want.files):
+                    raise AssertionError(f"cli preprocess {family}: {entry['path']} differs")
+    checks["preprocess"] = "bitwise driver_path's shards, all three families"
+
+    # train, export
+    ckpt = tmp / "cli_ckpt"
+    cuts = [f"{k}={json.dumps(v)}" for k, v in DRIVER_2D_CUTS.items()]
+    runs = {}
+    for preset, key in (("slice_cond_2d", "slices"), ("ddpm_25d", "multimodal")):
+        cfg, run_dir = cli_train(run, f"train_{preset}", [
+            "--preset", preset, "--root-dir", raw, "--name", "cli", "--set",
+            f"data.packed_dir={packed[key]}", f"train.checkpoint_dir={ckpt}", *cuts],
+            tmp, preset, power_limit)
+        expect_driver_2d(f"cli train {preset}", run.calls[f"train_{preset}"]["stages"][
+            f"{preset}/cli"])
+        runs[preset] = (cfg, run_dir)
+    cfg, run_dir = cli_train(run, "train_ddpm_3d_ldm", [
+        "--config", TUNED_CONFIG, "--name", "cli", "--set",
+        *(f"{k}={json.dumps(v)}" for k, v in driver_3d_cuts(raw, packed["volumes"],
+                                                              ckpt).items())],
+        tmp, "ddpm_3d_ldm", power_limit)
+    expect_driver_3d("cli train 3D", run.calls["train_ddpm_3d_ldm"]["stages"], cfg)
+    runs["ddpm_3d_ldm"] = (cfg, run_dir)
+    npz = {}
+    for family, (cfg, run_dir) in runs.items():
+        npz[family] = out / f"{family}.npz"
+        run(f"export_{family}", "export", "--run-dir", run_dir, "--out", npz[family])
+
+    # sample in every mode against the library on the exported weights
+    gen = lambda b=0: eval_harness.call_generator(CLI_SEED, b, device="cuda")  # noqa: E731
+    cfg2, dir2 = runs["slice_cond_2d"]
+    model2, _ = npz_model(build_unet2d(cfg2.unet), npz["slice_cond_2d"])
+    diff2 = build_diffusion(cfg2.diffusion)
+    grid_kw = dict(num_samples=CLI_GRID, image_size=cfg2.data.image_size,
+                   ddim_steps=DDIM_STEPS_2D)
+    samples, mode_seconds = {}, {}
+    for tag, argv, fn, kw, forwards in (
+            ("grid", ["--num-samples", CLI_GRID, "--ddim-steps", DDIM_STEPS_2D], "sample_2d",
+             grid_kw, DDIM_STEPS_2D),
+            ("grid_guided", ["--num-samples", CLI_GRID, "--ddim-steps", DDIM_STEPS_2D,
+                             "--guidance-scale", GUIDANCE], "sample_2d",
+             {**grid_kw, "guidance_scale": GUIDANCE}, DDIM_STEPS_2D),
+            ("sweep", ["--mode", "sweep", "--num-slices", SWEEP_SLICES, "--ddim-steps",
+                       SWEEP_STEPS, "--sampler", "dpm"], "sample_pseudo3d_sweep",
+             dict(num_slices=SWEEP_SLICES, image_size=cfg2.data.image_size, ddim_steps=SWEEP_STEPS,
+                  sampler="dpm"), SWEEP_STEPS)):
+        with Captured(fn) as cap:
+            rec, _ = run(f"sample_{tag}", "sample", "--run-dir", dir2, "--seed", CLI_SEED,
+                         "--out-dir", out / tag, *argv)
+        expect_launches(f"sample {tag}", rec["launches"], forwards * GN_CALLS_PER_UNET2D)
+        samples[tag] = cap.out[fn][0]
+        expect_same(f"sample {tag}", samples[tag], getattr(generate_module, fn)(
+            model2, diff2, generator=gen(), **kw))
+    cfg25, dir25 = runs["ddpm_25d"]
+    model25, _ = npz_model(build_unet2d(cfg25.unet), npz["ddpm_25d"])
+    diff25 = build_diffusion(cfg25.diffusion)
+    ds25 = MultiModalSliceDataset25D(raw, cfg25.data.image_size, cfg25.data.slice_radius)
+    subject = len(generate_module._subject_slices(ds25, 0))
+    for tag, steps, fn in (("pseudo3d-real", DDIM_STEPS_2D, "generate_pseudo3d_real_context"),
+                           ("pseudo3d-hybrid", CLI_HYBRID_STEPS, "generate_pseudo3d_hybrid")):
+        with Captured(fn) as cap:
+            rec, _ = run(f"sample_{tag}", "sample", "--run-dir", dir25, "--mode", tag,
+                         "--ddim-steps", steps, "--seed", CLI_SEED, "--out-dir", out / tag)
+        forwards = steps * (1 if tag == "pseudo3d-real" else subject)
+        expect_launches(f"sample {tag}", rec["launches"], forwards * GN_CALLS_PER_UNET2D)
+        rec["unet2d_forwards"] = forwards
+        expect_same(f"sample {tag}", cap.out[fn][0], getattr(generate_module, fn)(
+            model25, diff25, ds25, 0, generator=gen(), ddim_steps=steps))
+    cfg3, dir3 = runs["ddpm_3d_ldm"]
+    unet3, meta3 = npz_model(build_unet3d(cfg3.unet), npz["ddpm_3d_ldm"])
+    vae3, _ = npz_model(build_vae3d(cfg3.vae), npz["ddpm_3d_ldm"].with_suffix(".vae.npz"))
+    diff3, scale = build_diffusion(cfg3.diffusion), meta3["latent_scale"]
+    with Captured("generate_3d_volumes") as cap:
+        rec, _ = run("sample_volume3d", "sample", "--run-dir", dir3, "--mode", "volume3d",
+                     "--num-samples", CLI_VOLUMES, "--ddim-steps", DDIM_STEPS,
+                     "--seed", CLI_SEED, "--out-dir", out / "volume3d")
+    # latent_shape_for encodes one dummy patch: one encoder pass more
+    expect_launches("sample volume3d", rec["launches"],
+                    DDIM_STEPS * GN_CALLS_PER_UNET + GN_CALLS_PER_DECODE + GN_VAE_ENCODE,
+                    DDIM_STEPS)
+    samples["volume3d"] = cap.out["generate_3d_volumes"][0]
+    expect_same("sample volume3d", samples["volume3d"], generate_3d_volumes(
+        unet3, vae3, diff3, num_volumes=CLI_VOLUMES, latent_spatial=LATENT_SPATIAL,
+        latent_channels=LATENT_CHANNELS, latent_scale=scale, generator=gen(),
+        ddim_steps=DDIM_STEPS))
+    rec, text = run("sample_diagnostics", "sample", "--run-dir", dir3, "--mode", "diagnostics",
+                    "--seed", CLI_SEED, "--out-dir", out / "diagnostics")
+    report = json.loads((out / "diagnostics" / "diagnostics.json").read_text())
+    # the probes' defaults: a stride-1 DDIM from each noising t, then num_ts ε probes
+    ts = [min(t, cfg3.diffusion.timesteps - 1) for t in inspect.signature(
+        Vae3dDiagnostics.noising_roundtrip).parameters["ts"].default]
+    forwards = sum(ts) + inspect.signature(
+        Vae3dDiagnostics.eps_mse_by_t).parameters["num_ts"].default
+    expect_launches("sample diagnostics", rec["launches"],
+                    forwards * GN_CALLS_PER_UNET + (1 + len(ts)) * GN_CALLS_PER_DECODE
+                    + 4 * GN_VAE_ENCODE, forwards)
+    rec["unet3d_forwards"] = forwards
+    ds3 = VolumeDataset3D(raw, cfg3.data.patch_size, random_crop=False)
+    real = torch.from_numpy(np.stack([ds3[i]["volume"] for i in range(2)])).cuda()
+    diag = Vae3dDiagnostics(unet3, vae3, diff3, latent_scale=scale)
+    g = gen()
+    want = json.loads(json.dumps({
+        "recon_l1": diag.reconstruction(real)[1], "latent_stats": diag.latent_stats(real),
+        "noising_roundtrip_l1": {str(k): v for k, v in diag.noising_roundtrip(real, generator=g).items()},
+        "eps_mse_by_t": {str(k): v for k, v in diag.eps_mse_by_t(real, generator=g).items()}}))
+    if report != want:
+        raise AssertionError(f"cli sample diagnostics: {report} against the library's {want}")
+    del real, diag, ds3
+    checks["sample"] = "bitwise the library on the exported weights, every mode"
+
+    # export-aot and serve
+    serving = {}
+    for family, n, steps, sample_tag in (("slice_cond_2d", CLI_GRID, DDIM_STEPS_2D, "grid"),
+                                         ("ddpm_3d_ldm", CLI_VOLUMES, DDIM_STEPS, "volume3d")):
+        program = out / f"{family}.pt2"
+        rec, text = run(f"export_aot_{family}", "export-aot", "--run-dir", runs[family][1],
+                        "--out", program, "--num-samples", n, "--ddim-steps", steps)
+        export_seconds = float(re.search(r"exported in ([0-9.]+)s", text).group(1))
+        size, largest = aot.file_bytes(program)
+        weight_bytes = os.path.getsize(npz[family]) + (
+            os.path.getsize(npz[family].with_suffix(".vae.npz")) if family == "ddpm_3d_ldm" else 0)
+        if largest > 1024:
+            raise AssertionError(f"cli export-aot {family}: {largest} bytes of tensor data in "
+                                 "the file")
+        served = out / f"served_{family}"
+        rec_s, text = run(f"serve_{family}", "serve", "--program", program, "--weights",
+                          npz[family], "--out", served, "--batches", CLI_SERVE_BATCHES,
+                          "--seed", CLI_SEED)
+        eager = run.calls[f"sample_{sample_tag}"]["launches"]
+        if family == "ddpm_3d_ldm":   # sample's latent_shape_for adds one encode
+            eager = {**eager, **gn_calls(eager["gn_silu_stats"] - GN_VAE_ENCODE)}
+            batches = [torch.from_numpy(np.stack([nifti.load(served / f"b{b:03d}_v{j}.nii.gz")
+                                                  for j in range(n)]))
+                       for b in range(CLI_SERVE_BATCHES)]
+            direct = lambda g: generate_3d_volumes(  # noqa: E731
+                unet3, vae3, diff3, num_volumes=n, latent_spatial=LATENT_SPATIAL,
+                latent_channels=LATENT_CHANNELS, latent_scale=scale, generator=g,
+                ddim_steps=steps)
+        else:
+            batches = [torch.from_numpy(np.load(served / f"b{b:03d}.npz")["samples"])
+                       for b in range(CLI_SERVE_BATCHES)]
+            direct = lambda g: sample_2d(model2, diff2, generator=g, **grid_kw)  # noqa: E731
+        if rec_s["launches"] != {k: CLI_SERVE_BATCHES * v for k, v in eager.items()}:
+            raise AssertionError(f"cli serve {family}: launches {rec_s['launches']} against "
+                                 f"{CLI_SERVE_BATCHES} × {eager}")
+        expect_same(f"serve {family} batch 0", batches[0], samples[sample_tag].cpu())
+        expect_same(f"serve {family} batch 1", batches[1], direct(gen(1)).cpu())
+        first, steady = serve_seconds(text)
+        serving[family] = {
+            "export_seconds": export_seconds,
+            "pt2_bytes": size, "largest_tensor_bytes_in_file": largest,
+            "weights_npz_bytes": weight_bytes, "batch": n, "ddim_steps": steps,
+            "serve_first_batch_seconds": first, "serve_steady_seconds_per_batch": steady,
+            "sample_seconds": run.calls[f"sample_{sample_tag}"]["seconds"]}
+    checks["serve"] = "batch 0 bitwise sample's, batch 1 bitwise the library's"
+    del model2, model25, unet3, vae3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # eval and eval-multi with eval_path's weight files
+    weights = {k: tmp / "eval_weights" / f"{k}.npz" for k in ("inception", "resnet18", "lpips")}
+    weight_args = ["--inception-weights", weights["inception"], "--resnet18-weights",
+                   weights["resnet18"], "--lpips-weights", weights["lpips"]]
+    keys = set(json.loads((tmp / "eval" / "slice_cond_2d.metrics.json").read_text()))
+    rec, _ = run("eval", "eval", "--run-dir", dir2, "--num-samples", EVAL_SAMPLES,
+                 "--batch-size", EVAL_BATCH, "--ddim-steps", EVAL_DDIM_STEPS, "--pr",
+                 "--split", "all", "--diversity-pairs", EVAL_PAIRS, "--out",
+                 out / "eval.json", *weight_args)
+    report = json.loads((out / "eval.json").read_text())
+    check_eval_report("cli eval", report)
+    if set(report) != keys | {"sampler", "sampler_is_reference_protocol"}:
+        raise AssertionError(f"cli eval: keys {sorted(set(report) ^ keys)} differ from eval_path's")
+    expect_gn("cli eval", rec["launches"], EVAL_CALLS * EVAL_DDIM_STEPS)
+    (out / "runs.json").write_text(json.dumps([
+        {"run_dir": str(d), "name": f, "num_samples": EVAL_SAMPLES, "batch_size": EVAL_BATCH,
+         "ddim_steps": EVAL_DDIM_STEPS, "diversity_pairs": EVAL_PAIRS, "compute_pr": True,
+         "split": "all", **({"eval_channel": EVAL_CHANNEL_25D} if f == "ddpm_25d" else {})}
+        for f, (_, d) in runs.items() if f != "ddpm_3d_ldm"]))
+    rec, _ = run("eval_multi", "eval-multi", "--config", out / "runs.json", "--out-dir",
+                 out / "eval_multi", *weight_args)
+    for family in ("slice_cond_2d", "ddpm_25d"):
+        report = json.loads((out / "eval_multi" / f"{family}.metrics.json").read_text())
+        check_eval_report(f"cli eval-multi {family}", report)
+        if set(report) != keys:
+            raise AssertionError(f"cli eval-multi {family}: keys differ from eval_path's")
+    expect_gn("cli eval-multi", rec["launches"], 2 * EVAL_CALLS * EVAL_DDIM_STEPS)
+    summary = json.loads((out / "eval_multi" / "summary.json").read_text())
+    if set(summary) != {"slice_cond_2d", "ddpm_25d"} or any("error" in v for v in summary.values()):
+        raise AssertionError(f"cli eval-multi: summary {summary}")
+
+    # eval-seg, convert-features, import-torch
+    pred, target = brats_label_maps()[::-1]
+    for name, lab in (("pred", pred), ("target", target)):
+        nifti.save(out / f"{name}.nii.gz", lab)
+    run("eval_seg", "eval-seg", "--pred", out / "pred.nii.gz", "--target", out / "target.nii.gz",
+        "--out", out / "seg.json")
+    seg = json.loads((out / "seg.json").read_text())
+    want = dice_per_label(pred.astype(np.int32), target.astype(np.int32))
+    if seg["mean_dice"] != {str(k): float(v) for k, v in want.items()}:
+        raise AssertionError(f"cli eval-seg: {seg['mean_dice']} against {want}")
+    replicas = load_replicas()
+    for i, (kind, make, arch) in enumerate((
+            ("inception", replicas.InceptionV3Trunk, "inception_v3"),
+            ("resnet18", replicas.ResNet18Trunk, "resnet18"),
+            ("lpips", replicas.LPIPSAlexReplica, "lpips_alex"))):
+        pth = out / f"{kind}.pth"
+        torch.save(replicas.randomize_(make(), seed=SEED + 40 + i).state_dict(), pth)
+        run(f"convert_features_{arch}", "convert-features", "--checkpoint", pth, "--arch", arch,
+            "--out", out / f"{kind}.npz")
+        got, _ = load_params_npz(out / f"{kind}.npz")
+        want, _ = load_params_npz(weights[kind])
+        flat = lambda t, p="": [x for k in sorted(t) for x in (  # noqa: E731
+            flat(t[k], f"{p}{k}/") if isinstance(t[k], dict) else [(p + k, t[k])])]
+        if [k for k, _ in flat(got)] != [k for k, _ in flat(want)] or not all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for (_, a), (_, b) in zip(flat(got), flat(want))):
+            raise AssertionError(f"cli convert-features {arch}: not eval_path's file")
+    twins = load_twins()
+    c2, c3 = preset_slice_cond_2d(), preset_ddpm_3d_ldm()
+    torch.manual_seed(SEED + 50)
+    twin2 = twins["TorchRefUNet"](img_channels=1, base=c2.unet.base_channels,
+                                  mults=c2.unet.channel_mults, tdim=c2.unet.time_emb_dim)
+    torch.save({**{f"model.{k}": v for k, v in twin2.state_dict().items()},
+                "betas": torch.linspace(1e-4, 0.02, c2.diffusion.timesteps)}, out / "ref2d.pt")
+    twin_vae = twins["TVAE3D"](cin=c3.vae.in_channels, base=c3.vae.base_channels,
+                               num_down=c3.vae.num_down, latent=c3.vae.latent_channels)
+    twin_unet = twins["TUNet3D"](cin=c3.unet.in_channels, base=c3.unet.base_channels,
+                                 mults=c3.unet.channel_mults, tdim=c3.unet.time_emb_dim,
+                                 heads=c3.unet.num_heads)
+    torch.save(twin_vae.state_dict(), out / "vae3d_final.pt")
+    torch.save({"state_dict": twin_unet.state_dict()}, out / "3d_ldm_diffusion_best.pt")
+    del twin2, twin_vae, twin_unet
+    run("import_torch_2d", "import-torch", "--checkpoint", out / "ref2d.pt",
+        "--out", out / "imported_2d")
+    rec, _ = run("sample_imported_2d", "sample", "--run-dir", out / "imported_2d",
+                 "--num-samples", CLI_GRID, "--ddim-steps", DDIM_STEPS_2D,
+                 "--out-dir", out / "imported_2d_samples")
+    expect_launches("sample imported 2D", rec["launches"], DDIM_STEPS_2D * GN_CALLS_PER_UNET2D)
+    run("import_torch_3d", "import-torch", "--preset", "ddpm_3d_ldm", "--checkpoint",
+        out / "3d_ldm_diffusion_best.pt", "--vae-checkpoint", out / "vae3d_final.pt",
+        "--latent-scale", "1.5", "--out", out / "imported_3d")
+    rec, _ = run("sample_imported_3d", "sample", "--run-dir", out / "imported_3d", "--mode",
+                 "volume3d", "--num-samples", CLI_VOLUMES, "--ddim-steps", DDIM_STEPS,
+                 "--out-dir", out / "imported_3d_samples")
+    expect_launches("sample imported 3D", rec["launches"],
+                    DDIM_STEPS * GN_CALLS_PER_UNET + GN_CALLS_PER_DECODE + GN_VAE_ENCODE,
+                    DDIM_STEPS)
+    for tag in ("imported_2d_samples/grid.png", "imported_3d_samples/volume0.nii.gz"):
+        if not (out / tag).exists():
+            raise AssertionError(f"cli sample of an imported run wrote no {tag}")
+    checks["imports"] = "the torch twins at the presets' widths, sampled"
+    return {"checks": checks, "serving": serving, "power_limit_w": power_limit,
+            "hybrid_slices": subject,
+            "cuts": ["train: driver_path's (3 steps, 1 epoch a stage, latent batch 8, "
+                     "val_fraction 0.25 for 2D / 2.5D)",
+                     f"sample: {DDIM_STEPS_2D} DDIM steps (2D grid), {SWEEP_STEPS} DPM (sweep), "
+                     f"{CLI_HYBRID_STEPS} DDIM (hybrid), {DDIM_STEPS} DDIM (3D) of T",
+                     f"eval: {EVAL_SAMPLES} samples, DDIM-{EVAL_DDIM_STEPS}, split all, "
+                     "random replica weights",
+                     "import-torch: random torch twins of the reference topology"]}
 
 
 CUDA_CORE_BF16_FLOPS = 2 * PEAK_FLOPS["float32"]   # paired bf16 FMAs: the most without tensor cores

@@ -3,7 +3,8 @@
 The JAX package ``mrijax`` is the reference and stays as it is; this package
 imports ``torch`` only, never ``jax``, ``flax`` or ``mrijax``. Sub-packages
 and functions keep the names of their counterparts (``ops``, ``kernels``,
-``models``, ``diffusion``, ``train``, ``data``, ``evals``, ``generate``), and public functions keep
+``models``, ``diffusion``, ``train``, ``data``, ``evals``, ``generate``, ``aot``,
+``cli``), and public functions keep
 the channels-last layouts of the JAX package.
 
 Ported so far: the 3D latent-diffusion family — generation (``UNet3D``
@@ -23,7 +24,12 @@ train every family from BraTS files on disk; and the evaluation suite
 (``evals``: FID/KID, SSIM/MS-SSIM, improved precision/recall, memorization,
 Dice/HD95, the Inception-v3 / ResNet-18 / AlexNet-LPIPS backbones with their
 converters in ``io``, ``evaluate_conditional_2d`` and ``evaluate_runs``),
-which scores the 2D and 2.5D runs. Entry points take ``device=``
+which scores the 2D and 2.5D runs; and the command line (``cli``:
+``python -m mrijax_torch.cli``, the JAX package's 14 subcommands with
+``--device`` in place of ``--platform``), ``torch.export`` serving (``aot``:
+per-step programs with the weights as inputs, the kernels as
+``torch.library`` custom ops) and the rest of ``obs`` (energy through NVML,
+``torch.profiler`` traces, run analysis). Entry points take ``device=``
 and default to ``"cuda"``; the kernels are compiled from
 ``mrijax_torch/csrc`` at their first CUDA call, and the NIfTI reader from
 ``csrc/mrijax_io.cpp`` at its first use, so importing the package needs

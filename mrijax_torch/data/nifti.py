@@ -15,7 +15,17 @@ the NIfTI-1 container:
 ``mrijax_torch.data.cnifti`` (ctypes binding over the repository's C++
 reader, built at first use) does gunzip+cast for the training ingest path;
 this module is its plain version and the writer.
+
+One departure from the copy: ``save`` gzips at level 1 (nibabel's default),
+not Python's 9. The payload is the same bytes; on generated volumes (bf16
+model outputs cast to float32: long runs of repeated bytes) level 9 took
+about 70 s a 128×160×160×4 volume on the host of an H100 machine
+(``chip_smoke.py::cli_path``, ``sample --mode volume3d``), level 1 takes
+seconds, for files ~20 % larger.
 """
+
+# gzip level of written .nii.gz files: nibabel's default
+GZIP_LEVEL = 1
 
 import gzip
 import struct
@@ -170,6 +180,6 @@ def save(path, vol: np.ndarray, affine: Optional[np.ndarray] = None) -> None:
 
     payload = bytes(hdr) + b"\x00" * 4 + vol.tobytes(order="F")
     if str(path).endswith(".gz"):
-        path.write_bytes(gzip.compress(payload))
+        path.write_bytes(gzip.compress(payload, compresslevel=GZIP_LEVEL))
     else:
         path.write_bytes(payload)

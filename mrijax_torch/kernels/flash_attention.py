@@ -29,6 +29,13 @@ For a CUDA tensor a wrapper launches its kernel or raises. The plain PyTorch
 versions ``flash_attention_reference`` and
 ``flash_attention_backward_reference`` are what a CPU tensor gets, and what
 the tests and ``chip_smoke.py`` hold the kernels against.
+
+The forward kernel is also the ``torch.library`` custom op
+``torch.ops.mrijax_torch.flash_attn_fwd`` (CUDA: the launch; CPU: the plain
+version; a fake implementation for the shapes): an exported program
+(``mrijax_torch.aot``) calls it, since ``torch.export`` cannot trace a
+``ctypes`` call. ``flash_attention`` takes that route only while
+``torch.compiler.is_exporting()``; the backward kernels are not ops.
 """
 
 import ctypes
@@ -446,10 +453,31 @@ class _FlashAttention(torch.autograd.Function):
         return flash_attention_backward(*ctx.saved_tensors, dout)
 
 
+@torch.library.custom_op("mrijax_torch::flash_attn_fwd", mutates_args=(), device_types="cpu")
+def flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_forward`` as a custom op: ``(out, lse)`` from the
+    plain version on the CPU, from the kernel on CUDA."""
+    return flash_attention_forward(q, k, v)
+
+
+@flash_attn_fwd_op.register_kernel("cuda")
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_forward(q, k, v)
+
+
+@flash_attn_fwd_op.register_fake
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, n, h, d = q.shape
+    return (q.new_empty((b, n, h, d)), q.new_empty((b * h, n), dtype=torch.float32))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Memory-efficient attention, differentiable. q, k, v: (B, N, H, Dh) →
     (B, N, H, Dh). A call that records no gradient (sampling) goes straight to
-    the forward kernel."""
+    the forward kernel; inside ``torch.export`` it is the custom op."""
+    if torch.compiler.is_exporting():
+        return flash_attn_fwd_op(q, k, v)[0]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v)
     return flash_attention_forward(q, k, v)[0]

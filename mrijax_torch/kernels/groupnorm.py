@@ -17,6 +17,16 @@ differentiates the plain composition ``mrijax_torch.ops.norms.group_norm_silu``
 on the saved input — the TPU version's backward is no Pallas kernel either
 (its ``_bwd`` takes the vjp of the same composition), so plain PyTorch is its
 port.
+
+Both kernels are also the ``torch.library`` custom ops
+``torch.ops.mrijax_torch.gn_silu_stats`` and ``gn_silu_apply`` (CUDA
+implementation: the launch; CPU implementation: the plain version; a fake
+implementation gives ``torch.export`` the output shapes), which is how they
+appear in an exported program (``mrijax_torch.aot``): a ``ctypes`` call cannot
+be traced. The fused front takes the op route only while
+``torch.compiler.is_exporting()``; eager calls go straight to the launch,
+because a Python custom op adds host time to every call (``chip_smoke.py``
+prints both host times per pair).
 """
 
 import ctypes
@@ -349,8 +359,53 @@ def gn_silu_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
         return _launch_apply(x, stats, scale, bias, _apply_plan_for(x, groups))
 
 
+# ------------------------------------------------------------- custom ops
+
+
+@torch.library.custom_op("mrijax_torch::gn_silu_stats", mutates_args=(), device_types="cpu")
+def gn_silu_stats_op(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    """``gn_silu_stats`` as a custom op: the plain version on the CPU, the
+    kernel on CUDA (its workspace stays outside the op's arguments)."""
+    return gn_silu_stats_reference(x, groups, eps)
+
+
+@gn_silu_stats_op.register_kernel("cuda")
+def _(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    return gn_silu_stats(x, groups, eps)
+
+
+@gn_silu_stats_op.register_fake
+def _(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    return x.new_empty((x.shape[0], 2, groups), dtype=torch.float32)
+
+
+@torch.library.custom_op("mrijax_torch::gn_silu_apply", mutates_args=(), device_types="cpu")
+def gn_silu_apply_op(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """``gn_silu_apply`` as a custom op: the plain version on the CPU, the
+    kernel on CUDA."""
+    return gn_silu_apply_reference(x, stats, scale, bias)
+
+
+@gn_silu_apply_op.register_kernel("cuda")
+def _(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+      bias: torch.Tensor) -> torch.Tensor:
+    return gn_silu_apply(x, stats, scale, bias)
+
+
+@gn_silu_apply_op.register_fake
+def _(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+      bias: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    groups: int, eps: float) -> torch.Tensor:
+    if torch.compiler.is_exporting():
+        shape = x.shape
+        x3 = x.reshape(shape[0], -1, shape[-1])
+        stats = gn_silu_stats_op(x3, groups, eps)
+        return gn_silu_apply_op(x3, stats, scale, bias).reshape(shape)
     if not x.is_cuda:
         return group_norm_silu_reference(x, scale, bias, groups, eps)
     shape = x.shape

@@ -286,6 +286,8 @@ def test_every_port_module_imports_without_cuda():
     assert "mrijax_torch.kernels._build" in names
     assert "mrijax_torch.data.cnifti" in names
     assert "mrijax_torch.evals.features" in names
+    for name in ("mrijax_torch.cli", "mrijax_torch.aot", "mrijax_torch.obs.energy"):
+        assert name in names
     # the native NIfTI reader, which the CPU tests use, may have been built
     # already; importing builds nothing more
     built = set((REPO / "mrijax_torch" / "_build").glob("*.so"))
