@@ -114,6 +114,22 @@ What it does, in order:
    ``eval-seg``, ``convert-features`` (bitwise phase 13's files) and
    ``import-torch`` of the torch twins' reference-layout checkpoints at the
    presets' widths, each imported run sampled.
+15. drives ``mrijax_torch.parallel`` on the card in a world of one
+   (``parallel_path``, inside phase 12's temporary tree): ``train`` through
+   the CLI as rank 0 of a job of one (``--coordinator file://…``: steps,
+   launches and rank 0's files) and ``sample --data-parallel`` under
+   torchrun's variables (bitwise the plain ``sample``); then in an NCCL
+   group of one, phase 7's flagship train step through the data-parallel
+   all-reduce, with the state sharded (FSDP) and with the bottleneck
+   attention sequence-parallel, each bitwise the one-device state with its
+   launches; the flat gradient all-reduce against its bound; and
+   ``generate_3d_volumes(mesh=…)`` bitwise the plain call with shard 0's
+   generator.
+
+Phases 2 and 3 also hold the three flash kernels at Nq ≠ Nk (the
+sequence-parallel chunks ``FLASH_CHUNKS``, q of N/d rows against k, v of N
+rows) against their plain versions and, stacked and summed over the chunks,
+against the full kernels, and time them (``flash_chunk_times``).
 
 Phase 3 also prints the host time to issue one GroupNorm+SiLU pair and one
 flash forward through the ``torch.library`` custom ops (the route of the
@@ -128,7 +144,7 @@ exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
 names the card; the line before that is the ``{"kernels": [...]}`` record,
-and before it the ``cli_path`` line.
+and before it the ``parallel_path`` line.
 """
 
 import argparse
@@ -146,6 +162,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -159,7 +176,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mrijax_torch import aot, cli
+from mrijax_torch import aot, cli, parallel
 from mrijax_torch import generate as generate_module
 from mrijax_torch.config import (
     ExperimentConfig,
@@ -232,6 +249,7 @@ from mrijax_torch.obs import MetricsLogger, analyze, install_signal_handlers, re
 from mrijax_torch.obs.energy import NvmlPowerSensor
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.norms import group_norm_silu
+from mrijax_torch.parallel import shard_train_state
 from mrijax_torch.train import (
     Trainer,
     create_train_state,
@@ -255,6 +273,7 @@ SEED = 0
 REPEATS = 15
 SPIN_CYCLES = 2_000_000   # ~1 ms of spinning: longer than the host needs to issue any timed call
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 outside tensor cores
 EXP_PER_S = 132 * 16 * 1.98e9   # special-function units: 16 ex2 a clock on each of 132 SMs at the 1.98 GHz boost clock
 LONG_REPEATS = 5                # timed calls at N = 51 200
@@ -288,10 +307,16 @@ GN_BIG = (3276800, 32)                # compared at B = 1; the others at B = 2 a
 FLASH_MAIN = (NUM_VOLUMES, 800, 4, 128)
 FLASH_OTHER = [(1, 1000, 2, 32), (1, 130, 3, 64), (1, 17, 2, 64)]   # the last: N smaller than a tile
 FLASH_LONG = (1, 51200, 4, 32)   # attention at full latent resolution (attention_levels=(0,))
+# sequence-parallel chunks: q of N/d rows against k, v of N rows, at the chunks a
+# model axis of 2 and of 4 gives the training bottleneck, and of 2 the full latent
+FLASH_CHUNKS = [((8, 400, 4, 128), (8, 800, 4, 128)),
+                ((8, 200, 4, 128), (8, 800, 4, 128)),
+                ((1, 25600, 4, 32), (1, 51200, 4, 32))]
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP_STEPS = 2
 TRAIN_STEPS = 5
+PARALLEL_STEPS = 3   # phase 15's counted steps, after TRAIN_WARMUP_STEPS
 FLASH_TRAIN = (TRAIN_BATCH, 800, 4, 128)
 ONE_ULP = dict(atol=1e-5, rtol=2 ** -7)    # bf16 dk and dv: rounded once
 TWO_ULPS = dict(atol=1e-5, rtol=2 ** -6)   # bf16 dq: rounded twice, around the Dh^-1/2 multiply
@@ -649,6 +674,165 @@ def compare_flash_backward(rng):
           f"attention {independent:.3e}")
     print("flash_dq_bf16_beyond_one_ulp " + json.dumps(beyond_one_ulp))
     return worst
+
+
+def _rows_by_block(fn, n, block):
+    """``fn(rows)`` over blocks of ``block`` query rows, concatenated along N."""
+    return [fn(slice(s, min(s + block, n))) for s in range(0, n, block)]
+
+
+def compare_flash_chunks(rng):
+    """The three flash kernels at Nq ≠ Nk — the chunks of query rows that
+    sequence parallelism gives each rank, against all keys — at
+    ``FLASH_CHUNKS`` in both dtypes.
+
+    Each chunk's forward and backward is held against the plain versions on
+    the same chunk (at N = 51 200 on blocks of query rows) at phases 2–3's
+    bars. Then, as sequence parallelism assembles them: the chunks' outputs
+    and lse stacked along N against the full kernel's (same bars), the
+    chunks' dQ stacked against the full dq (two bf16 ulps) and their dK, dV
+    summed in float32 against the full dk, dv — held to one bf16 ulp of the
+    sum of the chunks' magnitudes, since every chunk's dK is rounded once on
+    its own (float32: 1e-4)."""
+
+    worst = {name: {"float32": 0.0, "bfloat16": 0.0}
+             for name in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+    rows = []
+    for q_shape, kv_shape in FLASH_CHUNKS:
+        nq, nk = q_shape[1], kv_shape[1]
+        block = 4096 if nk > 10000 else None
+        heads = q_shape[2]
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).replace("torch.", "")
+            fwd_tol = dict(atol=1e-4) if dtype == torch.float32 else dict(atol=2e-3, rtol=1e-2)
+            if dtype == torch.float32 and block:
+                fwd_tol = dict(atol=1e-5)
+            bwd_tol = dict(atol=1e-4) if dtype == torch.float32 else ONE_ULP
+            dq_tol = dict(atol=1e-4) if dtype == torch.float32 else TWO_ULPS
+            q, k, v = flash_inputs(rng, kv_shape, dtype)
+            full_out, full_lse = fa.flash_attention_forward(q, k, v)
+            dout = torch.from_numpy(rng.standard_normal(kv_shape, dtype=np.float32)).cuda().to(dtype)
+            full_delta = fa.flash_attention_delta(full_out, dout)
+            full_dk, full_dv = fa.flash_attn_bwd_dkv(q, k, v, dout, full_lse, full_delta)
+            full_dq = fa.flash_attn_bwd_dq(q, k, v, dout, full_lse, full_delta)
+            outs, lses, dqs, dks, dvs = [], [], [], [], []
+            for c0 in range(0, nk, nq):
+                tag = f"flash chunk {key} q{q_shape} of kv{kv_shape} rows {c0}+"
+                qc, gc_ = q[:, c0:c0 + nq], dout[:, c0:c0 + nq]
+                out, lse = fa.flash_attention_forward(qc, k, v)
+                delta = fa.flash_attention_delta(out, gc_)
+                dk, dv = fa.flash_attn_bwd_dkv(qc, k, v, gc_, lse, delta)
+                dq = fa.flash_attn_bwd_dq(qc, k, v, gc_, lse, delta)
+                if block is None:
+                    ref_out, ref_lse = fa.flash_attention_reference(qc, k, v)
+                    e = check_close(f"{tag} out", out, ref_out, **fwd_tol)
+                    check_close(f"{tag} lse", lse, ref_lse, atol=1e-4)
+                else:
+                    e = 0.0
+                    for r in range(0, nq, block):
+                        sl = slice(r, r + block)
+                        ref_out, ref_lse = fa.flash_attention_reference(qc[:, sl], k, v)
+                        e = max(e, check_close(f"{tag} out rows {r}+", out[:, sl], ref_out,
+                                               **fwd_tol))
+                        check_close(f"{tag} lse rows {r}+", lse.view(heads, -1)[:, sl],
+                                    ref_lse, atol=1e-4)
+                    del ref_out, ref_lse
+                worst["flash_attn_fwd"][key] = max(worst["flash_attn_fwd"][key], e)
+                qb = 2048 if block else None
+                ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(qc, k, v, gc_, lse, delta,
+                                                                 q_block=qb)
+                ref_dq = fa.flash_attn_bwd_dq_reference(qc, k, v, gc_, lse, delta, q_block=qb)
+                e = max(check_close(f"{tag} dk", dk, ref_dk, **bwd_tol),
+                        check_close(f"{tag} dv", dv, ref_dv, **bwd_tol))
+                worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
+                e = check_close(f"{tag} dq", dq, ref_dq, **dq_tol)
+                worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
+                del ref_dk, ref_dv, ref_dq
+                outs.append(out)
+                lses.append(lse.view(q_shape[0], heads, -1))
+                dqs.append(dq)
+                dks.append(dk)
+                dvs.append(dv)
+            tag = f"flash chunks {key} {nk // nq} x q{q_shape} of kv{kv_shape}"
+            check_close(f"{tag} stacked out", torch.cat(outs, 1), full_out, **fwd_tol)
+            check_close(f"{tag} stacked lse", torch.cat(lses, 2).reshape(full_lse.shape),
+                        full_lse, atol=1e-4)
+            check_close(f"{tag} stacked dq", torch.cat(dqs, 1), full_dq, **dq_tol)
+            sums = {}
+            for name, parts, want in (("dk", dks, full_dk), ("dv", dvs, full_dv)):
+                got = torch.stack([x.float() for x in parts]).sum(0)
+                scale = torch.stack([x.float().abs() for x in parts]).sum(0)
+                err = (got - want.float()).abs()
+                bar = bwd_tol["atol"] + bwd_tol.get("rtol", 0.0) * scale
+                if not bool((err <= bar).all()):
+                    raise AssertionError(f"{tag} summed {name}: max err {float(err.max()):.3e}")
+                sums[name] = float(err.max())
+            rows.append({"q": list(q_shape), "kv": list(kv_shape), "dtype": key,
+                         "chunks": nk // nq, "summed_dk_dv_max_abs_err": sums})
+            del q, k, v, dout, full_out, full_lse, full_delta, full_dk, full_dv, full_dq
+            del outs, lses, dqs, dks, dvs
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print("flash_chunks_compare " + json.dumps({"worst": worst, "assembled": rows}))
+    return worst
+
+
+def time_flash_chunks(rng):
+    """The three kernels at each Nq ≠ Nk chunk in bf16: kernel, plain (not
+    at N = 51 200), library (``F.scaled_dot_product_attention`` on the chunk;
+    backward: forward + backward less forward, one call for dq, dk, dv) and
+    the bound: operations 4·B·H·Nq·Nk·Dh (forward), 8· (dkv), 6· (dq) over
+    the bf16 tensor-core rate, or bytes (q, out and their stats at Nq rows,
+    k, v at Nk rows; the backward its operands and outputs)."""
+
+    rows = []
+    for q_shape, kv_shape in FLASH_CHUNKS:
+        b, nq, h, d = q_shape
+        nk = kv_shape[1]
+        long = nk > 10000
+        repeats = LONG_REPEATS if long else REPEATS
+        dtype, key = torch.bfloat16, "bfloat16"
+        q, k, v = flash_inputs(rng, kv_shape, dtype)
+        q = q[:, :nq]
+        out, lse = fa.flash_attention_forward(q, k, v)
+        dout = torch.from_numpy(rng.standard_normal(q_shape, dtype=np.float32)).cuda().to(dtype)
+        delta = fa.flash_attention_delta(out, dout)
+        el = q.element_size()
+        qt, kt, vt = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+        dout_t = dout.permute(0, 2, 1, 3)
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(o, (qt, kt, vt), dout_t)
+
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), repeats)
+        row = {"q": list(q_shape), "kv": list(kv_shape), "dtype": key,
+               "library_backward_ms": time_ms(sdpa_fb, repeats) - sdpa_ms}
+        q_bytes, kv_bytes, stat = b * nq * h * d * el, b * nk * h * d * el, 4 * b * h * nq
+        for name, fn, ref, products, nbytes, lib in (
+            ("fwd", lambda: fa.flash_attention_forward(q, k, v),
+             lambda: fa.flash_attention_reference(q, k, v), 2,
+             2 * q_bytes + 2 * kv_bytes + stat, sdpa_ms),
+            ("dkv", lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+             lambda: fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta), 4,
+             2 * q_bytes + 4 * kv_bytes + 2 * stat, None),
+            ("dq", lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta),
+             lambda: fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta), 3,
+             3 * q_bytes + 2 * kv_bytes + 2 * stat, None),
+        ):
+            t_flops = products * 2 * b * h * nq * nk * d / PEAK_FLOPS[key] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row.update({f"{name}_ms": time_ms(fn, repeats),
+                        f"{name}_plain_ms": None if long else time_ms(ref),
+                        f"{name}_bound_ms": max(t_flops, t_bytes),
+                        f"{name}_bound_by": "operations" if t_flops >= t_bytes else "bytes"})
+            if lib is not None:
+                row[f"{name}_library_ms"] = lib
+        rows.append(row)
+        del q, k, v, out, lse, dout, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+    print("flash_chunk_times " + json.dumps(rows))
+    return rows
 
 
 def compare_groupnorm_autograd(rng):
@@ -1172,18 +1356,22 @@ def small_training_check():
           f"{loss_err:.3e}, parameter rel-L2 {rel:.3e}, EMA rel-L2 {rel_ema:.3e} ok")
 
 
-def build_flagship_trainer(remat_levels):
+def build_flagship_trainer(remat_levels, mesh=None, sp_mesh=None):
     """The flagship UNet3D as it is trained: float32 parameters, bf16 compute,
-    seeded weights, Adam lr 1e-4 and an EMA shadow, on the card."""
+    seeded weights, Adam lr 1e-4 and an EMA shadow, on the card. ``mesh``:
+    the step's data-parallel mesh; ``sp_mesh``: the attention's token axis
+    split over its ``model`` axis."""
     unet = seeded_weights(UNet3D(
         in_channels=LATENT_CHANNELS, base_channels=128, channel_mults=(1, 2, 4),
         use_attention=True, num_heads=4, time_emb_dim=256, remat_levels=remat_levels,
         dtype=torch.bfloat16, param_dtype=torch.float32,
+        sp_axis="model" if sp_mesh is not None else None, mesh=sp_mesh,
     ), SEED + 1).train()
     state = create_train_state(unet, 1e-4, ema=True)
     diffusion = GaussianDiffusion(make_schedule(cosine_beta_schedule(T_STEPS)),
                                   loss_type="min_snr").to("cuda")
-    return unet, state, make_cached_latent_train_step(unet, diffusion, ema_decay=0.999)
+    return unet, state, make_cached_latent_train_step(unet, diffusion, ema_decay=0.999,
+                                                      mesh=mesh)
 
 
 def train_latents(seed=SEED + 6):
@@ -2351,7 +2539,7 @@ def driver_2d(raw, packed, tmp):
     return result, counts, runs
 
 
-def driver_path():
+def driver_path(train_seconds):
     """The data pipeline and the experiment drivers at full width from BraTS
     files on disk: the tree (``write_brats_tree``); ``split_subjects`` and
     ``apply_split`` over it; ``pack_volumes`` and, on the card,
@@ -2422,7 +2610,8 @@ def driver_path():
         # the evaluation suite scores the two runs while their directory lives
         counts_eval = eval_path(tmp, runs_2d)
         counts_cli = cli_path(tmp, raw, packed)
-    return {**counts_3d, **counts_2d, **counts_eval, **counts_cli}
+        counts_parallel = parallel_path(tmp, raw, packed, train_seconds)
+    return {**counts_3d, **counts_2d, **counts_eval, **counts_cli, **counts_parallel}
 
 
 # ------------------------------------------------------------ the evaluation suite
@@ -3287,6 +3476,211 @@ def profile_2d(model, sample_window):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ parallelism (phase 15)
+
+PARALLEL_SAMPLE_SEED = 11
+
+
+def parallel_flagship_run(tag, mesh=None, sp_mesh=None, fsdp_mesh=None):
+    """``TRAIN_WARMUP_STEPS`` + ``PARALLEL_STEPS`` steps of phase 7's
+    flagship (no remat) on the same latents and draws: the final state, s a
+    step and the counted steps' launches."""
+    batch = train_latents()
+    unet, state, step = build_flagship_trainer(None, mesh=mesh, sp_mesh=sp_mesh)
+    if fsdp_mesh is not None:
+        state, _ = shard_train_state(fsdp_mesh, state)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for _ in range(TRAIN_WARMUP_STEPS):
+        state, _ = step(state, batch, gen, 1.0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_STEPS):
+        state, loss = step(state, batch, gen, 1.0)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / PARALLEL_STEPS
+    counts = all_launch_counts()
+    flat = flat_state(state)
+    flat["adam"] = flat["adam"].clone()
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"parallel {tag}: loss {float(loss)}")
+    del unet, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flat, seconds, counts
+
+
+def expect_bitwise_state(tag, got, want):
+    """Parameters, EMA shadow and Adam moments bitwise equal; otherwise the
+    largest difference of each is the finding, and the check fails."""
+    diffs = {k: float((got[k] - want[k]).abs().max()) for k in ("params", "ema", "adam")}
+    if any(diffs.values()):
+        raise AssertionError(f"parallel {tag}: not bitwise the one-device state, "
+                             f"max abs differences {diffs}")
+
+
+def parallel_cli(tmp, raw, packed):
+    """(f) ``train`` of ``preset_slice_cond_2d`` at ``driver_path``'s cuts as
+    rank 0 of a job of one (``--coordinator file://… --num-processes 1
+    --process-id 0``: the CLI makes the NCCL group and destroys it), steps and
+    launches exact, rank 0's files written; then ``sample --data-parallel``
+    of the run under torchrun's variables (a group of one over
+    ``tcp://localhost``, the sharded path), bitwise the plain ``sample``."""
+    run, cwd = CliRun(), os.getcwd()
+    os.chdir(tmp)
+    try:
+        ckpt, rdv = tmp / "mp_ckpt", tmp / "mp_rendezvous"
+        with DriverProbe({}) as probe:
+            run("train_mp", "train", "--preset", "slice_cond_2d", "--root-dir", raw,
+                "--name", "mp", "--set", f"data.packed_dir={packed['slices']}",
+                f"train.checkpoint_dir={ckpt}",
+                *(f"{k}={json.dumps(v)}" for k, v in DRIVER_2D_CUTS.items()),
+                "--coordinator", f"file://{rdv}", "--num-processes", 1, "--process-id", 0)
+        if torch.distributed.is_initialized():
+            raise AssertionError("cli train: the group it made is still up")
+        expect_driver_2d("parallel cli train", probe.stages["slice_cond_2d/mp"])
+        run_dir = ckpt / "slice_cond_2d" / "mp"
+        written = sorted(str(p.relative_to(tmp)) for p in [run_dir / "config.json",
+                         *run_dir.glob("*.pt"), tmp / "runs/slice_cond_2d/mp/metrics.jsonl"]
+                         if p.exists())
+        if len(written) < 3:
+            raise AssertionError(f"cli train as rank 0: wrote only {written}")
+        argv = ["sample", "--run-dir", run_dir, "--mode", "grid", "--num-samples", CLI_GRID,
+                "--ddim-steps", DDIM_STEPS, "--seed", CLI_SEED]
+        with Captured("sample_2d") as plain:
+            run("sample_mp_plain", *argv, "--out-dir", tmp / "mp_plain")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        os.environ.update(env)
+        try:
+            with Captured("sample_2d") as sharded:
+                rec, text = run("sample_mp_data_parallel", *argv, "--data-parallel",
+                                "--out-dir", tmp / "mp_sharded")
+        finally:
+            for k in env:
+                del os.environ[k]
+            parallel.shutdown()
+        if "data-parallel sampling over 1 processes" not in text:
+            raise AssertionError("cli sample --data-parallel did not take the sharded path")
+        expect_same("sample --data-parallel", sharded.out["sample_2d"][0],
+                    plain.out["sample_2d"][0])
+        expect_launches("sample --data-parallel", rec["launches"],
+                        GN_CALLS_PER_UNET2D * DDIM_STEPS)
+    finally:
+        os.chdir(cwd)
+    return run.calls, written
+
+
+def parallel_path(tmp, raw, packed, phase7_seconds):
+    """Phase 15: ``mrijax_torch.parallel`` on the card, in a world of one.
+
+    (f) first: the CLI across a group it makes itself (``parallel_cli``).
+    Then an NCCL group of size one (``file://`` rendezvous in ``tmp``) for:
+    (a) phase 7's flagship train step (batch 8) through the data-parallel
+    gradient all-reduce, ``TRAIN_WARMUP_STEPS`` + ``PARALLEL_STEPS`` steps,
+    launches and state (parameters, EMA, Adam) bitwise the one-device run's;
+    the flat all-reduce of the 136 482 704 float32 gradients timed on the
+    group of one (no byte crosses a link), beside the NVLink bound of a ring
+    over 2 and 4 cards; (b) the same steps with the state sharded
+    (``shard_train_state``; the step reads the layout from the state), bitwise; (c) the same steps with
+    the bottleneck attention sequence-parallel over a (1, 1) ("data",
+    "model") mesh, bitwise, one launch of each flash kernel a step; (d)
+    ``generate_3d_volumes(mesh=…)`` (2 volumes, 20 DDIM steps) bitwise the
+    plain call with shard 0's generator. The group is destroyed at the end.
+    Prints the ``parallel_path`` line; returns the launch counts."""
+    t_phase = time.perf_counter()
+    cli_calls, written = parallel_cli(tmp, raw, packed)
+    parallel.initialize(f"file://{tmp / 'phase15_rendezvous'}", 1, 0, required=True,
+                        device="cuda")
+    try:
+        result, counts = _parallel_path()
+    finally:
+        parallel.shutdown()
+    result.update({
+        "cli": {name: {k: v for k, v in rec.items() if k != "peak_memory_bytes"}
+                for name, rec in cli_calls.items()},
+        "cli_files_of_rank0": written, "phase7_seconds_per_step": phase7_seconds,
+        "phase_seconds": time.perf_counter() - t_phase})
+    print("parallel_path " + json.dumps(result))
+    return {**counts, **{f"parallel_cli_{name}": rec["launches"]
+                         for name, rec in cli_calls.items()}}
+
+
+def _parallel_path():
+    mesh = parallel.make_mesh(("data",))
+    sp_mesh = parallel.make_mesh(("data", "model"), (1, 1))
+    if torch.distributed.get_backend() != "nccl" or torch.distributed.get_world_size() != 1:
+        raise AssertionError("phase 15 needs an NCCL group of one")
+    want, ref_s, ref_counts = parallel_flagship_run("one device")
+    if min(ref_counts.values()) == 0:
+        raise AssertionError(f"parallel: the one-device step skipped a kernel: {ref_counts}")
+    result, counts_by_run = {"one_device_seconds_per_step": ref_s}, {}
+    for tag, kw in (("data_parallel", dict(mesh=mesh)),
+                    ("fsdp", dict(mesh=mesh, fsdp_mesh=mesh)),
+                    ("sequence_parallel", dict(mesh=sp_mesh, sp_mesh=sp_mesh))):
+        got, sec, counts = parallel_flagship_run(tag, **kw)
+        if counts != ref_counts:
+            raise AssertionError(f"parallel {tag}: launches {counts}, one device {ref_counts}")
+        expect_bitwise_state(tag, got, want)
+        result[tag] = {"seconds_per_step": sec, "bitwise": True,
+                       "launches_per_step": {k: v // PARALLEL_STEPS for k, v in counts.items()}}
+        counts_by_run[f"parallel_{tag}"] = counts
+        del got
+    del want
+    # the flat all-reduce of the flagship's gradients, alone. On a group of
+    # one no byte crosses a link, so this times the call's own cost; across
+    # d cards a ring sends 2(d-1)/d of the bytes each way over NVLink, whose
+    # bound is printed for d = 2 and 4 and cannot be measured on one card
+    with torch.device("meta"):
+        n = sum(p.numel() for p in UNet3D(
+            in_channels=LATENT_CHANNELS, base_channels=128, channel_mults=(1, 2, 4),
+            use_attention=True, num_heads=4, time_emb_dim=256).parameters())
+    flat = torch.ones(n, dtype=torch.float32, device="cuda")
+    group = mesh.get_group("data")
+    result["all_reduce"] = {
+        "elements": n, "bytes": 4 * n, "ranks": 1,
+        "one_rank_ms": time_ms(lambda: torch.distributed.all_reduce(flat, group=group)),
+        "link_bound_ms": {str(d): 2 * (d - 1) / d * 4 * n / NVLINK_BYTES_PER_S * 1e3
+                          for d in (2, 4)},
+        "link_ms": "not measured (one card)"}
+    del flat
+    # (d) sharded sampling
+    unet, vae, diffusion = build_flagship()
+    common = dict(num_volumes=NUM_VOLUMES, latent_spatial=LATENT_SPATIAL,
+                  latent_channels=LATENT_CHANNELS, ddim_steps=DDIM_STEPS, device="cuda")
+    reset_launch_counts()
+    plain = generate_3d_volumes(unet, vae, diffusion, generator=parallel.shard_generator(
+        PARALLEL_SAMPLE_SEED, 0, device="cuda"), **common)
+    plain_counts = all_launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded = generate_3d_volumes(unet, vae, diffusion, mesh=mesh, seed=PARALLEL_SAMPLE_SEED,
+                                  **common)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = all_launch_counts()
+    if counts != plain_counts or min(counts[k] for k in GENERATION_KERNELS) == 0:
+        raise AssertionError(f"parallel sampling: launches {counts}, plain {plain_counts}")
+    if not torch.equal(sharded, plain):
+        raise AssertionError("parallel sampling: not bitwise the plain call with shard 0's "
+                             f"generator (max abs {float((sharded - plain).abs().max())})")
+    if not bool(torch.isfinite(sharded).all()):
+        raise AssertionError("parallel sampling: non-finite volumes")
+    result["sharded_sample"] = {"volumes": NUM_VOLUMES, "ddim_steps": DDIM_STEPS,
+                                "seconds": seconds, "bitwise": True,
+                                "shape": list(sharded.shape)}
+    counts_by_run["parallel_sharded_sample"] = counts
+    del unet, vae, sharded, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(world_size=1, backend="nccl", steps=PARALLEL_STEPS,
+                  warmup_steps=TRAIN_WARMUP_STEPS, batch=TRAIN_BATCH)
+    return result, counts_by_run
+
+
 # ----------------------------------------------------------------------- main
 
 
@@ -3338,11 +3732,13 @@ def tensor_core_proof(libs):
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-                   counts_by_path):
+                   counts_by_path, chunk_worst, chunk_rows):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
     ``launches`` adds up the counted runs of every path (``counts_by_path``:
-    path name → launch counts); ``launches_by_path`` keeps them apart."""
+    path name → launch counts); ``launches_by_path`` keeps them apart. The
+    flash kernels also carry their Nq ≠ Nk chunks (``nq_ne_nk``: max abs
+    error by dtype and the bf16 times of phase 3)."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
@@ -3353,6 +3749,15 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     def launches(name):
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def chunks(name, prefix):
+        return {"nq_ne_nk": {
+            "max_abs_err": chunk_worst[name],
+            "times": [{"q": r["q"], "kv": r["kv"], "ms": r[f"{prefix}_ms"],
+                       "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"],
+                       "bound_by": r[f"{prefix}_bound_by"],
+                       "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
+                      for r in chunk_rows]}}
 
     return [
         {"name": "gn_silu_stats", "route": "cuda", "source": src_gn,
@@ -3377,7 +3782,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          **launches("flash_attn_fwd"), "shape": fl["shape"], "dtype": fl["dtype"],
          "max_abs_err": flash_worst["float32"], "max_abs_err_bf16": flash_worst["bfloat16"],
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
-         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
+         **chunks("flash_attn_fwd", "fwd")},
         # library_ms of the two backward kernels is one call that computes dq,
         # dk and dv together
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src_bwd,
@@ -3386,14 +3792,16 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err": bwd_worst["flash_attn_bwd_dkv"]["float32"],
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dkv"]["bfloat16"],
          "ms": bw["dkv_ms"], "plain_ms": bw["dkv_plain_ms"], "bound_ms": bw["dkv_bound_ms"],
-         "bound_by": bw["dkv_bound_by"], "library_ms": bw["library_ms"]},
+         "bound_by": bw["dkv_bound_by"], "library_ms": bw["library_ms"],
+         **chunks("flash_attn_bwd_dkv", "dkv")},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src_bwd,
          "replaces": "mrijax/kernels/flash_attention_pallas.py:358",
          **launches("flash_attn_bwd_dq"), "shape": bw["shape"], "dtype": bw["dtype"],
          "max_abs_err": bwd_worst["flash_attn_bwd_dq"]["float32"],
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dq"]["bfloat16"],
          "ms": bw["dq_ms"], "plain_ms": bw["dq_plain_ms"], "bound_ms": bw["dq_bound_ms"],
-         "bound_by": bw["dq_bound_by"], "library_ms": bw["library_ms"]},
+         "bound_by": bw["dq_bound_by"], "library_ms": bw["library_ms"],
+         **chunks("flash_attn_bwd_dq", "dq")},
     ]
 
 
@@ -3432,6 +3840,7 @@ def main() -> int:
     gn_worst = compare_groupnorm(rng)
     flash_worst = compare_flash(rng)
     bwd_worst = compare_flash_backward(rng)
+    chunk_worst = compare_flash_chunks(rng)
     compare_groupnorm_autograd(rng)
     torch.cuda.empty_cache()
     gn_rows, _ = time_groupnorm(rng)
@@ -3440,6 +3849,7 @@ def main() -> int:
     time_groupnorm_backward(rng)
     flash_rows = time_flash(rng)
     bwd_rows = time_flash_backward(rng)
+    chunk_rows = time_flash_chunks(rng)
     torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
@@ -3471,7 +3881,7 @@ def main() -> int:
     counts_25d = path_25d(profile_slice=args.profile)
     torch.cuda.empty_cache()
     counts_train_2d = train_path_2d()
-    counts_driver = driver_path()
+    counts_driver = driver_path(train_result["no_remat"]["seconds_per_step"])
 
     counts_by_path = {"generate": result["launches"],
                       "train_no_remat": train_counts["no_remat"],
@@ -3479,7 +3889,8 @@ def main() -> int:
                       **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
                       **counts_driver}
     print(json.dumps({"kernels": kernel_records(
-        gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path)}))
+        gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
+        chunk_worst, chunk_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

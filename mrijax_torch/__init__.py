@@ -29,7 +29,9 @@ which scores the 2D and 2.5D runs; and the command line (``cli``:
 ``--device`` in place of ``--platform``), ``torch.export`` serving (``aot``:
 per-step programs with the weights as inputs, the kernels as
 ``torch.library`` custom ops) and the rest of ``obs`` (energy through NVML,
-``torch.profiler`` traces, run analysis). Entry points take ``device=``
+``torch.profiler`` traces, run analysis); and ``parallel`` (training and
+sampling across processes on ``torch.distributed``: data parallelism, FSDP,
+sequence-parallel attention, data-parallel sampling). Entry points take ``device=``
 and default to ``"cuda"``; the kernels are compiled from
 ``mrijax_torch/csrc`` at their first CUDA call, and the NIfTI reader from
 ``csrc/mrijax_io.cpp`` at its first use, so importing the package needs

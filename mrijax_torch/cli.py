@@ -25,9 +25,18 @@ subcommand) takes the place of the JAX CLI's ``--platform`` and
 the device (``train``, ``sample``, ``eval``, ``eval-multi``, ``export-aot``,
 ``serve``, ``preprocess --family 2d|25d``) exits non-zero where CUDA is asked
 for and absent; it never moves to the CPU unasked. The others only read and
-write files on the host. The multi-device flags (``--data-parallel``,
-``--coordinator``, ``--num-processes``, ``--process-id``) are parsed and
-refused: they come with the parallel slice (ROADMAP Queue 1 item 5).
+write files on the host.
+
+Across processes: ``train --coordinator/--num-processes/--process-id``,
+``MRIJAX_MULTIHOST=1``, torchrun's ``WORLD_SIZE > 1`` or ``SLURM_NTASKS > 1``
+make the run one rank of a job (``_multihost_mode``) and start the process
+group (``parallel.initialize(required=True)``);
+rank 0 alone makes the run directory and writes ``config.json`` and the
+metrics, the other ranks log into a ``NullLogger``. ``sample --data-parallel``
+and ``eval --data-parallel`` split the sampling batch over the data axis of
+the group (``torchrun`` starts it); in one process without torchrun they run
+as a world of one, which draws what the plain call draws. Rank 0 writes
+their outputs.
 
 Randomness: ``sample`` draws from one ``torch.Generator`` on the device;
 ``serve``'s batch ``b`` from another; both are seeded from
@@ -49,10 +58,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARALLEL_SLICE = ("come with the parallel slice (ROADMAP Queue 1 item 5: "
-                  "mrijax/parallel/ on torch.distributed), which is not ported yet")
-
-
 def _parse_set(values):
     out = {}
     for item in values or []:
@@ -69,22 +74,46 @@ def _parse_set(values):
 
 def _multihost_mode(args) -> bool:
     """True when this run is meant as one rank of a multi-process job: any
-    rendezvous flag, ``MRIJAX_MULTIHOST=1``, or a multi-task SLURM allocation.
-    ``--num-processes 1`` alone is a plain single-process run."""
+    rendezvous flag, ``MRIJAX_MULTIHOST=1``, torchrun's ``WORLD_SIZE > 1`` or
+    a multi-task SLURM allocation. ``--num-processes 1`` alone is a plain
+    single-process run."""
     if args.coordinator or args.process_id is not None:
         return True
     if args.num_processes and int(args.num_processes) > 1:
         return True
     if os.environ.get("MRIJAX_MULTIHOST"):
         return True
-    try:
-        return int(os.environ.get("SLURM_NTASKS", "1")) > 1
-    except ValueError:
-        return False
+    for var in ("WORLD_SIZE", "SLURM_NTASKS"):
+        try:
+            if int(os.environ.get(var, "1")) > 1:
+                return True
+        except ValueError:
+            pass
+    return False
 
 
-def _refuse_parallel(what: str):
-    raise SystemExit(f"[cli] {what}: multi-device runs {PARALLEL_SLICE}")
+def _data_parallel_mesh(args):
+    """The data axis of ``--data-parallel``: over the process group, which
+    torchrun's variables start here (idempotent); None without a group."""
+    import torch.distributed as dist
+
+    from mrijax_torch.parallel import initialize, make_mesh
+
+    if not args.data_parallel:
+        return None
+    initialize(device=args.device)
+    if not dist.is_initialized():
+        print("[cli] data-parallel: one process, a world of one")
+        return None
+    mesh = make_mesh(("data",))
+    print(f"[cli] data-parallel sampling over {mesh.size()} processes")
+    return mesh
+
+
+def _is_host0() -> bool:
+    from mrijax_torch.parallel import process_index
+
+    return process_index() == 0
 
 
 def _device(args) -> torch.device:
@@ -105,14 +134,23 @@ def _generator(seed: int, dev: torch.device, batch: int = 0) -> torch.Generator:
 
 
 def cmd_train(args):
+    import torch.distributed as dist
+
     from mrijax_torch.config import PRESETS, ExperimentConfig, _apply_overrides
-    from mrijax_torch.obs import MetricsLogger, run_with_energy
+    from mrijax_torch.obs import MetricsLogger, NullLogger, run_with_energy
     from mrijax_torch.obs.energy import NvmlPowerSensor
+    from mrijax_torch.parallel import initialize, process_count, process_index, shutdown
     from mrijax_torch.train.experiments import run_experiment
 
+    # the rendezvous first: under NCCL it picks this rank's card, which every
+    # "cuda" below then resolves to
+    started_group = False
     if _multihost_mode(args):
-        _refuse_parallel("train across processes (--coordinator, --num-processes > 1, "
-                         "--process-id, MRIJAX_MULTIHOST or SLURM_NTASKS > 1)")
+        _device(args)  # the CUDA check's message before any rendezvous
+        started_group = not dist.is_initialized()
+        initialize(coordinator_address=args.coordinator, num_processes=args.num_processes,
+                   process_id=args.process_id, required=True, device=args.device)
+        print(f"[cli] multihost: process {process_index()}/{process_count()}")
     if args.config:
         cfg = ExperimentConfig.from_json(args.config)
     else:
@@ -127,9 +165,11 @@ def cmd_train(args):
     dev = _device(args)
 
     run_dir = Path(cfg.train.checkpoint_dir) / cfg.family / cfg.name
-    run_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_json(run_dir / "config.json")
-    print(f"[cli] training {cfg.family}/{cfg.name} -> {run_dir}")
+    host0 = _is_host0()
+    if host0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        cfg.to_json(run_dir / "config.json")
+        print(f"[cli] training {cfg.family}/{cfg.name} -> {run_dir}")
     # the reference wraps train() in the Perun profiler and logs the energy
     # summary post-run (helpers/perun_utils.py:132-148); on the card the
     # power and energy come from NVML
@@ -137,7 +177,7 @@ def cmd_train(args):
     if dev.type == "cuda":
         sensor = NvmlPowerSensor(dev.index if dev.index is not None
                                  else torch.cuda.current_device())
-    logger = MetricsLogger(cfg.family, run_name=cfg.name)
+    logger = MetricsLogger(cfg.family, run_name=cfg.name) if host0 else NullLogger()
     try:
         result = run_with_energy(
             lambda: run_experiment(cfg, device=dev, logger=logger), logger=logger,
@@ -145,6 +185,8 @@ def cmd_train(args):
         )
     finally:
         logger.finish()
+        if started_group:
+            shutdown()
     if isinstance(result, tuple):  # 3D two-stage: (vae, ldm, scale)
         vae_res, ldm_res, scale = result
         print(
@@ -214,13 +256,21 @@ def cmd_sample(args):
     from mrijax_torch.train.experiments import build_diffusion
 
     cfg, run_dir = _load_run(args.run_dir)
-    if args.data_parallel:
-        _refuse_parallel("sample --data-parallel")
-    dev = _device(args)
+    _device(args)  # the CUDA check's message before any rendezvous
+    mesh = _data_parallel_mesh(args)
+    dev = _device(args)  # this rank's card once the group picked it
+    if mesh is not None and args.mode == "pseudo3d-hybrid":
+        print("[cli] note: pseudo3d-hybrid is sequential over slices "
+              "(autoregressive); --data-parallel has no effect")
     out_dir = Path(args.out_dir or run_dir / "samples")
-    out_dir.mkdir(parents=True, exist_ok=True)
+    host0 = _is_host0()
+    if host0:
+        out_dir.mkdir(parents=True, exist_ok=True)
     diffusion = build_diffusion(cfg.diffusion)
     gen = _generator(args.seed, dev)
+    # with a mesh the shards' generators come from the seed (rank i: (seed, i))
+    draws = (dict(generator=gen) if mesh is None
+             else dict(generator=None, mesh=mesh, seed=args.seed))
     s = cfg.data.image_size
 
     if cfg.family in ("slice_cond_2d", "ddpm_25d"):
@@ -236,36 +286,46 @@ def cmd_sample(args):
         if args.mode == "grid":
             imgs = generate.sample_2d(
                 model, diffusion, num_samples=args.num_samples, image_size=s,
-                z_pos=args.z_pos, generator=gen, ddim_steps=args.ddim_steps,
+                z_pos=args.z_pos, ddim_steps=args.ddim_steps,
                 sampler=args.sampler, channels=cfg.unet.out_channels,
-                guidance_scale=args.guidance_scale, device=dev,
+                guidance_scale=args.guidance_scale, device=dev, **draws,
             )
-            save_grid_png(out_dir / "grid.png", _host(imgs)[..., :1])
-            print(f"[cli] wrote {out_dir/'grid.png'}")
+            if host0:
+                save_grid_png(out_dir / "grid.png", _host(imgs)[..., :1])
+                print(f"[cli] wrote {out_dir/'grid.png'}")
         elif args.mode == "sweep":
             vol = generate.sample_pseudo3d_sweep(
                 model, diffusion, num_slices=args.num_slices, image_size=s,
-                generator=gen, ddim_steps=args.ddim_steps, sampler=args.sampler,
+                ddim_steps=args.ddim_steps, sampler=args.sampler,
                 channels=cfg.unet.out_channels, guidance_scale=args.guidance_scale,
-                device=dev,
+                device=dev, **draws,
             )
             vol = _host(vol)
-            save_grid_png(out_dir / "sweep.png", vol[..., :1], nrow=16)
-            nifti.save(out_dir / "sweep.nii.gz", vol[..., 0])
-            print(f"[cli] wrote {out_dir/'sweep.png'} and .nii.gz")
+            if host0:
+                save_grid_png(out_dir / "sweep.png", vol[..., :1], nrow=16)
+                nifti.save(out_dir / "sweep.nii.gz", vol[..., 0])
+                print(f"[cli] wrote {out_dir/'sweep.png'} and .nii.gz")
         elif args.mode in ("pseudo3d-real", "pseudo3d-hybrid"):
             from mrijax_torch.data import MultiModalSliceDataset25D
 
             ds = MultiModalSliceDataset25D(cfg.data.root_dir, s, cfg.data.slice_radius)
-            gen_fn = (generate.generate_pseudo3d_real_context if args.mode == "pseudo3d-real"
-                      else generate.generate_pseudo3d_hybrid)  # hybrid: sequential over slices
-            vol = _host(gen_fn(model, diffusion, ds, args.subject, generator=gen,
-                               ddim_steps=args.ddim_steps, sampler=args.sampler,
-                               guidance_scale=args.guidance_scale, device=dev))
-            for c in range(vol.shape[-1]):
-                save_grid_png(out_dir / f"{args.mode}_mod{c}.png", vol[..., c], nrow=16)
-            nifti.save(out_dir / f"{args.mode}.nii.gz", vol)
-            print(f"[cli] wrote {out_dir}/{args.mode}_mod*.png and .nii.gz")
+            if args.mode == "pseudo3d-real":
+                vol = generate.generate_pseudo3d_real_context(
+                    model, diffusion, ds, args.subject, ddim_steps=args.ddim_steps,
+                    sampler=args.sampler, guidance_scale=args.guidance_scale,
+                    device=dev, **draws)
+            else:  # sequential over slices: every rank runs it whole
+                vol = generate.generate_pseudo3d_hybrid(
+                    model, diffusion, ds, args.subject, generator=gen,
+                    ddim_steps=args.ddim_steps, sampler=args.sampler,
+                    guidance_scale=args.guidance_scale, device=dev)
+            vol = _host(vol)
+            if host0:
+                for c in range(vol.shape[-1]):
+                    save_grid_png(out_dir / f"{args.mode}_mod{c}.png", vol[..., c],
+                                  nrow=16)
+                nifti.save(out_dir / f"{args.mode}.nii.gz", vol)
+                print(f"[cli] wrote {out_dir}/{args.mode}_mod*.png and .nii.gz")
         else:
             raise SystemExit(f"mode {args.mode!r} invalid for {cfg.family}")
     elif cfg.family == "ddpm_3d_ldm":
@@ -310,13 +370,14 @@ def cmd_sample(args):
         vols = _host(generate.generate_3d_volumes(
             unet, vae, diffusion, num_volumes=args.num_samples,
             latent_spatial=latent_shape[:-1], latent_channels=latent_shape[-1],
-            latent_scale=latent_scale, generator=gen, ddim_steps=args.ddim_steps,
-            sampler=args.sampler, device=dev,
+            latent_scale=latent_scale, ddim_steps=args.ddim_steps,
+            sampler=args.sampler, device=dev, **draws,
         ))
-        for i, v in enumerate(vols):
-            save_png(out_dir / f"volume{i}_midslices.png", volume_midslice_panel(v))
-            nifti.save(out_dir / f"volume{i}.nii.gz", v)
-        print(f"[cli] wrote {len(vols)} volumes to {out_dir}")
+        if host0:
+            for i, v in enumerate(vols):
+                save_png(out_dir / f"volume{i}_midslices.png", volume_midslice_panel(v))
+                nifti.save(out_dir / f"volume{i}.nii.gz", v)
+            print(f"[cli] wrote {len(vols)} volumes to {out_dir}")
     else:
         raise SystemExit(f"unknown family {cfg.family!r}")
     return 0
@@ -339,14 +400,18 @@ def cmd_eval(args):
         ResNet18FeatureExtractor,
         evaluate_conditional_2d,
     )
+    from mrijax_torch.parallel import sharded_sample
     from mrijax_torch.train.experiments import build_diffusion
 
     cfg, run_dir = _load_run(args.run_dir)
     if cfg.family not in ("slice_cond_2d", "ddpm_25d"):
         raise SystemExit("eval supports slice_cond_2d and ddpm_25d runs")
-    if args.data_parallel:
-        _refuse_parallel("eval --data-parallel")
-    dev = _device(args)
+    _device(args)  # the CUDA check's message before any rendezvous
+    mesh = _data_parallel_mesh(args)
+    dev = _device(args)  # this rank's card once the group picked it
+    if mesh is not None and args.batch_size % mesh.size():
+        raise SystemExit(f"--data-parallel needs --batch-size divisible by the "
+                         f"{mesh.size()} processes")
     s = cfg.data.image_size
     model, _ = _restore_2d(cfg, run_dir, dev)
     diffusion = build_diffusion(cfg.diffusion).to(dev)
@@ -372,9 +437,16 @@ def cmd_eval(args):
             f"the {args.split!r} split has {len(keep)} slices — FID/KID need "
             "at least 2; use --split all or a larger dataset"
         )
-    # one device: the ragged tail batch is kept
+    if mesh is not None and len(keep) < args.batch_size:
+        raise SystemExit(
+            f"the {args.split!r} split has {len(keep)} slices < batch-size "
+            f"{args.batch_size} — use --split all, a smaller --batch-size, "
+            "or drop --data-parallel")
+    # every rank loads the whole batch (only the sampling is split); one
+    # device keeps the ragged tail batch, a mesh drops it
     loader = BatchLoader(_IndexView(ds, keep), args.batch_size, shuffle=False,
-                         drop_last=False, prefetch=0, device=dev)
+                         drop_last=mesh is not None, prefetch=0, device=dev,
+                         shard=False)
 
     def sample_fn(batch, generator):
         z = batch["z_pos"]
@@ -383,14 +455,26 @@ def cmd_eval(args):
             z = torch.full_like(z, 0.5)
         context = batch["context"] if is_25d else None
 
-        def model_fn(x, t):
-            return model(x, t, z, context)
+        def local(_, gen, cond):
+            zl, cl = cond
 
-        shape = (z.shape[0], s, s, cfg.unet.out_channels)
-        if args.ddim_steps:
-            return diffusion.fast_sample(model_fn, shape, generator,
-                                         num_steps=args.ddim_steps, sampler=args.sampler)
-        return diffusion.p_sample_loop_auto(model_fn, shape, generator)
+            def model_fn(x, t):
+                return model(x, t, zl, cl)
+
+            shape = (zl.shape[0], s, s, cfg.unet.out_channels)
+            if args.ddim_steps:
+                return diffusion.fast_sample(model_fn, shape, gen,
+                                             num_steps=args.ddim_steps,
+                                             sampler=args.sampler)
+            return diffusion.p_sample_loop_auto(model_fn, shape, gen)
+
+        if mesh is not None and z.shape[0] % mesh.size() == 0:
+            # the batch's generator gives the seed of its shards' generators
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=generator.device))
+            return sharded_sample(mesh, local, None, seed, z.shape[0],
+                                  cond=(z, context), device=dev)
+        return local(None, generator, (z, context))
 
     # pretrained extractors (npz from `convert-features`) give real
     # FID/KID/LPIPS/PR; without them the seeded-random extractor is used and
@@ -418,12 +502,13 @@ def cmd_eval(args):
         sample_fn, iter(loader), feature_extractor=fe, pr_feature_extractor=pr_fe,
         lpips=lpips, num_samples=args.num_samples,
         num_diversity_pairs=args.diversity_pairs, compute_pr=args.pr, seed=args.seed,
-        eval_channel=args.eval_channel if is_25d else None, out_path=out,
-        metadata=sampling_meta, device=dev,
+        eval_channel=args.eval_channel if is_25d else None,
+        out_path=out if _is_host0() else None, metadata=sampling_meta, device=dev,
     )
     print(json.dumps({k: v for k, v in report.items()
                       if not isinstance(v, dict)}, indent=2))
-    print(f"[cli] wrote {out}")
+    if _is_host0():
+        print(f"[cli] wrote {out}")
     return 0
 
 
@@ -890,8 +975,12 @@ def cmd_doctor(args):
     from mrijax_torch.data import cnifti
     from mrijax_torch.kernels import _build
 
+    from mrijax_torch.parallel import process_count, process_index
+
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"cuda available={torch.cuda.is_available()}  --device {args.device}")
+    print(f"process {process_index()} of {process_count()} "
+          f"(torch.distributed initialized={torch.distributed.is_initialized()})")
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
             props = torch.cuda.get_device_properties(i)
@@ -951,12 +1040,12 @@ def build_parser():
     t.add_argument("--set", nargs="*", action="extend", default=[], metavar="KEY=VAL",
                    help="dotted config overrides, e.g. train.epochs=3")
     t.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-process coordinator address (refused until the "
-                        "parallel slice is ported)")
+                   help="multi-process rendezvous: tcp://host:port, host:port or "
+                        "file://path (torchrun's MASTER_ADDR/MASTER_PORT otherwise)")
     t.add_argument("--num-processes", type=int, default=None,
-                   help="total processes in the multi-process job (refused above 1)")
+                   help="total processes in the multi-process job")
     t.add_argument("--process-id", type=int, default=None,
-                   help="this process's rank in [0, num-processes) (refused)")
+                   help="this process's rank in [0, num-processes)")
     t.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("sample", help="generate from a trained run")
@@ -979,8 +1068,8 @@ def build_parser():
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--out-dir", default=None)
     s.add_argument("--data-parallel", action="store_true",
-                   help="shard the sampling batch over all devices (refused until "
-                        "the parallel slice is ported)")
+                   help="shard the sampling batch over the processes of the job "
+                        "(torchrun); one process runs as a world of one")
     s.set_defaults(fn=cmd_sample)
 
     e = sub.add_parser("eval", help="matched-condition generative eval")
@@ -1006,8 +1095,8 @@ def build_parser():
     e.add_argument("--resnet18-weights", default=None,
                    help="npz from `convert-features --arch resnet18` → real improved PR")
     e.add_argument("--data-parallel", action="store_true",
-                   help="shard the matched-condition sampling over all devices "
-                        "(refused until the parallel slice is ported)")
+                   help="shard the matched-condition sampling over the processes "
+                        "of the job (torchrun); one process runs as a world of one")
     e.set_defaults(fn=cmd_eval)
 
     em = sub.add_parser("eval-multi",

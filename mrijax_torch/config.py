@@ -10,8 +10,9 @@ Defaults reproduce the reference's three training setups
 (`slice_cond_2d_ddpm/model.py:24-46`, `ddpm_25d_all_modalities/
 model.py:32-43`, `ddpm_3d_ldm/train.py:33-69`). A few fields name what the
 JAX package does on a TPU mesh (``num_devices``, ``fsdp``,
-``fsdp_min_leaf_elems``); they are kept so that configs round-trip, and are
-read by the parallel port.
+``fsdp_min_leaf_elems``); the port reads them in ``train.experiments``
+(``num_devices`` must equal the processes of the data axis; ``fsdp`` shards
+through ``parallel.fsdp``).
 """
 
 import dataclasses
@@ -122,7 +123,7 @@ class TrainConfig:
                                                # params/Adam moments/EMA split
                                                # across the data axis; ~1/N
                                                # state memory per device,
-                                               # same math (the parallel port)
+                                               # same math (parallel.fsdp)
     fsdp_min_leaf_elems: int = 2 ** 15         # leaves smaller than this stay
                                                # replicated (sharding a bias
                                                # saves nothing, costs a

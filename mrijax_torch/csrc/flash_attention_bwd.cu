@@ -178,16 +178,16 @@ __device__ __forceinline__ void p_and_du(const float* Qs, const float* Ks,
                                          const float* Vs, const float* dOs,
                                          const float (&lse_r)[4],
                                          const float (&delta_r)[4], int q0,
-                                         int k0, int N, int tx, int ty,
+                                         int k0, int NQ, int NK, int tx, int ty,
                                          float (&p)[4][4], float (&du)[4][4]) {
     tile_dot_rows<DH>(Qs, Ks, tx, ty, p);    // S
     tile_dot_rows<DH>(dOs, Vs, tx, ty, du);  // dP
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const bool row_ok = q0 + ty + 16 * i < N;
+        const bool row_ok = q0 + ty + 16 * i < NQ;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const bool ok = row_ok && (k0 + tx + 16 * j < N);
+            const bool ok = row_ok && (k0 + tx + 16 * j < NK);
             const float pv = ok ? expf(p[i][j] - lse_r[i]) : 0.f;
             p[i][j] = pv;
             du[i][j] = pv * (du[i][j] - delta_r[i]);
@@ -232,7 +232,7 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, int N, int H, Strides qs,
+                          T* __restrict__ dv, int NQ, int NK, int H, Strides qs,
                           Strides ks, Strides vs, Strides gs, float scale) {
     constexpr int LD = DH + 4;
     // columns of Dh owned by a thread in the dK / dV tiles: NJ pieces of CW
@@ -257,15 +257,15 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int b = bh / H;
     const int h = bh % H;
     const int k0 = blockIdx.x * BK;
-    const long long row_base = (long long)bh * N;
+    const long long row_base = (long long)bh * NQ;
 
     const T* qb = q + b * qs.b + h * qs.h;
     const T* kb = k + b * ks.b + h * ks.h;
     const T* vb = v + b * vs.b + h * vs.h;
     const T* gb = dout + b * gs.b + h * gs.h;
 
-    load_tile<T, DH, false>(Ks, kb, ks.n, k0, N, 1.f, tid);
-    load_tile<T, DH, false>(Vs, vb, vs.n, k0, N, 1.f, tid);
+    load_tile<T, DH, false>(Ks, kb, ks.n, k0, NK, 1.f, tid);
+    load_tile<T, DH, false>(Vs, vb, vs.n, k0, NK, 1.f, tid);
 
     // the thread's piece of the dK and dV tiles: keys ty + 16 i, columns
     // tx*CW + 16*CW*jj + w
@@ -278,17 +278,17 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             acc_dv[i][c] = 0.f;
         }
 
-    for (int q0 = 0; q0 < N; q0 += BQ) {
+    for (int q0 = 0; q0 < NQ; q0 += BQ) {
         // the previous tile's readers of Qs, dOs, PT and dUT are done
         __syncthreads();
-        load_tile<T, DH, true>(Qs, qb, qs.n, q0, N, scale, tid);
-        load_tile<T, DH, false>(dOs, gb, gs.n, q0, N, 1.f, tid);
+        load_tile<T, DH, true>(Qs, qb, qs.n, q0, NQ, scale, tid);
+        load_tile<T, DH, false>(dOs, gb, gs.n, q0, NQ, 1.f, tid);
         float lse_r[4], delta_r[4];
-        load_row_stats(lse, delta, row_base, q0, N, ty, lse_r, delta_r);
+        load_row_stats(lse, delta, row_base, q0, NQ, ty, lse_r, delta_r);
         __syncthreads();
 
         float p[4][4], du[4][4];
-        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, N, tx, ty, p, du);
+        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -333,8 +333,8 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int n = k0 + ty + 16 * i;
-        if (n >= N) continue;
-        const long long row = (((long long)b * N + n) * H + h) * DH;
+        if (n >= NK) continue;
+        const long long row = (((long long)b * NK + n) * H + h) * DH;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -352,7 +352,7 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dq,
-                         int N, int H, Strides qs, Strides ks, Strides vs,
+                         int NQ, int NK, int H, Strides qs, Strides ks, Strides vs,
                          Strides gs, float scale) {
     constexpr int LD = DH + 4;
     constexpr int CW = DH >= 64 ? 4 : DH / 16;
@@ -381,10 +381,10 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vb = v + b * vs.b + h * vs.h;
     const T* gb = dout + b * gs.b + h * gs.h;
 
-    load_tile<T, DH, true>(Qs, qb, qs.n, q0, N, scale, tid);
-    load_tile<T, DH, false>(dOs, gb, gs.n, q0, N, 1.f, tid);
+    load_tile<T, DH, true>(Qs, qb, qs.n, q0, NQ, scale, tid);
+    load_tile<T, DH, false>(dOs, gb, gs.n, q0, NQ, 1.f, tid);
     float lse_r[4], delta_r[4];
-    load_row_stats(lse, delta, (long long)bh * N, q0, N, ty, lse_r, delta_r);
+    load_row_stats(lse, delta, (long long)bh * NQ, q0, NQ, ty, lse_r, delta_r);
 
     // the thread's piece of the dQ' tile: rows ty + 16 i, columns
     // tx*CW + 16*CW*jj + w
@@ -394,15 +394,15 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
-    for (int k0 = 0; k0 < N; k0 += BK) {
+    for (int k0 = 0; k0 < NK; k0 += BK) {
         // the previous tile's readers are done (first pass: nothing to wait for)
         __syncthreads();
-        load_tile<T, DH, false>(Ks, kb, ks.n, k0, N, 1.f, tid);
-        load_tile<T, DH, false>(Vs, vb, vs.n, k0, N, 1.f, tid);
+        load_tile<T, DH, false>(Ks, kb, ks.n, k0, NK, 1.f, tid);
+        load_tile<T, DH, false>(Vs, vb, vs.n, k0, NK, 1.f, tid);
         __syncthreads();
 
         float p[4][4], du[4][4];
-        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, N, tx, ty, p, du);
+        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -439,8 +439,8 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int n = q0 + ty + 16 * i;
-        if (n >= N) continue;
-        const long long row = (((long long)b * N + n) * H + h) * DH;
+        if (n >= NQ) continue;
+        const long long row = (((long long)b * NQ + n) * H + h) * DH;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -524,7 +524,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int N, int H, Strides qs,
+                        bf16* __restrict__ dv, int NQ, int NK, int H, Strides qs,
                         Strides ks, Strides vs, Strides gs, float scale) {
     constexpr int BKT = 16 * NWARPS;  // keys per block
     constexpr int NT = 32 * NWARPS;
@@ -554,16 +554,16 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* kb = k + b * ks.b + h * ks.h;
     const bf16* vb = v + b * vs.b + h * vs.h;
     const bf16* gb = dout + b * gs.b + h * gs.h;
-    const float* lse_row = lse + (long long)bh * N;
-    const float* delta_row = delta + (long long)bh * N;
+    const float* lse_row = lse + (long long)bh * NQ;
+    const float* delta_row = delta + (long long)bh * NQ;
 
     const uint32_t q_tiles = mma::smem_addr(Qs);
     const uint32_t g_tiles = mma::smem_addr(dOs);
     const uint32_t stat_rows = mma::smem_addr(stats);
-    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Ks), kb, ks.n, k0, N, tid);
-    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Vs), vb, vs.n, k0, N, tid);
+    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Ks), kb, ks.n, k0, NK, tid);
+    mma::load_tile_async<BKT, DH, NT>(mma::smem_addr(Vs), vb, vs.n, k0, NK, tid);
     load_q_stage<DH, NT>(q_tiles, g_tiles, stat_rows, qb, qs.n, gb, gs.n,
-                         lse_row, delta_row, 0, N, tid);
+                         lse_row, delta_row, 0, NQ, tid);
     mma::cp_async_commit();
 
     // the warp's 16 keys x Dh of dK and dV
@@ -588,7 +588,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t q_t = q_tiles + mma::a_offset(lane, LD);
     const uint32_t g_t = g_tiles + mma::a_offset(lane, LD);
 
-    const int ntiles = (N + TC_BQ - 1) / TC_BQ;
+    const int ntiles = (NQ + TC_BQ - 1) / TC_BQ;
     for (int j = 0; j < ntiles; ++j) {
         const int stage = j & 1;
         // the other stage's readers finished at the end of the last pass
@@ -597,7 +597,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  g_tiles + (stage ^ 1) * TILE * 2,
                                  stat_rows + (stage ^ 1) * 2 * TC_BQ * 4, qb,
                                  qs.n, gb, gs.n, lse_row, delta_row,
-                                 (j + 1) * TC_BQ, N, tid);
+                                 (j + 1) * TC_BQ, NQ, tid);
         mma::cp_async_commit();  // possibly empty: keeps the group count even
         mma::cp_async_wait<1>();  // tile j has landed, tile j + 1 may fly
         const float* st = stats + stage * 2 * TC_BQ;
@@ -707,8 +707,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = lane; e < 16 * CPR; e += 32) {
         const int r = e / CPR, c = e % CPR;
         const int n = k0 + warp * 16 + r;
-        if (n >= N) continue;
-        const long long at = (((long long)b * N + n) * H + h) * DH + c * 8;
+        if (n >= NK) continue;
+        const long long at = (((long long)b * NK + n) * H + h) * DH + c * 8;
         *reinterpret_cast<uint4*>(dk + at) =
             *reinterpret_cast<const uint4*>(&Kw[r * LD + c * 8]);
         *reinterpret_cast<uint4*>(dv + at) =
@@ -731,7 +731,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int N, int H, Strides qs, Strides ks, Strides vs,
+                       int NQ, int NK, int H, Strides qs, Strides ks, Strides vs,
                        Strides gs, float scale) {
     constexpr int BQT = 16 * TC_WARPS;  // query rows per block
     constexpr int NT = 32 * TC_WARPS;
@@ -763,21 +763,21 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const uint32_t k_tiles = mma::smem_addr(Ks);
     const uint32_t v_tiles = mma::smem_addr(Vs);
-    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, N, tid);
-    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(dOs), gb, gs.n, q0, N, tid);
+    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, NQ, tid);
+    mma::load_tile_async<BQT, DH, NT>(mma::smem_addr(dOs), gb, gs.n, q0, NQ, tid);
     mma::cp_async_commit();
-    mma::load_tile_async<DQ_KT, DH, NT>(k_tiles, kb, ks.n, 0, N, tid);
-    mma::load_tile_async<DQ_KT, DH, NT>(v_tiles, vb, vs.n, 0, N, tid);
+    mma::load_tile_async<DQ_KT, DH, NT>(k_tiles, kb, ks.n, 0, NK, tid);
+    mma::load_tile_async<DQ_KT, DH, NT>(v_tiles, vb, vs.n, 0, NK, tid);
     mma::cp_async_commit();
 
-    // lse * log2(e) and delta of the lane's rows g and g + 8 (0 beyond N)
+    // lse * log2(e) and delta of the lane's rows g and g + 8 (0 beyond NQ)
     float lse2[2], dl[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int n = q0 + warp * 16 + g + 8 * i;
-        const bool ok = n < N;
-        lse2[i] = ok ? lse[(long long)bh * N + n] * mma::LOG2E : 0.f;
-        dl[i] = ok ? delta[(long long)bh * N + n] : 0.f;
+        const bool ok = n < NQ;
+        lse2[i] = ok ? lse[(long long)bh * NQ + n] * mma::LOG2E : 0.f;
+        dl[i] = ok ? delta[(long long)bh * NQ + n] : 0.f;
     }
 
     // the warp's 16 query rows x Dh of dQ'
@@ -800,16 +800,16 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t v_b = v_tiles + mma::b_offset(lane, LD);
     const uint32_t k_t = k_tiles + mma::a_offset(lane, LD);
 
-    const int ntiles = (N + DQ_KT - 1) / DQ_KT;
+    const int ntiles = (NK + DQ_KT - 1) / DQ_KT;
     for (int j = 0; j < ntiles; ++j) {
         const int stage = j & 1;
         // the other stage's readers finished at the end of the last pass
         if (j + 1 < ntiles) {
             const uint32_t other = (stage ^ 1) * TILE * 2;
             mma::load_tile_async<DQ_KT, DH, NT>(k_tiles + other, kb, ks.n,
-                                                (j + 1) * DQ_KT, N, tid);
+                                                (j + 1) * DQ_KT, NK, tid);
             mma::load_tile_async<DQ_KT, DH, NT>(v_tiles + other, vb, vs.n,
-                                                (j + 1) * DQ_KT, N, tid);
+                                                (j + 1) * DQ_KT, NK, tid);
         }
         mma::cp_async_commit();  // possibly empty: keeps the group count even
         mma::cp_async_wait<1>();  // tile j has landed, tile j + 1 may fly
@@ -848,16 +848,16 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
 
             // P = exp(S - lse) and dU = P o (dP - delta), in place; a key
-            // beyond N (zero-filled, S = 0) gets P = 0, whatever lse is
+            // beyond NK (zero-filled, S = 0) gets P = 0, whatever lse is
             const int key0 = j * DQ_KT + half * DQ_KH;
-            const bool ragged = key0 + DQ_KH > N;
+            const bool ragged = key0 + DQ_KH > NK;
 #pragma unroll
             for (int jn = 0; jn < DQ_KH / 8; ++jn)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     float p = mma::fast_exp2(
                         fmaf(s[jn][e], mma::LOG2E, -lse2[e >> 1]));
-                    if (ragged && key0 + 8 * jn + 2 * t + (e & 1) >= N) p = 0.f;
+                    if (ragged && key0 + 8 * jn + 2 * t + (e & 1) >= NK) p = 0.f;
                     dp[jn][e] = p * (dp[jn][e] - dl[e >> 1]);
                 }
 
@@ -904,8 +904,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = lane; e < 16 * CPR; e += 32) {
         const int r = e / CPR, c = e % CPR;
         const int n = q0 + warp * 16 + r;
-        if (n >= N) continue;
-        const long long at = (((long long)b * N + n) * H + h) * DH + c * 8;
+        if (n >= NQ) continue;
+        const long long at = (((long long)b * NQ + n) * H + h) * DH + c * 8;
         *reinterpret_cast<uint4*>(dq + at) =
             *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
     }
@@ -914,7 +914,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
     const void *q, *k, *v, *dout;
     const float *lse, *delta;
-    int B, N, H;
+    int B, NQ, NK, H;
     Strides qs, ks, vs, gs;
     float scale;
     cudaStream_t stream;
@@ -932,12 +932,12 @@ int launch_dkv_fma(const Args& a, void* dk, void* dv) {
     auto kernel = flash_attn_bwd_dkv_kernel<float, DH>;
     constexpr size_t smem = dkv_smem_bytes<DH>();
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BK - 1) / BK), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NK + BK - 1) / BK), (unsigned)(a.B * a.H));
     kernel<<<grid, NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.N,
-        a.H, a.qs, a.ks, a.vs, a.gs, a.scale);
+        a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.NQ,
+        a.NK, a.H, a.qs, a.ks, a.vs, a.gs, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -947,11 +947,11 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
     constexpr size_t smem = dkv_tc_smem_bytes<DH, NWARPS>();
     constexpr int BKT = 16 * NWARPS;
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BKT - 1) / BKT), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NK + BKT - 1) / BKT), (unsigned)(a.B * a.H));
     kernel<<<grid, NWARPS * 32, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-        a.delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.N, a.H,
+        a.delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.NQ, a.NK, a.H,
         a.qs, a.ks, a.vs, a.gs, a.scale);
     return (int)cudaGetLastError();
 }
@@ -961,11 +961,11 @@ int launch_dq_fma(const Args& a, void* dq) {
     auto kernel = flash_attn_bwd_dq_kernel<float, DH>;
     constexpr size_t smem = dq_smem_bytes<DH>();
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BQ - 1) / BQ), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NQ + BQ - 1) / BQ), (unsigned)(a.B * a.H));
     kernel<<<grid, NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(dq), a.N, a.H, a.qs, a.ks, a.vs,
+        a.lse, a.delta, static_cast<float*>(dq), a.NQ, a.NK, a.H, a.qs, a.ks, a.vs,
         a.gs, a.scale);
     return (int)cudaGetLastError();
 }
@@ -976,11 +976,11 @@ int launch_dq_tc(const Args& a, void* dq) {
     constexpr size_t smem = dq_tc_smem_bytes<DH>();
     constexpr int BQT = 16 * TC_WARPS;
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BQT - 1) / BQT), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NQ + BQT - 1) / BQT), (unsigned)(a.B * a.H));
     kernel<<<grid, TC_WARPS * 32, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-        a.delta, static_cast<bf16*>(dq), a.N, a.H, a.qs, a.ks, a.vs, a.gs,
+        a.delta, static_cast<bf16*>(dq), a.NQ, a.NK, a.H, a.qs, a.ks, a.vs, a.gs,
         a.scale);
     return (int)cudaGetLastError();
 }
@@ -1027,8 +1027,8 @@ int dispatch_dq_tc(int Dh, const Args& a, void* dq) {
 
 // strides: 12 values in elements, (batch, token, head) of q, k, v and dout.
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, int B, int N, int H,
-               const long long* strides, double scale, void* stream) {
+               const void* lse, const void* delta, int B, int N, int Nk,
+               int H, const long long* strides, double scale, void* stream) {
     Args a;
     a.q = q;
     a.k = k;
@@ -1037,7 +1037,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
     a.lse = static_cast<const float*>(lse);
     a.delta = static_cast<const float*>(delta);
     a.B = B;
-    a.N = N;
+    a.NQ = N;
+    a.NK = Nk;
     a.H = H;
     a.qs = Strides{strides[0], strides[1], strides[2]};
     a.ks = Strides{strides[3], strides[4], strides[5]};
@@ -1050,23 +1051,25 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, k, v, dout: (B, N, H, Dh) of one type, read through the (batch, token,
-// head) strides in `strides` (a host array of 12 values in elements: q, k, v,
-// dout), last dimension contiguous; in bfloat16 every row start must be
-// 16-byte aligned. lse, delta: contiguous fp32 (B*H, N), the forward's
-// logsumexp and rowsum(dO o O). dk, dv (and dq): contiguous (B, N, H, Dh) of
-// the input type. A block owns 64 keys (dkv) or 64 query rows (dq) in either
-// type. Both entries choose their kernel by dtype, here: float32 runs the FMA
-// kernel, bfloat16 the tensor-core kernel; neither stands in for the other.
+// q and dout: (B, N, H, Dh), k and v: (B, Nk, H, Dh), of one type, read
+// through the (batch, token, head) strides in `strides` (a host array of 12
+// values in elements: q, k, v, dout), last dimension contiguous; in bfloat16
+// every row start must be 16-byte aligned. lse, delta: contiguous fp32
+// (B*H, N), the forward's logsumexp and rowsum(dO o O). dk, dv: contiguous
+// (B, Nk, H, Dh), dq: contiguous (B, N, H, Dh), of the input type. A block
+// owns 64 keys (dkv) or 64 query rows (dq) in either type. Both entries
+// choose their kernel by dtype, here: float32 runs the FMA kernel, bfloat16
+// the tensor-core kernel; neither stands in for the other.
 // Each entry returns the cudaError_t of its launch (0 on success); launches on
 // `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
-                                  int dtype, int B, int N, int H, int Dh,
+                                  int dtype, int B, int N, int Nk, int H,
+                                  int Dh,
                                   const long long* strides, double scale,
                                   void* stream) {
-    const Args a = make_args(q, k, v, dout, lse, delta, B, N, H, strides,
+    const Args a = make_args(q, k, v, dout, lse, delta, B, N, Nk, H, strides,
                              scale, stream);
     if (dtype == MRI_DTYPE_F32) return dispatch_dkv_fma(Dh, a, dk, dv);
     if (dtype == MRI_DTYPE_BF16) return dispatch_dkv_tc(Dh, a, dk, dv);
@@ -1076,10 +1079,10 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int dtype, int B,
-                                 int N, int H, int Dh,
+                                 int N, int Nk, int H, int Dh,
                                  const long long* strides, double scale,
                                  void* stream) {
-    const Args a = make_args(q, k, v, dout, lse, delta, B, N, H, strides,
+    const Args a = make_args(q, k, v, dout, lse, delta, B, N, Nk, H, strides,
                              scale, stream);
     if (dtype == MRI_DTYPE_F32) return dispatch_dq_fma(Dh, a, dq);
     if (dtype == MRI_DTYPE_BF16) return dispatch_dq_tc(Dh, a, dq);

@@ -107,7 +107,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int N, int H, Strides qs,
+                      float* __restrict__ lse, int NQ, int NK, int H, Strides qs,
                       Strides ks, Strides vs, float scale) {
     constexpr int LD = DH + 4;
     // columns of Dh owned by a thread in the PV product: NJ pieces of CW
@@ -138,7 +138,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = e / DH, d = e % DH;
         const int n = q0 + r;
         float x = 0.f;
-        if (n < N) x = round_to<T>(to_float<T>(qb[n * qs.n + d]) * scale);
+        if (n < NQ) x = round_to<T>(to_float<T>(qb[n * qs.n + d]) * scale);
         Qs[r * LD + d] = x;
     }
 
@@ -151,14 +151,14 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < NJ * CW; ++c) acc[i][c] = 0.f;
     }
 
-    for (int k0 = 0; k0 < N; k0 += BK) {
+    for (int k0 = 0; k0 < NK; k0 += BK) {
         // the previous tile's readers are done (first pass: orders the Q store)
         __syncthreads();
         for (int e = tid; e < BK * DH; e += NT) {
             const int r = e / DH, d = e % DH;
             const int n = k0 + r;
             float kx = 0.f, vx = 0.f;
-            if (n < N) {
+            if (n < NK) {
                 kx = to_float<T>(kb[n * ks.n + d]);
                 vx = to_float<T>(vb[n * vs.n + d]);
             }
@@ -196,10 +196,10 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 }
         }
 
-        // mask keys beyond N (only the last tile has any)
+        // mask keys beyond NK (only the last tile has any)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-            if (k0 + tx + 16 * j >= N) {
+            if (k0 + tx + 16 * j >= NK) {
 #pragma unroll
                 for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
             }
@@ -272,8 +272,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int n = q0 + ty + 16 * i;
-        if (n >= N) continue;
-        T* orow = out + (((long long)b * N + n) * H + h) * DH;
+        if (n >= NQ) continue;
+        T* orow = out + (((long long)b * NQ + n) * H + h) * DH;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -281,7 +281,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int col = tx * CW + 16 * CW * jj + w;
                 orow[col] = from_float<T>(acc[i][jj * CW + w] / l[i]);
             }
-        if (tx == 0) lse[(long long)bh * N + n] = m[i] + logf(l[i]);
+        if (tx == 0) lse[(long long)bh * NQ + n] = m[i] + logf(l[i]);
     }
 }
 
@@ -300,7 +300,7 @@ template <int DH, int NWARPS, int MT>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int N, int H, Strides qs,
+                    float* __restrict__ lse, int NQ, int NK, int H, Strides qs,
                     Strides ks, Strides vs, float scale) {
     constexpr int WM = 16 * MT;       // query rows per warp: MT fragments of 16
     constexpr int BM = WM * NWARPS;   // query rows per block
@@ -335,14 +335,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const uint32_t k_tiles = mma::smem_addr(Ks);
     const uint32_t v_tiles = mma::smem_addr(Vs);
-    const int ntiles = (N + TC_BN - 1) / TC_BN;
-    mma::load_tile_async<BM, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, N, tid);
-    mma::load_tile_async<TC_BN, DH, NT>(k_tiles, kb, ks.n, 0, N, tid);
+    const int ntiles = (NK + TC_BN - 1) / TC_BN;
+    mma::load_tile_async<BM, DH, NT>(mma::smem_addr(Qs), qb, qs.n, q0, NQ, tid);
+    mma::load_tile_async<TC_BN, DH, NT>(k_tiles, kb, ks.n, 0, NK, tid);
     mma::cp_async_commit();
     if (ntiles > 1)
         mma::load_tile_async<TC_BN, DH, NT>(k_tiles + TILE * 2, kb, ks.n, TC_BN,
-                                            N, tid);
-    mma::load_tile_async<TC_BN, DH, NT>(v_tiles, vb, vs.n, 0, N, tid);
+                                            NK, tid);
+    mma::load_tile_async<TC_BN, DH, NT>(v_tiles, vb, vs.n, 0, NK, tid);
     mma::cp_async_commit();
 
     // Q and K tile 0 have landed (K tile 1 and V tile 0 may still be in
@@ -439,21 +439,21 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         __syncthreads();
         if (j + 2 < ntiles)
             mma::load_tile_async<TC_BN, DH, NT>(k_tiles + stage * TILE * 2, kb,
-                                                ks.n, k0 + 2 * TC_BN, N, tid);
+                                                ks.n, k0 + 2 * TC_BN, NK, tid);
         if (j + 1 < ntiles)
             mma::load_tile_async<TC_BN, DH, NT>(
-                v_tiles + (stage ^ 1) * TILE * 2, vb, vs.n, k0 + TC_BN, N, tid);
+                v_tiles + (stage ^ 1) * TILE * 2, vb, vs.n, k0 + TC_BN, NK, tid);
         mma::cp_async_commit();
 
-        // keys beyond N (only the last tile has any)
-        if (k0 + TC_BN > N) {
+        // keys beyond NK (only the last tile has any)
+        if (k0 + TC_BN > NK) {
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
                     for (int e = 0; e < 4; ++e)
-                        if (k0 + 8 * jn + 2 * t + (e & 1) >= N)
+                        if (k0 + 8 * jn + 2 * t + (e & 1) >= NK)
                             s[mt][jn][e] = NEG_INF;
         }
 
@@ -538,17 +538,17 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 *reinterpret_cast<uint32_t*>(orow + nd * 8) = mma::pack_bf16(
                     o[mt][nd][2 * r] / sum, o[mt][nd][2 * r + 1] / sum);
             const int n = row0 + mt * 16 + g + 8 * r;
-            if (t == 0 && n < N)
-                lse[(long long)bh * N + n] = m[mt][r] + logf(sum);
+            if (t == 0 && n < NQ)
+                lse[(long long)bh * NQ + n] = m[mt][r] + logf(sum);
         }
     }
     __syncwarp();
     for (int e = lane; e < WM * CPR; e += 32) {
         const int r = e / CPR, c = e % CPR;
         const int n = row0 + r;
-        if (n < N)
+        if (n < NQ)
             *reinterpret_cast<uint4*>(
-                out + (((long long)b * N + n) * H + h) * DH + c * 8) =
+                out + (((long long)b * NQ + n) * H + h) * DH + c * 8) =
                 *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
     }
 }
@@ -557,7 +557,7 @@ struct Args {
     const void *q, *k, *v;
     void* out;
     float* lse;
-    int B, N, H;
+    int B, NQ, NK, H;
     Strides qs, ks, vs;
     float scale;
     cudaStream_t stream;
@@ -575,11 +575,11 @@ int launch_fma(const Args& a) {
     auto kernel = flash_attn_fwd_kernel<float, DH>;
     constexpr size_t smem = flash_smem_bytes<DH>();
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BQ - 1) / BQ), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NQ + BQ - 1) / BQ), (unsigned)(a.B * a.H));
     kernel<<<grid, NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
-        a.N, a.H, a.qs, a.ks, a.vs, a.scale);
+        a.NQ, a.NK, a.H, a.qs, a.ks, a.vs, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -589,10 +589,10 @@ int launch_tc(const Args& a) {
     constexpr size_t smem = flash_tc_smem_bytes<DH, NWARPS, MT>();
     constexpr int BM = 16 * MT * NWARPS;
     if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.N + BM - 1) / BM), (unsigned)(a.B * a.H));
+    const dim3 grid((unsigned)((a.NQ + BM - 1) / BM), (unsigned)(a.B * a.H));
     kernel<<<grid, NWARPS * 32, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.N,
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.NQ, a.NK,
         a.H, a.qs, a.ks, a.vs, a.scale);
     return (int)cudaGetLastError();
 }
@@ -631,23 +631,25 @@ int dispatch_tc(int Dh, int tile, const Args& a) {
 
 }  // namespace
 
-// q, k, v: (B, N, H, Dh) read through (batch, token, head) strides given in
-// elements, last dimension contiguous; for bfloat16 every row start must be
-// 16-byte aligned. out: contiguous (B, N, H, Dh) of the input type. lse:
-// contiguous fp32 (B*H, N). `tile` is the number of query rows per block from
-// the wrapper's launch plan: 64 or 128 for bfloat16, 64 for float32.
+// q: (B, N, H, Dh); k, v: (B, Nk, H, Dh) (a block of N query rows against all
+// Nk keys, as sequence-parallel attention asks); read through (batch, token,
+// head) strides given in elements, last dimension contiguous; for bfloat16
+// every row start must be 16-byte aligned. out: contiguous (B, N, H, Dh) of
+// the input type. lse: contiguous fp32 (B*H, N). `tile` is the number of query
+// rows per block from the wrapper's launch plan: 64 or 128 for bfloat16, 64
+// for float32.
 // The kernel is chosen by dtype, here: float32 runs the FMA kernel, bfloat16
 // the tensor-core kernel; neither stands in for the other. Returns the
 // cudaError_t of the launch (0 on success); launches on `stream`, does not
 // synchronise, allocates nothing.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int dtype, int B, int N,
-                              int H, int Dh, int tile, long long qsb,
+                              int Nk, int H, int Dh, int tile, long long qsb,
                               long long qsn, long long qsh, long long ksb,
                               long long ksn, long long ksh, long long vsb,
                               long long vsn, long long vsh, double scale,
                               void* stream) {
-    const Args a{q, k, v, out, static_cast<float*>(lse), B, N, H,
+    const Args a{q, k, v, out, static_cast<float*>(lse), B, N, Nk, H,
                  Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh},
                  Strides{vsb, vsn, vsh}, (float)scale,
                  static_cast<cudaStream_t>(stream)};

@@ -1,6 +1,6 @@
-"""Batching, epoch shuffling, and device prefetch.
+"""Batching, epoch shuffling, per-process rows and device prefetch.
 
-Counterpart of ``mrijax/data/loader.py``, in one process:
+Counterpart of ``mrijax/data/loader.py``:
 
 * a seeded permutation per epoch (``set_epoch`` semantics match
   ``DistributedSampler.set_epoch``; the same index order as the JAX package);
@@ -10,10 +10,14 @@ Counterpart of ``mrijax/data/loader.py``, in one process:
   copy's event before the batch is handed out, so the host-to-device copy
   overlaps the step that is running;
 * ``device_put=False`` yields host numpy batches, for host-side consumers and
-  for timing the host pipeline alone.
-
-Sharding a batch over several devices or processes comes with the parallel
-port.
+  for timing the host pipeline alone;
+* across processes each one loads only its rows of every global batch:
+  shard i of n takes rows ``[i·B/n, (i+1)·B/n)``, where n, i are the process
+  count and index — or, with ``mesh=``, the size of the mesh's ``data`` axis
+  and this rank's index on it (the ranks of a ``model`` group load the same
+  rows). ``batch_size`` must divide by n; a ragged final batch
+  (``drop_last=False``) is trimmed to a multiple of n, and process 0 says
+  what was dropped. ``shard=False`` gives every process the whole batch.
 """
 
 import queue
@@ -24,6 +28,8 @@ import numpy as np
 import torch
 
 from mrijax_torch._device import require_device
+from mrijax_torch.parallel.mesh import axis_index, axis_size
+from mrijax_torch.parallel.multihost import process_count, process_index
 
 
 def epoch_permutation(n: int, epoch: int, seed: int = 0) -> np.ndarray:
@@ -43,7 +49,8 @@ class BatchLoader:
     """Iterates a map-style dataset in batches of dicts.
 
     Yields dicts of tensors on ``device`` (default the card; ``"cpu"`` where
-    the caller asks for it), or of numpy arrays with ``device_put=False``.
+    the caller asks for it), or of numpy arrays with ``device_put=False``:
+    this process's rows of each global batch of ``batch_size``.
     """
 
     def __init__(
@@ -58,9 +65,18 @@ class BatchLoader:
         transform=None,
         device_put: bool = True,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
+        shard: bool = True,
     ):
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
+        self.mesh, self.shard = mesh, shard
+        n = self._shards()[0]
+        if n > 1 and batch_size % n:
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible by the {n} processes "
+                "sharing each batch; every process must own the same number of "
+                "rows of each global batch")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -84,24 +100,51 @@ class BatchLoader:
                 ds.set_epoch(epoch)
             ds = getattr(ds, "dataset", None)
 
+    def _shards(self):
+        """(number of processes sharing a batch, this one's index)."""
+        if not self.shard:
+            return 1, 0
+        if self.mesh is not None:
+            return axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
+        return process_count(), process_index()
+
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
-        return -(-n // self.batch_size)
+        full, tail = divmod(n, self.batch_size)
+        shards = self._shards()[0]
+        tail = (tail // shards) * shards  # the ragged tail is trimmed per process
+        return full + (1 if tail else 0)
 
     def _batches(self):
+        """The global batches' dataset indices (all processes' rows)."""
         n = len(self.dataset)
         idx = (
             epoch_permutation(n, self.epoch, self.seed)
             if self.shuffle
             else np.arange(n)
         )
+        shards = self._shards()[0]
         for b in range(len(self)):
-            yield idx[b * self.batch_size : (b + 1) * self.batch_size]
+            chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            dropped = len(chunk) % shards
+            if dropped:
+                # ragged FINAL batch (drop_last=False): trimmed so that every
+                # process owns equal rows
+                chunk = chunk[: len(chunk) - dropped]
+                if process_index() == 0:
+                    print(f"[loader] dropping {dropped} tail row(s) of the final "
+                          f"ragged batch (not divisible by the {shards} processes)")
+            yield chunk
+
+    def _local_rows(self, chunk: np.ndarray) -> np.ndarray:
+        n, i = self._shards()
+        per = len(chunk) // n
+        return chunk[i * per:(i + 1) * per]
 
     def _host_batch(self, chunk: np.ndarray):
-        batch = _stack_batch([self.dataset[int(i)] for i in chunk])
+        batch = _stack_batch([self.dataset[int(i)] for i in self._local_rows(chunk)])
         if self.transform is not None:
             batch = self.transform(batch)
         return batch

@@ -20,8 +20,17 @@ The models are ``nn.Module``s that hold their own parameters, so the separate
 functions fold the key per chunk or slice, the port draws each chunk's or
 slice's start noise in order from the one generator; an explicit ``x_t`` of
 the whole output's shape is cut the same way, which is what makes the two
-packages comparable. Sharded sampling (``mesh=``) comes with the parallel
-port.
+packages comparable.
+
+Data-parallel sampling (``mesh=``, over the mesh's ``data`` axis, through
+``parallel.sampling.sharded_sample``): shard i of d denoises its rows with a
+generator made from ``(seed, i)`` alone, and every rank gets the whole
+batch. The result is the concatenation of the d one-process calls with
+those generators, so it depends on (seed, d); ``generator`` and ``x_t`` are
+then not taken. ``generate_pseudo3d_real_context`` shards each chunk whose
+size the axis divides (its default chunk is 4 slices a rank) and runs a
+ragged last chunk whole; chunk c's seed is mixed from (seed, its first
+slice).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise where
 CUDA is asked for and absent, and run on the CPU only when told to. Results
@@ -35,6 +44,8 @@ import torch
 
 from mrijax_torch._device import require_device
 from mrijax_torch.diffusion.gaussian import GaussianDiffusion
+from mrijax_torch.parallel.mesh import axis_size
+from mrijax_torch.parallel.sampling import sharded_sample
 from mrijax_torch.train.steps import CFG_NULL_Z
 
 Device = Union[str, torch.device]
@@ -63,6 +74,16 @@ def _denoise(diffusion: GaussianDiffusion, model_fn, shape: Sequence[int],
 
 def _on(x: Optional[torch.Tensor], dev: torch.device) -> Optional[torch.Tensor]:
     return None if x is None else torch.as_tensor(x).to(dev)
+
+
+def _sharded(mesh, generator, x_t, sample_fn, seed: int, num: int, dev, cond=None):
+    """``sharded_sample`` of ``sample_fn(generator, local_or_cond)`` over the
+    mesh's data axis; a mesh takes its generators from ``seed``."""
+    if generator is not None or x_t is not None:
+        raise ValueError("with mesh=, the shards' generators come from seed: "
+                         "pass neither generator nor x_t")
+    return sharded_sample(mesh, lambda _, gen, local: sample_fn(gen, local), None,
+                          seed, num, cond=cond, device=dev)
 
 
 # ------------------------------------------------------------------ 2D
@@ -107,16 +128,25 @@ def sample_2d(
     channels: int = 1,
     guidance_scale: Optional[float] = None,
     device: Device = "cuda",
+    mesh=None,
+    seed: int = 0,
 ) -> torch.Tensor:
     """Grid sampling at one slice position (default z = 0.5): returns
     (num_samples, image_size, image_size, channels). ``guidance_scale``
-    turns on classifier-free guidance (twice the work per step)."""
+    turns on classifier-free guidance (twice the work per step). With
+    ``mesh``, data-parallel from ``seed`` (module docstring)."""
     dev = require_device(device)
     model = model.to(dev).eval()
-    z = torch.full((num_samples,), z_pos, dtype=torch.float32, device=dev)
-    return _denoise(diffusion, _conditioned(model, z, guidance_scale),
-                    (num_samples, image_size, image_size, channels),
-                    _generator(dev, generator), _on(x_t, dev), ddim_steps, sampler)
+
+    def run(gen, local, x0=None):
+        z = torch.full((local,), z_pos, dtype=torch.float32, device=dev)
+        return _denoise(diffusion, _conditioned(model, z, guidance_scale),
+                        (local, image_size, image_size, channels), gen, x0,
+                        ddim_steps, sampler)
+
+    if mesh is not None:
+        return _sharded(mesh, generator, x_t, run, seed, num_samples, dev)
+    return run(_generator(dev, generator), num_samples, _on(x_t, dev))
 
 
 @torch.no_grad()
@@ -133,16 +163,25 @@ def sample_pseudo3d_sweep(
     channels: int = 1,
     guidance_scale: Optional[float] = None,
     device: Device = "cuda",
+    mesh=None,
+    seed: int = 0,
 ) -> torch.Tensor:
     """z-sweep pseudo-3D volume: the ``num_slices`` positions
     ``linspace(0, 1, num_slices)`` sampled as one batch. Returns
-    (S, H, W, C)."""
+    (S, H, W, C). With ``mesh``, the positions are split over the data axis
+    and sampled from ``seed`` (module docstring)."""
     dev = require_device(device)
     model = model.to(dev).eval()
     z = torch.linspace(0.0, 1.0, num_slices, dtype=torch.float32, device=dev)
-    return _denoise(diffusion, _conditioned(model, z, guidance_scale),
-                    (num_slices, image_size, image_size, channels),
-                    _generator(dev, generator), _on(x_t, dev), ddim_steps, sampler)
+
+    def run(gen, z_local, x0=None):
+        return _denoise(diffusion, _conditioned(model, z_local, guidance_scale),
+                        (z_local.shape[0], image_size, image_size, channels), gen, x0,
+                        ddim_steps, sampler)
+
+    if mesh is not None:
+        return _sharded(mesh, generator, x_t, run, seed, num_slices, dev, cond=z)
+    return run(_generator(dev, generator), z, _on(x_t, dev))
 
 
 # ----------------------------------------------------------------- 2.5D
@@ -175,13 +214,23 @@ def conditional_sample_25d(
     out_channels: int = 4,
     guidance_scale: Optional[float] = None,
     device: Device = "cuda",
+    mesh=None,
+    seed: int = 0,
 ) -> torch.Tensor:
     """Center slices given z_pos (B,) and their neighbours' context
     (B, H, W, Ck): returns (B, H, W, out_channels). ``guidance_scale`` guides
-    on the z condition; the context stays attached to both halves."""
+    on the z condition; the context stays attached to both halves. With
+    ``mesh``, the (z_pos, context) batch is split over the data axis and
+    sampled from ``seed`` (module docstring)."""
     dev = require_device(device)
     model = model.to(dev).eval()
-    return _sample_25d(model, diffusion, _on(z_pos, dev).float(), _on(context, dev).float(),
+    z_pos, context = _on(z_pos, dev).float(), _on(context, dev).float()
+    if mesh is not None:
+        return _sharded(mesh, generator, x_t, lambda gen, cond: _sample_25d(
+            model, diffusion, cond[0], cond[1], gen, None, ddim_steps, sampler,
+            out_channels, guidance_scale), seed, context.shape[0], dev,
+            cond=(z_pos, context))
+    return _sample_25d(model, diffusion, z_pos, context,
                        _generator(dev, generator), _on(x_t, dev), ddim_steps, sampler,
                        out_channels, guidance_scale)
 
@@ -200,11 +249,14 @@ def generate_pseudo3d_real_context(
     batch_size: Optional[int] = None,
     guidance_scale: Optional[float] = None,
     device: Device = "cuda",
+    mesh=None,
+    seed: int = 0,
 ) -> torch.Tensor:
     """Every slice of one subject conditioned on its REAL neighbours: the
     slices are independent given that context, so they are denoised in
-    batches of ``batch_size`` (all of them at once by default). Returns
-    (S, H, W, 4).
+    batches of ``batch_size`` (all of them at once by default; with ``mesh``
+    4 slices a rank, each chunk the axis divides split over it — module
+    docstring). Returns (S, H, W, 4).
 
     ``dataset`` is duck-typed as in the JAX package: ``volume_paths``,
     ``slice_tuples`` ((path, z) per item) and ``__getitem__`` giving numpy
@@ -219,8 +271,25 @@ def generate_pseudo3d_real_context(
     context = torch.from_numpy(np.stack([s["context"] for s in samples])).float().to(dev)
     z_pos = torch.tensor([float(s["z_pos"]) for s in samples], dtype=torch.float32,
                          device=dev)
-    x_t = _on(x_t, dev)
     n = len(samples)
+    if mesh is not None:
+        if generator is not None or x_t is not None:
+            raise ValueError("with mesh=, the shards' generators come from seed: "
+                             "pass neither generator nor x_t")
+        d = axis_size(mesh, "data")
+        bs = batch_size or 4 * d
+        outs = []
+        for s0 in range(0, n, bs):
+            z_c, ctx_c = z_pos[s0:s0 + bs], context[s0:s0 + bs]
+            outs.append(sharded_sample(
+                mesh if z_c.shape[0] % d == 0 else None,
+                lambda _, gen, cond: _sample_25d(
+                    model, diffusion, cond[0], cond[1], gen, None, ddim_steps,
+                    sampler, 4, guidance_scale),
+                None, _chunk_seed(seed, s0), z_c.shape[0], cond=(z_c, ctx_c),
+                device=dev))
+        return torch.cat(outs)
+    x_t = _on(x_t, dev)
     bs = batch_size or n
     outs = [
         _sample_25d(model, diffusion, z_pos[s0:s0 + bs], context[s0:s0 + bs], gen,
@@ -229,6 +298,11 @@ def generate_pseudo3d_real_context(
         for s0 in range(0, n, bs)
     ]
     return torch.cat(outs)
+
+
+def _chunk_seed(seed: int, s0: int) -> int:
+    """The seed of the chunk that starts at slice ``s0``."""
+    return int(np.random.SeedSequence((seed, s0)).generate_state(1, np.uint64)[0] >> 1)
 
 
 @torch.no_grad()
@@ -307,10 +381,15 @@ def generate_3d_volumes(
     ddim_steps: Optional[int] = None,
     sampler: str = "ddim",
     device: Device = "cuda",
+    mesh=None,
+    seed: int = 0,
 ) -> torch.Tensor:
     """Latent sample → unscale → VAE decode. Returns (N, D, H, W, C) float32
     volumes in model space, on ``device``. ``ddim_steps`` steps of ``sampler``
     ("ddim" or "dpm"), or with ``ddim_steps=None`` the full-T ancestral loop.
+    With ``mesh``, the volumes are split over the data axis — each rank
+    denoises and decodes its own — and sampled from ``seed`` (module
+    docstring).
 
     Both models are moved to ``device``. The start noise is ``x_t`` where
     given (moved to ``device``), else drawn from ``generator``, which must
@@ -321,10 +400,15 @@ def generate_3d_volumes(
     dev = require_device(device)
     unet = unet.to(dev).eval()
     vae = vae.to(dev).eval()
-    shape = (num_volumes, *latent_spatial, latent_channels)
-    z = _denoise(diffusion, unet, shape, _generator(dev, generator), _on(x_t, dev),
-                 ddim_steps, sampler)
-    return vae.decode_from_latent(z / latent_scale)
+
+    def run(gen, local, x0=None):
+        z = _denoise(diffusion, unet, (local, *latent_spatial, latent_channels), gen,
+                     x0, ddim_steps, sampler)
+        return vae.decode_from_latent(z / latent_scale)
+
+    if mesh is not None:
+        return _sharded(mesh, generator, x_t, run, seed, num_volumes, dev)
+    return run(_generator(dev, generator), num_volumes, _on(x_t, dev))
 
 
 @torch.no_grad()

@@ -17,8 +17,15 @@ resume) and, apart from them, the single best-by-``best_key`` step in
 ``best/``, tracked in ``best.json`` (written atomically; a truncated file reads
 as "no record"). Every file is written under a temporary name and renamed into
 place, so a save killed midway is never what ``latest_step`` returns. Saves
-are synchronous: ``wait`` and ``close`` have nothing to wait for. One process
-writes; the multi-process port comes with the parallel slice.
+are synchronous: ``wait`` and ``close`` have nothing to wait for.
+
+Across processes every rank calls ``save`` (a sharded state gathers its full
+tensors there, a collective), rank 0 alone writes, and the others wait at a
+barrier behind the write, so the next ``latest_step`` or ``restore`` sees the
+file on every rank. Whether a save is the new best is rank 0's view of
+``best.json``, broadcast before anyone branches. The file does not depend on
+the process count or on FSDP: a checkpoint of a d-process run restores in one
+process and the other way round.
 
 ``save_params_npz`` / ``load_params_npz`` keep the JAX package's npz layout
 (``arr_i`` plus a ``__keys__`` JSON entry), so weights exported by either
@@ -36,6 +43,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from mrijax_torch.parallel.multihost import barrier, broadcast_from_host0, process_index
 from mrijax_torch.train.steps import _device_of
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
@@ -43,11 +51,15 @@ _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 def _payload(state) -> Dict[str, Any]:
     """What a checkpoint holds of a ``TrainState``: model, optimizer, EMA
-    shadow and step."""
+    shadow and step — full tensors, gathered under FSDP."""
+    optimizer, ema = state.optimizer.state_dict(), state.ema_params
+    if state.fsdp is not None:
+        optimizer = state.fsdp.full_optimizer_state(optimizer)
+        ema = None if ema is None else state.fsdp.full_ema(ema)
     return {
         "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "ema": state.ema_params,
+        "optimizer": optimizer,
+        "ema": ema,
         "step": int(state.step),
     }
 
@@ -56,18 +68,26 @@ def _payload(state) -> Dict[str, Any]:
 def load_state(state, payload: Mapping[str, Any]):
     """Load a checkpoint's payload (``restore_host``'s, or ``torch.load``'s)
     into ``state`` in place: every tensor is copied onto the device and into
-    the dtype of the one it replaces. Returns ``state``."""
+    the dtype of the one it replaces; a sharded state takes its slices.
+    Returns ``state``."""
     if (payload["ema"] is None) != (state.ema_params is None):
         raise ValueError("the checkpoint and the train state disagree on whether "
                          "an EMA shadow is tracked")
+    layout = state.fsdp
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    optimizer, ema = payload["optimizer"], payload["ema"]
+    if layout is not None:
+        layout.reshard_parameters()
+        optimizer = layout.shard_optimizer_state(optimizer)
+    state.optimizer.load_state_dict(optimizer)
     if state.ema_params is not None:
-        if payload["ema"].keys() != state.ema_params.keys():
+        if ema.keys() != state.ema_params.keys():
             raise ValueError("the checkpoint's EMA shadow has other parameters "
                              "than the train state's")
+        if layout is not None:
+            ema = layout.shard_ema({k: v.to(state.ema_params[k].device) for k, v in ema.items()})
         for name, shadow in state.ema_params.items():
-            shadow.copy_(payload["ema"][name])
+            shadow.copy_(ema[name])
     state.step = int(payload["step"])
     return state
 
@@ -114,30 +134,47 @@ class CheckpointManager:
 
     def save(self, step: int, state, extra: Optional[dict] = None,
              metrics: Optional[dict] = None):
+        """Every rank calls it; rank 0 writes, the others wait for the write."""
         payload = {**_payload(state), "extra": _jsonify(extra or {})}
+        if process_index() == 0:
+            self._write(step, payload, metrics or {})
+        else:
+            # rank 0 decides on best.json; the broadcast pairs with its own
+            self._is_best(metrics or {})
+        barrier()
+
+    def _is_best(self, metrics: dict) -> Optional[float]:
+        """The metric if this save is the new best, on rank 0's view of
+        ``best.json`` (broadcast, so every rank agrees), else None."""
+        if not (self.best_key and self.best_key in metrics):
+            return None
+        val = float(metrics[self.best_key])
+        prev = broadcast_from_host0(self._best_record().get("value", float("inf"))
+                                    if process_index() == 0 else 0.0)
+        return val if val < prev else None
+
+    def _write(self, step: int, payload: dict, metrics: dict):
         path = self.directory / f"{step}.pt"
         tmp = path.with_name(path.name + ".tmp")
         torch.save(payload, tmp)
         os.replace(tmp, path)
         for old in self._steps(self.directory)[:-self.max_to_keep]:
             (self.directory / f"{old}.pt").unlink()
-        metrics = metrics or {}
-        if self.best_key and self.best_key in metrics:
-            val = float(metrics[self.best_key])
-            if val < self._best_record().get("value", float("inf")):
-                best = self.directory / "best"
-                best.mkdir(exist_ok=True)
-                target = best / f"{step}.pt"
-                tmp = target.with_name(target.name + ".tmp")
-                shutil.copyfile(path, tmp)
-                os.replace(tmp, target)
-                for old in self._steps(best):
-                    if old != step:
-                        (best / f"{old}.pt").unlink()
-                record = self.directory / "best.json"
-                tmp = record.with_suffix(".json.tmp")
-                tmp.write_text(json.dumps({"step": step, "value": val}))
-                os.replace(tmp, record)
+        val = self._is_best(metrics)
+        if val is not None:
+            best = self.directory / "best"
+            best.mkdir(exist_ok=True)
+            target = best / f"{step}.pt"
+            tmp = target.with_name(target.name + ".tmp")
+            shutil.copyfile(path, tmp)
+            os.replace(tmp, target)
+            for old in self._steps(best):
+                if old != step:
+                    (best / f"{old}.pt").unlink()
+            record = self.directory / "best.json"
+            tmp = record.with_suffix(".json.tmp")
+            tmp.write_text(json.dumps({"step": step, "value": val}))
+            os.replace(tmp, record)
 
     def wait(self):
         """Saves are synchronous: nothing is in flight."""

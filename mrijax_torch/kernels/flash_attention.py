@@ -19,8 +19,10 @@ tiles in shared memory filled by 16-byte asynchronous copies); for float32
 inputs every product is fp32 FMAs. The C entry picks by dtype.
 ``launch_plan`` chooses the forward's rows per block and reports the others'.
 
-API: q, k, v of shape (B, N, H, Dh) → out (B, N, H, Dh) in the input dtype,
-lse fp32 (B·H, N); scale = Dh**-0.5, folded into q and rounded to the input
+API: q of shape (B, N, H, Dh), k and v of shape (B, Nk, H, Dh) → out
+(B, N, H, Dh) in the input dtype, lse fp32 (B·H, N); Nk = N is
+self-attention, Nk ≠ N a block of query rows against every key (what
+``mrijax_torch.parallel.sequence`` gives each rank); scale = Dh**-0.5, folded into q and rounded to the input
 dtype before the product, as in the TPU version. ``flash_attention`` is a
 ``torch.autograd.Function``: its forward saves (q, k, v, out, lse), its
 backward launches the two backward kernels.
@@ -156,8 +158,7 @@ def flash_attention_reference(
     q′kᵀ product, the unnormalised probabilities to the input dtype before the
     p·v product; logits, softmax statistics and both accumulations in fp32.
     Materialises the (B, H, N, M) logits, so it is for tests and comparisons;
-    k and v may hold another number of tokens M than q, which lets a caller
-    check a long sequence a block of query rows at a time.
+    k and v may hold another number of tokens M than q, as the kernel does.
     """
     b, n, h, d = q.shape
     scale = d ** -0.5
@@ -204,7 +205,7 @@ def flash_attn_bwd_dkv_reference(
     """Plain PyTorch version of ``flash_attn_bwd_dkv``: ``(dk, dv)`` with
     dV = pᵀ·dO and dK = dUᵀ·q′, p and dU fp32, summed in fp32 over blocks of
     ``q_block`` query rows and rounded once."""
-    dk = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
     for _, qs, do, p, du in _p_and_du_blocks(q, k, v, dout, lse, delta, q_block):
         dv += torch.einsum("bhnm,bnhd->bmhd", p, do)
@@ -252,7 +253,7 @@ def _library() -> ctypes.CDLL:
     if lib.flash_attn_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attn_fwd.argtypes = (
-            [p] * 5 + [i] * 6 + [ll] * 9 + [ctypes.c_double, p]
+            [p] * 5 + [i] * 7 + [ll] * 9 + [ctypes.c_double, p]
         )
         lib.flash_attn_fwd.restype = i
     return lib
@@ -266,9 +267,9 @@ def _backward_library() -> ctypes.CDLL:
     if lib.flash_attn_bwd_dkv.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, p]
-        lib.flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + tail
+        lib.flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + tail
         lib.flash_attn_bwd_dkv.restype = i
-        lib.flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 5 + tail
+        lib.flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 6 + tail
         lib.flash_attn_bwd_dq.restype = i
     return lib
 
@@ -284,9 +285,13 @@ def _token_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+    """q (B, N, H, Dh) against k and v of one (B, Nk, H, Dh) shape: the
+    token counts may differ, nothing else may."""
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
+            or (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3])):
         raise ValueError(
-            f"q, k, v must share one (B, N, H, Dh) shape, got "
+            f"k and v must share one (B, Nk, H, Dh) shape, and q (B, N, H, Dh) "
+            f"its B, H and Dh; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
@@ -297,20 +302,20 @@ def _check_kernel_operands(**operands: torch.Tensor) -> None:
     """Sizes the kernels take and, for bfloat16, the alignment their 16-byte
     copies need, of q and of every strided operand given by name."""
     q = operands["q"]
-    _check_kernel_sizes(q)
+    _check_kernel_sizes(q, operands["k"].shape[1])
     if q.dtype == torch.bfloat16:
         for name, t in operands.items():
             check_copy_alignment(name, t)
 
 
-def _check_kernel_sizes(q: torch.Tensor) -> None:
+def _check_kernel_sizes(q: torch.Tensor, nk: int) -> None:
     b, n, h, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
             f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS}, got {d}"
         )
-    if n < 1 or b * h < 1 or b * h > 65535:
-        raise ValueError(f"unsupported sizes: N={n}, B*H={b * h} (1..65535)")
+    if n < 1 or nk < 1 or b * h < 1 or b * h > 65535:
+        raise ValueError(f"unsupported sizes: N={n}, Nk={nk}, B*H={b * h} (1..65535)")
 
 
 def flash_attention_forward(
@@ -333,6 +338,7 @@ def flash_attention_forward(
     _check_kernel_operands(q=q, k=k, v=v)
     b, n, h, d = q.shape
     plan = launch_plan("flash_attn_fwd", b, n, h, d, q.dtype)
+    nk = k.shape[1]
     strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                for s in _token_strides(name, t)]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -341,7 +347,7 @@ def flash_attention_forward(
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), code, b, n, h, d, plan.tile, *strides, float(d ** -0.5),
+            lse.data_ptr(), code, b, n, nk, h, d, plan.tile, *strides, float(d ** -0.5),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_launch(err, "flash_attn_fwd")
@@ -368,6 +374,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
     """Launch ``flash_attn_bwd_dkv`` or ``flash_attn_bwd_dq`` on checked CUDA
     operands; ``outputs`` are the contiguous tensors the kernel writes."""
     b, n, h, d = q.shape
+    nk = k.shape[1]
     code = _build.dtype_code(q.dtype)
     _check_kernel_operands(q=q, k=k, v=v, dout=dout)
     strides = _BwdStrides(*[
@@ -377,7 +384,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
-                 code, b, n, h, d, strides, float(d ** -0.5),
+                 code, b, n, nk, h, d, strides, float(d ** -0.5),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, entry)
     launches.bump(entry)
@@ -387,15 +394,15 @@ def flash_attn_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv)``, contiguous (B, N, H, Dh) in the input dtype, from the
-    forward's ``lse`` and Δ = rowsum(dO∘O), both fp32 (B·H, N). q, k, v and
+    """``(dk, dv)``, contiguous (B, Nk, H, Dh) like k in the input dtype, from
+    the forward's ``lse`` and Δ = rowsum(dO∘O), both fp32 (B·H, N). q, k, v and
     ``dout`` are read through their (batch, token, head) strides. On CUDA the
     ``flash_attn_bwd_dkv`` kernel or an error; on the CPU its plain version."""
     _check_backward_operands(q, k, v, dout, lse, delta)
     if not q.is_cuda:
         return flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
-    dk, dv = torch.empty(q.shape, dtype=q.dtype, device=q.device), \
-        torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk, dv = torch.empty(k.shape, dtype=q.dtype, device=q.device), \
+        torch.empty(k.shape, dtype=q.dtype, device=q.device)
     _launch_backward("flash_attn_bwd_dkv", q, k, v, dout, lse, delta, (dk, dv))
     return dk, dv
 
@@ -473,8 +480,8 @@ def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, 
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Memory-efficient attention, differentiable. q, k, v: (B, N, H, Dh) →
-    (B, N, H, Dh). A call that records no gradient (sampling) goes straight to
+    """Memory-efficient attention, differentiable. q (B, N, H, Dh) against
+    k, v (B, Nk, H, Dh) → (B, N, H, Dh). A call that records no gradient (sampling) goes straight to
     the forward kernel; inside ``torch.export`` it is the custom op."""
     if torch.compiler.is_exporting():
         return flash_attn_fwd_op(q, k, v)[0]

@@ -43,6 +43,7 @@ from mrijax_torch.kernels.flash_attention import flash_attention
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.embeddings import sinusoidal_time_embedding
 from mrijax_torch.ops.norms import group_norm, group_norm_silu_auto
+from mrijax_torch.parallel.sequence import sequence_parallel_attention
 
 
 def _channels_last_call(conv_forward, x: torch.Tensor) -> torch.Tensor:
@@ -273,16 +274,21 @@ class AttentionBlock3D(nn.Module):
     residual. On channels-last tensors the 1×1×1 convs of the reference are
     linears over the channel axis. ``use_flash`` routes the softmax(qkᵀ)v core
     through ``mrijax_torch.kernels.flash_attention`` (the hand-written kernel
-    on CUDA); otherwise the plain materialised attention runs."""
+    on CUDA); otherwise the plain materialised attention runs. With
+    ``sp_axis`` and ``mesh`` the token axis' work is split over that mesh
+    axis (``parallel.sequence.sequence_parallel_attention``, the flash
+    kernels on N/d query rows against all N keys)."""
 
     def __init__(self, channels: int, num_heads: int = 4, groups: int = 8,
                  dtype: torch.dtype = torch.float32, use_flash: bool = True,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 sp_axis: Optional[str] = None, mesh=None):
         super().__init__()
         if channels % num_heads != 0:
             raise ValueError(f"channels {channels} not divisible by heads {num_heads}")
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.sp_axis, self.mesh = sp_axis, mesh
         self.norm = GroupNorm(channels, groups)
         self.qkv = Linear(channels, 3 * channels, dtype, param_dtype)
         self.proj = Linear(channels, channels, dtype, param_dtype)
@@ -294,6 +300,10 @@ class AttentionBlock3D(nn.Module):
         qkv = self.qkv(h).reshape(b, -1, 3, self.num_heads, hd)  # (B, N, 3, H, Dh)
         # strided views of the fused projection; the flash kernel reads them as they are
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attend = flash_attention if self.use_flash else multi_head_self_attention
-        out = attend(q, k, v).reshape(x.shape)
+        if self.sp_axis is not None and self.mesh is not None:
+            out = sequence_parallel_attention(q, k, v, mesh=self.mesh, axis=self.sp_axis)
+        else:
+            attend = flash_attention if self.use_flash else multi_head_self_attention
+            out = attend(q, k, v)
+        out = out.reshape(x.shape)
         return x + self.proj(out)

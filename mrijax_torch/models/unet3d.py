@@ -22,8 +22,8 @@ a recomputed block launches its GroupNorm+SiLU kernels a second time. The
 ``param_dtype`` the dtype the convolutions and linears hold their parameters
 in (``None``: ``dtype``; training uses float32).
 
-Not ported yet: sequence parallelism (``sp_axis``, ``mesh``), which belongs to
-the parallel slice.
+``sp_axis`` and ``mesh`` split the token axis of every attention block over
+that mesh axis (``parallel.sequence``); activations stay replicated over it.
 """
 
 from typing import Optional, Sequence
@@ -66,6 +66,10 @@ class UNet3D(nn.Module):
         remat_levels: Optional[Sequence[int]] = None,
         dtype: torch.dtype = torch.float32,
         param_dtype: Optional[torch.dtype] = None,
+        # sequence parallelism for the attention blocks (token axis split
+        # over mesh axis ``sp_axis``); None = single-device attention
+        sp_axis: Optional[str] = None,
+        mesh=None,
     ):
         super().__init__()
         self.dtype = dtype
@@ -88,7 +92,7 @@ class UNet3D(nn.Module):
 
         def attn(ch):
             return AttentionBlock3D(ch, num_heads, groups, dtype, use_flash_attention,
-                                    param_dtype)
+                                    param_dtype, sp_axis, mesh)
 
         self.time_mlp = TimeEmbedding(time_emb_dim, dtype, param_dtype)
         self.in_conv = Conv3d(in_channels, chs[0], 3, padding=1, dtype=dtype,

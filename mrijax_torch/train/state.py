@@ -14,7 +14,9 @@ are float32, so no loss scaling is needed.
 A JAX train state is immutable and every step returns a new one. Here the
 model and the optimizer are updated in place, which saves a copy of every
 parameter and moment per step; ``TrainState`` is the handle that the step
-functions take and give back.
+functions take and give back. Under ``mrijax_torch.parallel.fsdp`` the
+optimizer and the EMA shadow hold this rank's slices (``fsdp`` is then the
+layout) and the model a gathered copy of the full parameters.
 """
 
 from dataclasses import dataclass
@@ -27,13 +29,15 @@ from mrijax_torch._device import require_device
 
 @dataclass
 class TrainState:
-    """Model, optimizer, number of optimizer updates applied, and the
-    optional EMA shadow of the model's parameters (by parameter name)."""
+    """Model, optimizer, number of optimizer updates applied, the optional
+    EMA shadow of the model's parameters (by parameter name), and the FSDP
+    layout where the state is sharded (``parallel.fsdp.shard_train_state``)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    fsdp: Optional[object] = None
 
 
 def make_adam(params, learning_rate: float) -> torch.optim.Adam:
@@ -53,13 +57,21 @@ def create_train_state(
     return TrainState(model, make_adam(model.parameters(), learning_rate), 0, shadow)
 
 
+def optimized_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The tensors the optimizer updates, by parameter name: the model's
+    parameters, or this rank's slices of them under FSDP."""
+    if state.fsdp is not None:
+        return state.fsdp.shards()
+    return dict(state.model.named_parameters())
+
+
 @torch.no_grad()
 def ema_update(state: TrainState, decay: float) -> TrainState:
     """shadow ← decay·shadow + (1−decay)·params, in place; a state without a
     shadow is left as it is."""
     if state.ema_params is None:
         return state
-    params = dict(state.model.named_parameters())
+    params = optimized_params(state)
     shadow = list(state.ema_params.values())
     current = [params[name].detach().to(e.dtype)
                for name, e in state.ema_params.items()]
@@ -71,8 +83,11 @@ def ema_update(state: TrainState, decay: float) -> TrainState:
 def inference_params(state: TrainState) -> Dict[str, torch.Tensor]:
     """The parameters to sample or evaluate with, by name: the EMA shadow when
     tracked, else the model's own. ``torch.func.functional_call(model, params,
-    args)`` runs the model on them."""
+    args)`` runs the model on them. Under FSDP the shadow's slices are
+    gathered: every rank of the data axis must call this together."""
     if state.ema_params is not None:
+        if state.fsdp is not None:
+            return state.fsdp.full_ema(state.ema_params)
         return state.ema_params
     return {name: p.detach() for name, p in state.model.named_parameters()}
 

@@ -20,9 +20,18 @@ Counterpart of ``mrijax/train/trainer.py``, behaviour for behaviour:
 
 ``train_step(state, batch, generator) → (state, loss_or_metrics)`` and
 ``eval_step(params, batch, generator[, batch_index=i]) → loss`` are injected;
-a generator lives on the device of the state's parameters. One process: the
-multi-process consensus on preemption comes with the parallel port, and
-``fit`` refuses a ``torch.distributed`` group of more than one process.
+a generator lives on the device of the state's parameters.
+
+Across processes (a ``torch.distributed`` group of more than one): every
+rank runs the same loop on its rows. The train losses are global already
+(the data-parallel steps all-reduce them); the validation mean is the
+weighted float64 ``[sum, count]`` all-reduce over ranks. A preemption flag
+becomes a consensus before anyone breaks — a rank leaving the step loop
+alone while the others issue the next step's collectives would hang them —
+so the vote (``any_process_flagged``) runs every ``preempt_sync_every``
+steps and at the epoch edge, points every rank reaches together; the
+validation deadline is voted on the same way. Every rank enters the
+checkpoint save (the manager lets rank 0 alone write).
 """
 
 import inspect
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from mrijax_torch.obs import MetricsLogger, StepTimer, device_memory_stats, should_terminate
+from mrijax_torch.parallel.multihost import any_process_flagged, global_mean, is_distributed
 from mrijax_torch.train.state import (
     EarlyStopper,
     PlateauScheduler,
@@ -82,6 +92,7 @@ class Trainer:
         metric_prefix: str = "",
         checkpoint_extra: Optional[Callable[[], dict]] = None,
         resume: bool = True,
+        preempt_sync_every: int = 32,
         preempt_val_budget_s: float = 120.0,
     ):
         self.train_step = train_step
@@ -104,6 +115,7 @@ class Trainer:
         self.prefix = metric_prefix
         self.checkpoint_extra = checkpoint_extra or (lambda: {})
         self.resume = resume
+        self.preempt_sync_every = preempt_sync_every
         # wall-clock cap on the validation pass a fully-trained preempted
         # epoch runs inside the SIGUSR1 grace window (SLURM kills 600 s
         # after the signal); the checkpoint save that follows must always
@@ -141,17 +153,37 @@ class Trainer:
         )
         return state
 
+    @staticmethod
+    def _past(deadline: float) -> bool:
+        """Whether the validation deadline has passed — for all ranks at once
+        (wall clocks differ; a rank abandoning alone would hang the others)."""
+        late = time.perf_counter() > deadline
+        return any_process_flagged(late) if is_distributed() else late
+
     def _log(self, key: str, value: float, step: int):
         if self.logger is not None:
             self.logger.log_metric(self.prefix + key, value, step)
 
+    def _should_stop(self, step_index: Optional[int] = None) -> bool:
+        """Preemption poll. One process: the host-local flag, every step.
+        Several: a consensus vote at every ``preempt_sync_every``-th step and
+        at the epoch edge (``step_index=None``); between those points no rank
+        breaks alone."""
+        if not is_distributed():
+            return should_terminate()
+        if step_index is not None and (step_index + 1) % self.preempt_sync_every:
+            return False
+        return any_process_flagged(should_terminate())
+
+    def _val_mean(self, losses, rows) -> float:
+        """Mean validation loss: over ranks, weighted by each batch's rows."""
+        if not is_distributed():
+            return _mean(losses)
+        local = torch.stack(losses).float().cpu().numpy().astype(np.float64)
+        return global_mean(float(np.dot(local, rows)), float(np.sum(rows)))
+
     # --------------------------------------------------------------- loop
     def fit(self, state) -> TrainerResult:
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "the trainer runs one process: the multi-process preemption "
-                "vote comes with the parallel port")
         if self.resume:
             state = self.try_resume(state)
         if self.resumed_stopped_early:
@@ -212,8 +244,7 @@ class Trainer:
                 self.global_step += 1
                 if (i + 1) % self.log_every_steps == 0:
                     self._log("train_loss_step", float(loss), self.global_step)
-                # the preemption poll of the one process: the host-local flag
-                if should_terminate():
+                if self._should_stop(i):
                     preempted = True
                     # a flag that fires on the epoch's LAST step leaves no
                     # untrained remainder — that epoch is complete, exactly
@@ -234,9 +265,9 @@ class Trainer:
             # device execution, not just dispatch
             timer.finalize()
             epoch_time = time.time() - t_epoch
-            preempted = preempted or should_terminate()
+            preempted = preempted or self._should_stop()
 
-            val_losses = []
+            val_losses, val_rows = [], []
             # A MID-epoch preemption spends the bounded SIGUSR1 grace
             # window on the checkpoint, not on a validation pass — resume
             # re-runs that whole epoch anyway, validation included. A
@@ -258,10 +289,12 @@ class Trainer:
                 if (preempted and not mid_epoch) else None
             )
             val_abandoned = False
+            # once an epoch: under FSDP this gathers the EMA shadow's slices
+            val_params = _params_of(state) if not mid_epoch else None
             for i, batch in enumerate(val_iter):
                 if self.debug_max_steps is not None and i >= self.debug_max_steps:
                     break
-                if val_deadline is not None and time.perf_counter() > val_deadline:
+                if val_deadline is not None and self._past(val_deadline):
                     # a partial mean is biased toward the early batches;
                     # discard so schedulers never act on it
                     val_losses = []
@@ -271,13 +304,14 @@ class Trainer:
                     break
                 gen_val.manual_seed(step_seed(self.seed, VAL_STREAM, epoch, i))
                 if self._eval_takes_index:
-                    vl = self.eval_step(_params_of(state), batch, gen_val, batch_index=i)
+                    vl = self.eval_step(val_params, batch, gen_val, batch_index=i)
                 else:
-                    vl = self.eval_step(_params_of(state), batch, gen_val)
+                    vl = self.eval_step(val_params, batch, gen_val)
                 if isinstance(vl, dict):
                     vl = vl["loss"]
                 val_losses.append(torch.tensor(float(vl)) if val_deadline is not None
                                   else torch.as_tensor(vl))
+                val_rows.append(_rows(batch))
             # Validation skipped by the mid-epoch grace window must not
             # drive LR/early-stop/best-checkpoint decisions — a low train
             # loss would overwrite best/ with a never-validated state. A
@@ -287,7 +321,7 @@ class Trainer:
             # so its updates are trusted even under preemption — unless the
             # grace budget abandoned it.
             trust_val = not mid_epoch and not val_abandoned
-            val_loss = _mean(val_losses) if val_losses else train_loss
+            val_loss = self._val_mean(val_losses, val_rows) if val_losses else train_loss
 
             lr = get_learning_rate(state)
             new_lr = self.scheduler.update(val_loss, lr) if trust_val else lr
@@ -354,6 +388,12 @@ class Trainer:
             stopped_early=stopped_early,
             preempted=preempted,
         )
+
+
+def _rows(batch) -> int:
+    """Rows of a batch dict (its first value's leading axis), else 1."""
+    first = next(iter(batch.values()), None) if isinstance(batch, dict) else None
+    return int(np.shape(first)[0]) if np.ndim(first) else 1
 
 
 def _mean(losses) -> float:

@@ -262,17 +262,34 @@ def test_bad_inputs():
     ["sample", "--run-dir", "{run}", "--data-parallel"],
     ["eval", "--run-dir", "{run}", "--data-parallel"],
 ], ids=["num-processes", "coordinator", "process-id", "sample", "eval"])
-def test_multi_device_flags_name_the_parallel_slice(tmp_path, argv):
+def test_multi_device_flags_name_the_parallel_slice(tmp_path, argv, monkeypatch):
+    """The multi-device flags are no longer refused. A train flag without
+    a full rendezvous (and no torchrun or SLURM variables) fails loudly
+    instead of dropping to one process; ``--data-parallel`` in one process
+    is a world of one and gets as far as the run's (missing) checkpoint."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "SLURM_PROCID",
+                "SLURM_NTASKS", "MRIJAX_MULTIHOST"):
+        monkeypatch.delenv(var, raising=False)
     run = tmp_path / "run"
     run.mkdir()
     preset_slice_cond_2d(str(tmp_path)).to_json(run / "config.json")
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
-        port(*[a.replace("{run}", str(run)) for a in argv])
+    argv = [a.replace("{run}", str(run)) for a in argv]
+    if argv[0] == "train":
+        with pytest.raises(RuntimeError, match="multi-process start-up"):
+            port(*argv)
+    else:
+        with pytest.raises(FileNotFoundError, match="no checkpoints"):
+            port(*argv)
+    assert not torch.distributed.is_initialized()
 
 
 def test_multihost_environment_is_refused(monkeypatch):
+    """A multi-task SLURM allocation makes ``train`` one rank of a job: with
+    no rank and no address to meet the others at, it fails loudly."""
+    for var in ("RANK", "MASTER_ADDR", "MASTER_PORT", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("SLURM_NTASKS", "4")
-    with pytest.raises(SystemExit, match="parallel slice"):
+    with pytest.raises(RuntimeError, match="multi-process start-up"):
         port("train", "--preset", "slice_cond_2d")
     monkeypatch.setenv("SLURM_NTASKS", "1")
     args = cli.build_parser().parse_args(["train", "--num-processes", "1"])

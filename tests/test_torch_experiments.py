@@ -320,15 +320,15 @@ def test_drivers_refuse_what_needs_more_than_one_device(monkeypatch, tmp_path, b
     logger = MetricsLogger("x", root=str(tmp_path / "runs"))
     with pytest.raises(RuntimeError, match="cuda"):
         experiments.run_experiment(cfg, logger=logger)
+    # num_devices must be the data axis' size: one process is an axis of 1
     cfg.train.num_devices = 2
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="num_devices=2"):
         experiments.run_experiment(cfg, device="cpu", logger=logger)
     cfg.train.num_devices = None
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="one process"):
+    cfg.vae_train.num_devices = 4
+    with pytest.raises(ValueError, match="vae_train.num_devices=4"):
         experiments.run_experiment(cfg, device="cpu", logger=logger)
-    monkeypatch.undo()
+    cfg.vae_train.num_devices = None
     cfg.family = "nope"
     with pytest.raises(ValueError, match="unknown family"):
         experiments.run_experiment(cfg, device="cpu", logger=logger)

@@ -342,11 +342,38 @@ def test_step_seeds_depend_only_on_their_four_integers():
 
 
 def test_fit_refuses_several_processes(monkeypatch, tmp_path):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    side = TorchSide()
-    trainer = Trainer(train_step=side.train_step, eval_step=side.eval_step,
-                      train_loader=ScriptLoader(STEPS, _handler),
-                      val_loader=ScriptLoader(2, _handler), epochs=1)
-    with pytest.raises(NotImplementedError, match="one process"):
-        trainer.fit(side.state)
+    """Several processes are no longer refused: in a group of more than one,
+    ``fit`` votes on a preemption only at every ``preempt_sync_every``-th step
+    and at the epoch edge (points every rank reaches together), and takes the
+    validation mean over ranks as one weighted all-reduce. A scripted world
+    of two: the vote and the all-reduce are replaced by recorders."""
+    import mrijax_torch.train.trainer as trainer_mod
+
+    votes, means = [], []
+    monkeypatch.setattr(trainer_mod, "is_distributed", lambda: True)
+    monkeypatch.setattr(trainer_mod, "any_process_flagged",
+                        lambda flag: votes.append(bool(flag)) or bool(flag))
+    monkeypatch.setattr(trainer_mod, "global_mean",
+                        lambda total, count: means.append((total, count)) or total / count)
+
+    def fit(preempt, epochs):
+        reset_termination()
+        side = TorchSide()
+        trainer = Trainer(train_step=side.train_step, eval_step=side.eval_step,
+                          train_loader=ScriptLoader(STEPS, _handler, preempt),
+                          val_loader=ScriptLoader(2, _handler), epochs=epochs,
+                          preempt_sync_every=2)
+        try:
+            return trainer.fit(side.state)
+        finally:
+            reset_termination()
+
+    result = fit((), 1)
+    assert votes == [False, False, False]          # steps 1 and 3, the edge
+    assert means == [(val_loss(0, 0) + val_loss(0, 1), 2.0)]
+    assert not result.preempted
+    votes.clear()
+    # flagged while step 0 runs: nobody breaks before the vote after step 1
+    result = fit([(0, 0)], 2)
+    assert votes == [True]
+    assert result.preempted and result.epochs_run == 1
