@@ -125,6 +125,26 @@ What it does, in order:
    launches; the flat gradient all-reduce against its bound; and
    ``generate_3d_volumes(mesh=…)`` bitwise the plain call with shard 0's
    generator.
+16. drives the entry points, the examples and the job scripts
+   (``entry_points_path``): ``graft_entry.entry()`` (one forward of the
+   flagship at (1, 32, 40, 40, 16): 29 launches of each GroupNorm kernel and
+   one of the flash forward, ms and peak bytes; the same ``fn`` against its
+   CPU build on the card's weights at a small bf16 latent),
+   ``graft_entry.dryrun_multichip(1)`` (a process of its own in an NCCL
+   group of one, with the JAX bars) and its refusal of one card too many;
+   the three ``examples/torch_*.py`` through ``main([..., "--device",
+   "cuda"])`` in this process, launches counted (the 3D LDM's attention at
+   Dh = 4 runs all three flash kernels); and the four ``scripts/torch_*.sh``
+   as processes of their own (training on ``configs/slice_cond_2d_tiny_cpu.json``,
+   sampling that run, preprocessing on the CPU, the multi-node script under
+   ``torchrun --nproc_per_node 1``).
+
+Phases 2 and 3 also hold the three flash kernels at head dims they are not
+compiled for (``FLASH_SMALL_DH``: Dh 4, 8 and 16, zero-padded to 32 by the
+wrappers) against their plain versions, fp32 and bf16, and time them
+through the wrappers and at the padded head dim alone, beside the bound at
+the true head dim and ``F.scaled_dot_product_attention``
+(``flash_small_dh_times``).
 
 Phases 2 and 3 also hold the three flash kernels at Nq ≠ Nk (the
 sequence-parallel chunks ``FLASH_CHUNKS``, q of N/d rows against k, v of N
@@ -144,7 +164,7 @@ exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
 names the card; the line before that is the ``{"kernels": [...]}`` record,
-and before it the ``parallel_path`` line.
+and before it the ``entry_points_path`` line.
 """
 
 import argparse
@@ -176,7 +196,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mrijax_torch import aot, cli, parallel
+from mrijax_torch import aot, cli, graft_entry, parallel
 from mrijax_torch import generate as generate_module
 from mrijax_torch.config import (
     ExperimentConfig,
@@ -312,6 +332,16 @@ FLASH_LONG = (1, 51200, 4, 32)   # attention at full latent resolution (attentio
 FLASH_CHUNKS = [((8, 400, 4, 128), (8, 800, 4, 128)),
                 ((8, 200, 4, 128), (8, 800, 4, 128)),
                 ((1, 25600, 4, 32), (1, 51200, 4, 32))]
+
+# head dims the kernels are not compiled for, which the wrappers zero-pad to the
+# next compiled one (32): the bottleneck of examples/torch_scaled_3d_ldm.py (4^3
+# tokens, 16 channels in 4 heads: Dh 4) at its training batch of 2 and its
+# sampling batch of 1, that of the dry run of mrijax_torch.graft_entry (16
+# channels in 2 heads: Dh 8), Dh 16 at a ragged N, and Dh 4 over several tiles
+FLASH_SMALL_DH = [(2, 64, 4, 4), (1, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16),
+                  (1, 1000, 4, 4)]
+# the dry run's bottleneck split over a model axis of 2: q of 32 rows against 64 keys
+FLASH_SMALL_DH_CHUNK = ((1, 32, 2, 8), (1, 64, 2, 8))
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP_STEPS = 2
@@ -832,6 +862,122 @@ def time_flash_chunks(rng):
         del q, k, v, out, lse, dout, delta, qt, kt, vt
         torch.cuda.empty_cache()
     print("flash_chunk_times " + json.dumps(rows))
+    return rows
+
+
+def compare_flash_small_dh(rng):
+    """The three flash kernels at head dims they are not compiled for
+    (``FLASH_SMALL_DH`` and the chunk ``FLASH_SMALL_DH_CHUNK``), which the
+    wrappers zero-pad to 32 and launch with the true scale, against their
+    plain versions at the true head dim, both dtypes, at phases 2–3's bars:
+    out and lse (float32 1e-4; bf16 out 2e-3 + 1e-2 relative, lse 1e-4), dk
+    and dv (float32 1e-4, bf16 one ulp), dq (float32 1e-4, bf16 two ulps),
+    and the gradients of ``flash_attention`` through autograd (the
+    ``_FlashAttention`` path of the examples' training)."""
+    worst = {name: {"float32": 0.0, "bfloat16": 0.0}
+             for name in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+    cases = [(shape, shape) for shape in FLASH_SMALL_DH] + [FLASH_SMALL_DH_CHUNK]
+    for q_shape, kv_shape in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).replace("torch.", "")
+            fwd_tol = dict(atol=1e-4) if dtype == torch.float32 else dict(atol=2e-3, rtol=1e-2)
+            bwd_tol = dict(atol=1e-4) if dtype == torch.float32 else ONE_ULP
+            dq_tol = dict(atol=1e-4) if dtype == torch.float32 else TWO_ULPS
+            tag = f"flash small Dh {key} q{q_shape} kv{kv_shape}"
+            q, k, v = flash_inputs(rng, kv_shape, dtype)
+            q = q[:, :q_shape[1]]
+            out, lse = fa.flash_attention_forward(q, k, v)
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+            e = check_close(f"{tag} out", out, ref_out, **fwd_tol)
+            check_close(f"{tag} lse", lse, ref_lse, atol=1e-4)
+            worst["flash_attn_fwd"][key] = max(worst["flash_attn_fwd"][key], e)
+            dout = torch.from_numpy(rng.standard_normal(q_shape, dtype=np.float32)).cuda().to(dtype)
+            delta = fa.flash_attention_delta(out, dout)
+            dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
+            ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
+            e = max(check_close(f"{tag} dk", dk, ref_dk, **bwd_tol),
+                    check_close(f"{tag} dv", dv, ref_dv, **bwd_tol))
+            worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
+            dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
+            ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+            e = check_close(f"{tag} dq", dq, ref_dq, **dq_tol)
+            worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
+            if q_shape == kv_shape:
+                qkv = torch.stack([q, k, v], dim=2).requires_grad_()
+                got, = torch.autograd.grad(
+                    fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]), qkv, dout)
+                check_close(f"{tag} autograd dk, dv", got[:, :, 1:],
+                            torch.stack([ref_dk, ref_dv], dim=2), **bwd_tol)
+                check_close(f"{tag} autograd dq", got[:, :, 0], ref_dq, **dq_tol)
+    torch.cuda.synchronize()
+    print(f"compare flash small Dh: {len(cases)} shapes x 2 dtypes ok (padded to "
+          f"{sorted({fa.kernel_head_dim(s[3]) for s in FLASH_SMALL_DH})}), "
+          f"max abs err {json.dumps(worst)}")
+    return worst
+
+
+def time_flash_small_dh(rng):
+    """The three kernels at the small head dims, through their wrappers (the
+    zero-padding copies and the cut included, as the models call them), and
+    at the padded head dim alone (``*_padded_kernel_ms``: the launch on
+    operands padded beforehand), beside the plain versions, the library
+    (``F.scaled_dot_product_attention``; backward: forward + backward less
+    forward) and the bound of the work at the TRUE head dim: operations
+    4·B·H·N²·Dh (forward), 8· (dkv), 6· (dq) over the rate of the input type,
+    or the bytes of the operands and outputs read and written once."""
+    rows = []
+    for shape in FLASH_SMALL_DH:
+        for dtype in (torch.float32, torch.bfloat16):
+            b, n, h, d = shape
+            key = str(dtype).replace("torch.", "")
+            q, k, v = flash_inputs(rng, shape, dtype)
+            out, lse = fa.flash_attention_forward(q, k, v)
+            dout = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
+            delta = fa.flash_attention_delta(out, dout)
+            size = fa.kernel_head_dim(d)
+            qp, kp, vp, dp_ = (F.pad(t, (0, size - d)) for t in (q, k, v, dout))
+            scale = d ** -0.5
+            qt, kt, vt = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+            dout_t = dout.permute(0, 2, 1, 3)
+
+            def sdpa_fb():
+                o = F.scaled_dot_product_attention(qt, kt, vt)
+                torch.autograd.grad(o, (qt, kt, vt), dout_t)
+
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            el = q.element_size()
+            t_bytes, stat = b * n * h * d * el, 4 * b * h * n
+            row = {"shape": list(shape), "dtype": key, "kernel_head_dim": size,
+                   "library_backward_ms": time_ms(sdpa_fb) - sdpa_ms}
+            dkv_out = [torch.empty_like(kp), torch.empty_like(kp)]
+            dq_out = [torch.empty_like(qp)]
+            for name, fn, padded, ref, products, nbytes, lib in (
+                ("fwd", lambda: fa.flash_attention_forward(q, k, v),
+                 lambda: fa._launch_forward(qp, kp, vp, scale),
+                 lambda: fa.flash_attention_reference(q, k, v), 2,
+                 4 * t_bytes + stat, sdpa_ms),
+                ("dkv", lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+                 lambda: fa._launch_backward("flash_attn_bwd_dkv", qp, kp, vp, dp_, lse,
+                                             delta, dkv_out, scale),
+                 lambda: fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta), 4,
+                 6 * t_bytes + 2 * stat, None),
+                ("dq", lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta),
+                 lambda: fa._launch_backward("flash_attn_bwd_dq", qp, kp, vp, dp_, lse,
+                                             delta, dq_out, scale),
+                 lambda: fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta), 3,
+                 5 * t_bytes + 2 * stat, None),
+            ):
+                t_flops = products * 2 * b * h * n * n * d / PEAK_FLOPS[key] * 1e3
+                t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+                row.update({f"{name}_ms": time_ms(fn),
+                            f"{name}_padded_kernel_ms": time_ms(padded),
+                            f"{name}_plain_ms": time_ms(ref),
+                            f"{name}_bound_ms": max(t_flops, t_mem),
+                            f"{name}_bound_by": "operations" if t_flops >= t_mem else "bytes"})
+                if lib is not None:
+                    row[f"{name}_library_ms"] = lib
+            rows.append(row)
+    print("flash_small_dh_times " + json.dumps(rows))
     return rows
 
 
@@ -3681,6 +3827,269 @@ def _parallel_path():
     return result, counts_by_run
 
 
+# ------------------------- entry points, examples and job scripts (phase 16)
+
+REPO = Path(__file__).resolve().parent
+ENTRY_SMALL_LATENT = (1, 8, 8, 8, 16)    # the card-against-CPU check of entry's fn
+ENTRY_T = 7
+ENTRY_REPEATS = 5
+BF16_ULP = 2 ** -7                       # of a value in [1, 2)
+ENTRY_LAUNCHES = {"gn_silu_stats": GN_CALLS_PER_UNET, "gn_silu_apply": GN_CALLS_PER_UNET,
+                  "flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+SCRIPT_CONFIG = REPO / "configs" / "slice_cond_2d_tiny_cpu.json"
+SCRIPT_TIMEOUT_S = 600
+# what torchrun, SLURM or an earlier run may have left in the environment
+RANK_VARIABLES = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                  "MASTER_PORT", "MRIJAX_MULTIHOST")
+
+
+def entry_check():
+    """``graft_entry.entry()`` on the card: one call of ``fn`` launches the
+    GroupNorm kernels 29 times each and the flash forward once; its output is
+    finite; ms a forward (host and card, median of ``ENTRY_REPEATS``) and the
+    peak memory of one; then ``fn`` at a small bf16 latent against the same
+    ``fn`` built on the CPU with the card's weights copied there (the plain
+    versions): the largest difference within 4 bf16 ulps of the output's
+    largest value, the mean within 1."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn, (params, latent, t) = graft_entry.entry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    out = fn(params, latent, t)
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if counts != ENTRY_LAUNCHES:
+        raise AssertionError(f"entry: launches {counts}, want {ENTRY_LAUNCHES}")
+    if (tuple(out.shape) != tuple(latent.shape) or out.dtype != torch.float32
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"entry: output {out.dtype} {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    walls = []
+    for _ in range(ENTRY_REPEATS):
+        t0 = time.perf_counter()
+        fn(params, latent, t)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    x = torch.from_numpy(np.random.default_rng(SEED + 16).standard_normal(
+        ENTRY_SMALL_LATENT, dtype=np.float32)).bfloat16()
+    tt = torch.tensor([ENTRY_T])
+    got = fn(params, x.cuda(), tt.cuda()).cpu()
+    fn_cpu, _ = graft_entry.entry(device="cpu")
+    want = fn_cpu({k: v.cpu() for k, v in params.items()}, x, tt)
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if not (float(err.max()) <= 4 * BF16_ULP * scale and float(err.mean()) <= BF16_ULP * scale):
+        raise AssertionError(f"entry: card against CPU max {float(err.max()):.3e}, mean "
+                             f"{float(err.mean()):.3e} at output scale {scale:.3e}")
+    result = {"parameters": sum(p.numel() for p in params.values()),
+              "latent": list(latent.shape), "launches": counts,
+              "ms_per_forward": statistics.median(walls), "ms_per_forward_all": walls,
+              "peak_memory_bytes": peak,
+              "card_vs_cpu": {"latent": list(ENTRY_SMALL_LATENT), "max_abs_err": float(err.max()),
+                              "mean_abs_err": float(err.mean()), "output_max": scale}}
+    del fn, params, latent, out, fn_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, result
+
+
+def dryrun_check():
+    """``graft_entry.dryrun_multichip(1)``: its one rank is a process of its
+    own in an NCCL group of one, checked against the run without a mesh with
+    the JAX bars; and the "need" error one card past the count."""
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(1)
+    seconds = time.perf_counter() - t0
+    if out["mesh"] != [1, 1]:
+        raise AssertionError(f"dryrun_multichip(1): mesh {out['mesh']}")
+    n = torch.cuda.device_count() + 1
+    try:
+        graft_entry.dryrun_multichip(n)
+    except AssertionError as e:
+        if f"need {n} devices, have {n - 1}" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"dryrun_multichip({n}) did not refuse")
+    return {"seconds": seconds, **out}
+
+
+def _load_example(name):
+    spec = importlib.util.spec_from_file_location(f"example_{name}", REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_check(tmp, tree):
+    """Each ``examples/torch_*.py`` through its ``main([..., "--device",
+    "cuda"])`` in this process, in ``tmp``, with the launch counts set to 0
+    just before and read just after: the explorer launches nothing, the 2D
+    DDPM the GroupNorm kernels only, the 3D LDM all five (its bottleneck
+    attention at Dh = 4); losses finite, files written."""
+    results, counts_by_run = {}, {}
+    cwd, tempdir = os.getcwd(), tempfile.tempdir
+    os.chdir(tmp)
+    tempfile.tempdir = str(tmp)
+    try:
+        for name, argv in (
+                ("torch_explore_dataset", ["--root", tree, "--max-subjects", 2]),
+                ("torch_minimal_2d_ddpm", ["--out", tmp / "grid.png", "--device", "cuda"]),
+                ("torch_scaled_3d_ldm", ["--out-dir", tmp / "ldm", "--device", "cuda"])):
+            module = _load_example(name)
+            gc.collect()
+            torch.cuda.synchronize()
+            text = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_Tee(sys.stdout, text)):
+                rc = module.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = all_launch_counts()
+            if rc != 0:
+                raise AssertionError(f"{name}: exit code {rc}")
+            results[name] = {"seconds": seconds, "launches": counts}
+            counts_by_run[f"example_{name[len('torch_'):]}"] = counts
+            printed = text.getvalue()
+            if name == "torch_explore_dataset":
+                if any(counts.values()) or "aggregate nonzero-intensity" not in printed:
+                    raise AssertionError(f"{name}: launches {counts}")
+            elif name == "torch_minimal_2d_ddpm":
+                losses = [float(x) for x in re.findall(r"^epoch \d+: loss (\S+) ", printed, re.M)]
+                if (len(losses) != 2 or not all(map(math.isfinite, losses))
+                        or not (tmp / "grid.png").stat().st_size):
+                    raise AssertionError(f"{name}: losses {losses}")
+                if (counts["gn_silu_stats"] == 0 or counts["gn_silu_stats"] != counts["gn_silu_apply"]
+                        or any(counts[k] for k in fa.launches.as_dict())):
+                    raise AssertionError(f"{name}: launches {counts}")
+                results[name]["epoch_losses"] = losses
+            else:
+                scale = float(re.search(r"latent_scale=(\S+)", printed).group(1))
+                losses = [float(x) for x in re.findall(r"train (\S+) val", printed)]
+                if (not math.isfinite(scale) or len(losses) != 2
+                        or not all(map(math.isfinite, losses))
+                        or not (tmp / "ldm" / "vol0.png").stat().st_size):
+                    raise AssertionError(f"{name}: latent scale {scale}, losses {losses}")
+                if (min(counts.values()) == 0
+                        or counts["flash_attn_bwd_dkv"] != counts["flash_attn_bwd_dq"]):
+                    raise AssertionError(f"{name}: launches {counts}")
+                if torch.distributed.is_initialized():
+                    raise AssertionError(f"{name}: its group of one is still up")
+                results[name].update(latent_scale=scale, stage_losses=losses,
+                                     head_dim=4, kernel_head_dim=fa.kernel_head_dim(4))
+    finally:
+        os.chdir(cwd)
+        tempfile.tempdir = tempdir
+    return results, counts_by_run
+
+
+def scripts_check(tmp, tree):
+    """The four ``scripts/torch_*.sh`` as a scheduler would start them, each
+    its own process on the card (``python`` and ``torchrun`` are this
+    interpreter): ``torch_training_job.sh`` on ``configs/slice_cond_2d_tiny_cpu.json``
+    and ``tree``, ``torch_sampling_job.sh`` on that run (grid, 5 DDIM
+    steps), ``torch_preprocess_job.sh`` (on the CPU), and
+    ``torch_training_job_multihost.sh`` under ``torchrun --nproc_per_node 1``
+    with explicit variables and a ``localhost`` endpoint. Each must exit 0
+    and write what it writes; their log directories and ``runs/`` entries
+    are removed afterwards."""
+    shims = tmp / "bin"
+    shims.mkdir()
+    for name, command in (("python", f'exec "{sys.executable}" "$@"'),
+                          ("torchrun", f'exec "{sys.executable}" -m torch.distributed.run "$@"')):
+        (shims / name).write_text(f"#!/bin/sh\n{command}\n")
+        (shims / name).chmod(0o755)
+    job = f"chip_smoke_{os.getpid()}"
+    env = {k: v for k, v in os.environ.items()
+           if k not in RANK_VARIABLES and not k.startswith("SLURM_")}
+    env.update(PATH=f"{shims}{os.pathsep}{env.get('PATH', '')}", SLURM_JOB_ID=job)
+    scripts, logs = REPO / "scripts", REPO / "scripts" / "logs"
+    names = {"train": f"{job}_train", "multihost": f"{job}_mh"}
+    results = {}
+
+    def run(tag, script, log, *args, **extra):
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", str(scripts / script), *map(str, args)],
+                              env={**env, **extra}, capture_output=True, text=True,
+                              timeout=SCRIPT_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        out = "".join(p.read_text() for p in sorted(log.glob("*.out")))
+        err = "".join(p.read_text() for p in sorted(log.glob("*.err")))
+        if proc.returncode != 0:
+            raise AssertionError(f"{script}: exit code {proc.returncode}\n{proc.stderr[-2000:]}\n"
+                                 f"--- log\n{out[-2000:]}\n{err[-4000:]}")
+        results[tag] = {"seconds": seconds, "exit_code": proc.returncode}
+        return out
+
+    try:
+        common = ["--root-dir", tree]
+        out = run("training_job", "torch_training_job.sh", logs / "train" / job, SCRIPT_CONFIG,
+                  *common, "--name", names["train"],
+                  "--set", f"train.checkpoint_dir={tmp / 'ckpt'}")
+        run_dir = tmp / "ckpt" / "slice_cond_2d" / names["train"]
+        losses = [float(x) for x in re.findall(r"train (\S+) val", out)]
+        if (not (run_dir / "config.json").exists() or not list(run_dir.glob("*.pt"))
+                or not losses or not all(map(math.isfinite, losses))):
+            raise AssertionError(f"torch_training_job.sh: run {sorted(run_dir.glob('*'))}, "
+                                 f"losses {losses}")
+        results["training_job"]["epoch_losses"] = losses
+        shutil.rmtree(logs / "train" / job)
+        run("sampling_job", "torch_sampling_job.sh", logs / "sample" / job, run_dir,
+            "--mode", "grid", "--num-samples", 8, "--ddim-steps", 5,
+            "--out-dir", tmp / "samples")
+        if not (tmp / "samples" / "grid.png").stat().st_size:
+            raise AssertionError("torch_sampling_job.sh wrote no grid")
+        out = run("preprocess_job", "torch_preprocess_job.sh", logs / "preprocess" / job,
+                  tree, tmp / "packed", 16)
+        if "[cli] packed" not in out or not list((tmp / "packed").iterdir()):
+            raise AssertionError(f"torch_preprocess_job.sh: {out[-1000:]}")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        run("training_job_multihost", "torch_training_job_multihost.sh", logs / "train" / job,
+            SCRIPT_CONFIG, *common, "--name", names["multihost"],
+            "--set", f"train.checkpoint_dir={tmp / 'ckpt_mh'}",
+            MRIJAX_NODE_RANK="0", MRIJAX_NNODES="1", MRIJAX_GPUS_PER_NODE="1",
+            MRIJAX_COORD=f"localhost:{port}")
+        mh_dir = tmp / "ckpt_mh" / "slice_cond_2d" / names["multihost"]
+        if not (mh_dir / "config.json").exists() or not list(mh_dir.glob("*.pt")):
+            raise AssertionError(f"torch_training_job_multihost.sh: run {sorted(mh_dir.glob('*'))}")
+    finally:
+        for kind in ("train", "sample", "preprocess"):
+            shutil.rmtree(logs / kind / job, ignore_errors=True)
+        for name in names.values():
+            shutil.rmtree(REPO / "runs" / "slice_cond_2d" / name, ignore_errors=True)
+    return results
+
+
+def entry_points_path():
+    """Phase 16: ``mrijax_torch.graft_entry``, the examples and the job
+    scripts on the card (``entry_check``, ``dryrun_check``,
+    ``examples_check``, ``scripts_check``) over a synthetic BraTS tree of 3
+    subjects at 32×32×20 in a temporary directory. Prints the
+    ``entry_points_path`` line; returns the launch counts of the counted
+    in-process runs."""
+    t_phase = time.perf_counter()
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase 16 starts with a process group still up")
+    entry_counts, result = entry_check()
+    counts_by_run = {"entry": entry_counts}
+    result = {"entry": result, "dryrun_multichip_1": dryrun_check()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp_name:
+        tmp = Path(tmp_name)
+        tree = write_synthetic_brats(tmp / "tree", num_subjects=3, shape=(32, 32, 20))
+        result["examples"], example_counts = examples_check(tmp, tree)
+        counts_by_run.update(example_counts)
+        result["scripts"] = scripts_check(tmp, tree)
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print("entry_points_path " + json.dumps(result))
+    return counts_by_run
+
+
 # ----------------------------------------------------------------------- main
 
 
@@ -3732,13 +4141,15 @@ def tensor_core_proof(libs):
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-                   counts_by_path, chunk_worst, chunk_rows):
+                   counts_by_path, chunk_worst, chunk_rows, small_worst, small_rows):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
     ``launches`` adds up the counted runs of every path (``counts_by_path``:
     path name → launch counts); ``launches_by_path`` keeps them apart. The
     flash kernels also carry their Nq ≠ Nk chunks (``nq_ne_nk``: max abs
-    error by dtype and the bf16 times of phase 3)."""
+    error by dtype and the bf16 times of phase 3) and the head dims they are
+    not compiled for (``small_head_dims``: padded to ``kernel_head_dim``,
+    max abs error by dtype and the times of ``time_flash_small_dh``)."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
@@ -3758,6 +4169,17 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
                        "bound_by": r[f"{prefix}_bound_by"],
                        "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
                       for r in chunk_rows]}}
+
+    def small(name, prefix):
+        return {"small_head_dims": {
+            "max_abs_err": small_worst[name],
+            "times": [{"shape": r["shape"], "dtype": r["dtype"],
+                       "padded_to": r["kernel_head_dim"], "ms": r[f"{prefix}_ms"],
+                       "padded_kernel_ms": r[f"{prefix}_padded_kernel_ms"],
+                       "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"],
+                       "bound_by": r[f"{prefix}_bound_by"],
+                       "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
+                      for r in small_rows]}}
 
     return [
         {"name": "gn_silu_stats", "route": "cuda", "source": src_gn,
@@ -3783,7 +4205,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err": flash_worst["float32"], "max_abs_err_bf16": flash_worst["bfloat16"],
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
-         **chunks("flash_attn_fwd", "fwd")},
+         **chunks("flash_attn_fwd", "fwd"), **small("flash_attn_fwd", "fwd")},
         # library_ms of the two backward kernels is one call that computes dq,
         # dk and dv together
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src_bwd,
@@ -3793,7 +4215,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dkv"]["bfloat16"],
          "ms": bw["dkv_ms"], "plain_ms": bw["dkv_plain_ms"], "bound_ms": bw["dkv_bound_ms"],
          "bound_by": bw["dkv_bound_by"], "library_ms": bw["library_ms"],
-         **chunks("flash_attn_bwd_dkv", "dkv")},
+         **chunks("flash_attn_bwd_dkv", "dkv"), **small("flash_attn_bwd_dkv", "dkv")},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src_bwd,
          "replaces": "mrijax/kernels/flash_attention_pallas.py:358",
          **launches("flash_attn_bwd_dq"), "shape": bw["shape"], "dtype": bw["dtype"],
@@ -3801,7 +4223,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dq"]["bfloat16"],
          "ms": bw["dq_ms"], "plain_ms": bw["dq_plain_ms"], "bound_ms": bw["dq_bound_ms"],
          "bound_by": bw["dq_bound_by"], "library_ms": bw["library_ms"],
-         **chunks("flash_attn_bwd_dq", "dq")},
+         **chunks("flash_attn_bwd_dq", "dq"), **small("flash_attn_bwd_dq", "dq")},
     ]
 
 
@@ -3841,6 +4263,7 @@ def main() -> int:
     flash_worst = compare_flash(rng)
     bwd_worst = compare_flash_backward(rng)
     chunk_worst = compare_flash_chunks(rng)
+    small_worst = compare_flash_small_dh(rng)
     compare_groupnorm_autograd(rng)
     torch.cuda.empty_cache()
     gn_rows, _ = time_groupnorm(rng)
@@ -3850,6 +4273,7 @@ def main() -> int:
     flash_rows = time_flash(rng)
     bwd_rows = time_flash_backward(rng)
     chunk_rows = time_flash_chunks(rng)
+    small_rows = time_flash_small_dh(rng)
     torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
@@ -3882,15 +4306,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_train_2d = train_path_2d()
     counts_driver = driver_path(train_result["no_remat"]["seconds_per_step"])
+    counts_entry = entry_points_path()
 
     counts_by_path = {"generate": result["launches"],
                       "train_no_remat": train_counts["no_remat"],
                       "train_remat_level0": train_counts["remat_level0"],
                       **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
-                      **counts_driver}
+                      **counts_driver, **counts_entry}
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
-        chunk_worst, chunk_rows)}))
+        chunk_worst, chunk_rows, small_worst, small_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,15 @@ API: q of shape (B, N, H, Dh), k and v of shape (B, Nk, H, Dh) → out
 (B, N, H, Dh) in the input dtype, lse fp32 (B·H, N); Nk = N is
 self-attention, Nk ≠ N a block of query rows against every key (what
 ``mrijax_torch.parallel.sequence`` gives each rank); scale = Dh**-0.5, folded into q and rounded to the input
-dtype before the product, as in the TPU version. ``flash_attention`` is a
+dtype before the product, as in the TPU version.
+
+Head dims: the kernels are compiled for ``SUPPORTED_HEAD_DIMS`` (32, 64,
+128); the wrappers take any Dh from 1 to 128. A Dh between those sizes is
+zero-padded up to the next one (``kernel_head_dim``) in q, k, v and dO and
+launched with the true scale Dh**-0.5; zero columns change neither q′kᵀ nor
+the logsumexp, the padded columns of out, dq, dk and dv are zero, and the
+wrappers slice them off (``at_kernel_head_dim``). At 32, 64 and 128 nothing
+is copied. Dh > 128 is a ``ValueError``. ``flash_attention`` is a
 ``torch.autograd.Function``: its forward saves (q, k, v, out, lse), its
 backward launches the two backward kernels.
 
@@ -44,6 +52,7 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from mrijax_torch.kernels import _build
@@ -51,7 +60,8 @@ from mrijax_torch.kernels import _build
 launches = _build.LaunchCounts("flash_attn_fwd", "flash_attn_bwd_dkv",
                                "flash_attn_bwd_dq")
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 128)   # what the kernels are compiled for
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 
 SM_COUNT = 132                     # streaming multiprocessors of an H100
 MAX_SHARED_BYTES = 232448          # dynamic shared memory a block may ask for
@@ -150,18 +160,19 @@ def check_copy_alignment(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: returns ``(out, lse)``.
 
-    Rounds where the kernel rounds: q·Dh^-1/2 to the input dtype before the
-    q′kᵀ product, the unnormalised probabilities to the input dtype before the
-    p·v product; logits, softmax statistics and both accumulations in fp32.
-    Materialises the (B, H, N, M) logits, so it is for tests and comparisons;
-    k and v may hold another number of tokens M than q, as the kernel does.
+    Rounds where the kernel rounds: q·scale (default Dh^-1/2) to the input
+    dtype before the q′kᵀ product, the unnormalised probabilities to the input
+    dtype before the p·v product; logits, softmax statistics and both
+    accumulations in fp32. Materialises the (B, H, N, M) logits, so it is for
+    tests and comparisons; k and v may hold another number of tokens M than
+    q, as the kernel does.
     """
     b, n, h, d = q.shape
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qs = (q.float() * scale).to(q.dtype).float()
     s = torch.einsum("bnhd,bmhd->bhnm", qs, k.float())
     m = s.amax(dim=-1, keepdim=True)
@@ -180,11 +191,11 @@ def flash_attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor
     return delta.permute(0, 2, 1).reshape(b * h, n).contiguous()
 
 
-def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block):
+def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale):
     """Per block of query rows: (rows, q′, dO, p, dU), all fp32, with
-    p = exp(q′kᵀ − lse) and dU = p∘(dO·Vᵀ − Δ) as (B, H, rows, N)."""
+    q′ = q·scale rounded to the input dtype, p = exp(q′kᵀ − lse) and
+    dU = p∘(dO·Vᵀ − Δ) as (B, H, rows, N)."""
     b, n, h, d = q.shape
-    scale = d ** -0.5
     step = n if q_block is None else q_block
     kf, vf = k.float(), v.float()
     lse, delta = lse.reshape(b, h, n), delta.reshape(b, h, n)
@@ -201,13 +212,15 @@ def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block):
 def flash_attn_bwd_dkv_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, q_block: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``flash_attn_bwd_dkv``: ``(dk, dv)`` with
     dV = pᵀ·dO and dK = dUᵀ·q′, p and dU fp32, summed in fp32 over blocks of
-    ``q_block`` query rows and rounded once."""
+    ``q_block`` query rows and rounded once; ``scale`` defaults to Dh^-1/2."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
-    for _, qs, do, p, du in _p_and_du_blocks(q, k, v, dout, lse, delta, q_block):
+    for _, qs, do, p, du in _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale):
         dv += torch.einsum("bhnm,bnhd->bmhd", p, do)
         dk += torch.einsum("bhnm,bnhd->bmhd", du, qs)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -216,14 +229,15 @@ def flash_attn_bwd_dkv_reference(
 def flash_attn_bwd_dq_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, q_block: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of ``flash_attn_bwd_dq``: dQ′ = dU·K, rounded to
-    the input dtype, multiplied by Dh^-1/2 in fp32 and rounded again (the two
-    casts of the TPU wrapper)."""
-    scale = q.shape[-1] ** -0.5
+    the input dtype, multiplied by ``scale`` (default Dh^-1/2) in fp32 and
+    rounded again (the two casts of the TPU wrapper)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kf = k.float()
-    for rows, _, _, _, du in _p_and_du_blocks(q, k, v, dout, lse, delta, q_block):
+    for rows, _, _, _, du in _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale):
         dq_prime = torch.einsum("bhnm,bmhd->bnhd", du, kf)
         dq[:, rows] = (dq_prime.to(q.dtype).float() * scale).to(q.dtype)
     return dq
@@ -318,6 +332,39 @@ def _check_kernel_sizes(q: torch.Tensor, nk: int) -> None:
         raise ValueError(f"unsupported sizes: N={n}, Nk={nk}, B*H={b * h} (1..65535)")
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim a true head dim ``d`` is launched at: the least of
+    ``SUPPORTED_HEAD_DIMS`` that holds it. A ``ValueError`` above
+    ``MAX_HEAD_DIM``."""
+    for size in SUPPORTED_HEAD_DIMS:
+        if 1 <= d <= size:
+            return size
+    raise ValueError(f"flash-attention kernels take head dims 1..{MAX_HEAD_DIM}, got {d}")
+
+
+def at_kernel_head_dim(launch, *operands: torch.Tensor):
+    """``launch(*operands, scale)`` at ``kernel_head_dim`` with the TRUE
+    scale Dh^-1/2, Dh the operands' last axis.
+
+    At a compiled head dim the operands go as they are. Otherwise each is
+    zero-padded along its last axis (a new contiguous tensor) and every
+    four-axis result is cut back to its first Dh columns, contiguous; other
+    results (the (B·H, N) logsumexp) come back as they are. The CUDA wrappers
+    launch through this; a test can hand it a plain version instead.
+    """
+    d = operands[0].shape[-1]
+    size = kernel_head_dim(d)
+    scale = float(d ** -0.5)
+    if size == d:
+        return launch(*operands, scale)
+    result = launch(*(F.pad(t, (0, size - d)) for t in operands), scale)
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        return t[..., :d].contiguous() if t.dim() == 4 else t
+
+    return tuple(map(cut, result)) if isinstance(result, tuple) else cut(result)
+
+
 def flash_attention_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -325,15 +372,21 @@ def flash_attention_forward(
     with no gradient recorded (``flash_attention`` is the differentiable
     front).
 
-    On CUDA: the ``flash_attn_fwd`` kernel, or an error for what it does not
-    take (a dtype other than float32/bfloat16, a head dimension outside
-    ``SUPPORTED_HEAD_DIMS``, a strided last axis, bfloat16 rows that are not
-    16-byte aligned). On the CPU: ``flash_attention_reference``.
+    On CUDA: the ``flash_attn_fwd`` kernel (``at_kernel_head_dim``), or an
+    error for what it does not take (a dtype other than float32/bfloat16, a
+    head dimension above ``MAX_HEAD_DIM``, a strided last axis, bfloat16 rows
+    that are not 16-byte aligned). On the CPU: ``flash_attention_reference``.
     """
     _check_qkv(q, k, v)
     q, k, v = q.detach(), k.detach(), v.detach()
     if not q.is_cuda:
         return flash_attention_reference(q, k, v)
+    return at_kernel_head_dim(_launch_forward, q, k, v)
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_attn_fwd`` at q's own (compiled) head dim."""
     code = _build.dtype_code(q.dtype)
     _check_kernel_operands(q=q, k=k, v=v)
     b, n, h, d = q.shape
@@ -347,7 +400,7 @@ def flash_attention_forward(
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), code, b, n, nk, h, d, plan.tile, *strides, float(d ** -0.5),
+            lse.data_ptr(), code, b, n, nk, h, d, plan.tile, *strides, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_launch(err, "flash_attn_fwd")
@@ -370,9 +423,10 @@ def _check_backward_operands(q, k, v, dout, lse, delta) -> None:
                 f"q, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
+def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs, scale: float) -> None:
     """Launch ``flash_attn_bwd_dkv`` or ``flash_attn_bwd_dq`` on checked CUDA
-    operands; ``outputs`` are the contiguous tensors the kernel writes."""
+    operands at their own (compiled) head dim; ``outputs`` are the contiguous
+    tensors the kernel writes."""
     b, n, h, d = q.shape
     nk = k.shape[1]
     code = _build.dtype_code(q.dtype)
@@ -384,7 +438,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs) -> None:
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
-                 code, b, n, nk, h, d, strides, float(d ** -0.5),
+                 code, b, n, nk, h, d, strides, scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(err, entry)
     launches.bump(entry)
@@ -397,14 +451,19 @@ def flash_attn_bwd_dkv(
     """``(dk, dv)``, contiguous (B, Nk, H, Dh) like k in the input dtype, from
     the forward's ``lse`` and Δ = rowsum(dO∘O), both fp32 (B·H, N). q, k, v and
     ``dout`` are read through their (batch, token, head) strides. On CUDA the
-    ``flash_attn_bwd_dkv`` kernel or an error; on the CPU its plain version."""
+    ``flash_attn_bwd_dkv`` kernel (``at_kernel_head_dim``) or an error; on the
+    CPU its plain version."""
     _check_backward_operands(q, k, v, dout, lse, delta)
     if not q.is_cuda:
         return flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
-    dk, dv = torch.empty(k.shape, dtype=q.dtype, device=q.device), \
-        torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    _launch_backward("flash_attn_bwd_dkv", q, k, v, dout, lse, delta, (dk, dv))
-    return dk, dv
+
+    def launch(q, k, v, dout, scale):
+        dk, dv = torch.empty(k.shape, dtype=q.dtype, device=q.device), \
+            torch.empty(k.shape, dtype=q.dtype, device=q.device)
+        _launch_backward("flash_attn_bwd_dkv", q, k, v, dout, lse, delta, (dk, dv), scale)
+        return dk, dv
+
+    return at_kernel_head_dim(launch, q, k, v, dout)
 
 
 def flash_attn_bwd_dq(
@@ -412,14 +471,18 @@ def flash_attn_bwd_dq(
     lse: torch.Tensor, delta: torch.Tensor,
 ) -> torch.Tensor:
     """``dq``, contiguous (B, N, H, Dh) in the input dtype; operands as for
-    ``flash_attn_bwd_dkv``. On CUDA the ``flash_attn_bwd_dq`` kernel or an
-    error; on the CPU its plain version."""
+    ``flash_attn_bwd_dkv``. On CUDA the ``flash_attn_bwd_dq`` kernel
+    (``at_kernel_head_dim``) or an error; on the CPU its plain version."""
     _check_backward_operands(q, k, v, dout, lse, delta)
     if not q.is_cuda:
         return flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_backward("flash_attn_bwd_dq", q, k, v, dout, lse, delta, (dq,))
-    return dq
+
+    def launch(q, k, v, dout, scale):
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch_backward("flash_attn_bwd_dq", q, k, v, dout, lse, delta, (dq,), scale)
+        return dq
+
+    return at_kernel_head_dim(launch, q, k, v, dout)
 
 
 def flash_attention_backward(

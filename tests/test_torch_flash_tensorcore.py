@@ -418,7 +418,8 @@ def test_dq_launch_names_a_misaligned_bf16_operand(name):
     operands[name] = flat[4:4 + dout.numel()].view(shape)
     dq = torch.empty(shape, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=rf"^{name}: data pointer is not 16-byte aligned"):
-        fa._launch_backward("flash_attn_bwd_dq", *operands.values(), lse, delta, (dq,))
+        fa._launch_backward("flash_attn_bwd_dq", *operands.values(), lse, delta, (dq,),
+                            shape[-1] ** -0.5)
 
 
 def test_backward_copies_a_misaligned_output_gradient():

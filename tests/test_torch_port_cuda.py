@@ -72,7 +72,9 @@ def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
-                                   (1, 4100, 2, 32), (1, 17, 2, 64)])
+                                   (1, 4100, 2, 32), (1, 17, 2, 64),
+                                   # head dims padded to the next compiled one
+                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48)])
 def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums against a running max). bf16:
     2e-3 + 1e-2 relative on out (probabilities rounded against another max)."""
@@ -165,7 +167,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gn.group_norm_silu_fused(x.transpose(1, 2), w[:16], w[:16], 8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gn.group_norm_silu_fused(x.half(), w, w, 8)
-    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    q = torch.zeros(1, 8, 2, 129, device=cuda)   # above the largest compiled head dim
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_forward(q, q, q)
     with pytest.raises(ValueError, match="head dims"):
@@ -174,7 +176,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
-                                   (1, 4100, 2, 32), (1, 17, 2, 64)])
+                                   (1, 4100, 2, 32), (1, 17, 2, 64),
+                                   # head dims padded to the next compiled one
+                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48)])
 def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums). bf16 dk, dv: 1e-5 + 2**-7
     relative, one bf16 ulp (float32 sums rounded to bf16 once on both
