@@ -138,6 +138,24 @@ What it does, in order:
    as processes of their own (training on ``configs/slice_cond_2d_tiny_cpu.json``,
    sampling that run, preprocessing on the CPU, the multi-node script under
    ``torchrun --nproc_per_node 1``).
+17. drives the flash kernels' column-chunk route at full width
+   (``large_head_path``): a small float32 UNet3D with 1 head and attention
+   at level 1 (Dh 144 and 288) on the card against the CPU, generating and
+   training; then the flagship UNet3D at 1 head with ``attention_levels=(1,)``
+   (Dh 512 at the bottleneck, N = 800; Dh 256 at level 1, N = 6400) through
+   ``generate_3d_volumes`` (2 volumes, 20 DDIM steps, VAE3D decode) and 2 +
+   5 cached-latent train steps at batch 8, launches exact; one forward of
+   the flagship at 2 heads (Dh 256); s a step and a call and peak memory
+   beside the 4-head flagship's of phases 5 and 7.
+
+Phases 2 and 3 also hold the three flash kernels at head dims above 128
+(``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
+256 and 384; ``FLASH_LARGE_DH_CHUNK``: Nq ≠ Nk at Dh 512), which they take
+in column chunks of 128, against their plain versions at the bars of Dh
+128, one launch a wrapper call, and time them beside the plain versions,
+``F.scaled_dot_product_attention`` and the bound at the true head dim
+(``flash_large_dh_times``); and GroupNorm+SiLU at 4096 and 8192 channels
+(``GN_WIDE_CHANNELS``), compared and timed (``groupnorm_times_wide_channels``).
 
 Phases 2 and 3 also hold the three flash kernels at head dims they are not
 compiled for (``FLASH_SMALL_DH``: Dh 4, 8 and 16, zero-padded to 32 by the
@@ -343,6 +361,20 @@ FLASH_SMALL_DH = [(2, 64, 4, 4), (1, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16),
 # the dry run's bottleneck split over a model axis of 2: q of 32 rows against 64 keys
 FLASH_SMALL_DH_CHUNK = ((1, 32, 2, 8), (1, 64, 2, 8))
 
+# head dims above 128, which the kernels take in column chunks of 128: the
+# flagship's bottleneck (512 channels, 800 tokens) with 2 heads at the
+# generation and the training batch, with 1 head, its level-1 attention
+# (256 channels, 6400 tokens) with 1 head, 1024 columns, and two head dims
+# the wrappers zero-pad (192 -> 256 at a ragged N, 320 -> 384)
+FLASH_LARGE_DH = [(2, 800, 2, 256), (8, 800, 2, 256), (8, 800, 1, 512), (8, 6400, 1, 256),
+                  (2, 800, 1, 1024), (2, 130, 1, 192), (1, 64, 1, 320)]
+# the 1-head bottleneck split over a model axis of 2
+FLASH_LARGE_DH_CHUNK = ((8, 400, 1, 512), (8, 800, 1, 512))
+# GroupNorm+SiLU above the 3840 channels of the stats kernel's default shared
+# memory: a UNet2D of base 256, mults (1, 2, 4, 8) concatenates 2048 + 2048
+# channels in its deepest up block
+GN_WIDE_CHANNELS = [(2, 256, 4096), (64, 256, 4096), (2, 64, 8192)]
+
 TRAIN_BATCH = 8
 TRAIN_WARMUP_STEPS = 2
 TRAIN_STEPS = 5
@@ -492,7 +524,9 @@ def compare_groupnorm(rng):
     groups also at the guided grid's B = 128 and the sweep's B = 155, and its
     8-channel groups once at the guided sweep's B = 310: the launch plans
     change with the batch (at B = 64 the stats kernel takes two blocks an SM,
-    each looping over tens of slabs). Last, ``gn_far_from_zero``: x = 200 + 1.5·N(0, 1) at (2, 100, 64),
+    each looping over tens of slabs). ``GN_WIDE_CHANNELS``: 4096 and 8192
+    channels, where the stats launch raises its shared-memory limit above
+    the default 48 KB. Last, ``gn_far_from_zero``: x = 200 + 1.5·N(0, 1) at (2, 100, 64),
     where E[x²] − mean² cancels to 1/17 800 of E[x²]; kernel and plain
     version each hold the variance (rstd⁻² − eps) within 16·2⁻²⁴·E[x²] of
     the float64 variance (a few float32 ulps of E[x²]).
@@ -507,6 +541,7 @@ def compare_groupnorm(rng):
     cases += [(BATCH_2D, n, c) for (n, c) in GN_UNET2D]
     cases += [(b, n, c) for b in (2 * BATCH_2D, SWEEP_SLICES) for (n, c) in GN_UNET2D
               if c // GROUPS in (8, 64)]
+    cases += GN_WIDE_CHANNELS
     for b, n, c in cases:
         x32, scale, bias = gn_inputs(rng, b, n, c)
         for dtype in (torch.float32, torch.bfloat16):
@@ -865,43 +900,49 @@ def time_flash_chunks(rng):
     return rows
 
 
-def compare_flash_small_dh(rng):
-    """The three flash kernels at head dims they are not compiled for
-    (``FLASH_SMALL_DH`` and the chunk ``FLASH_SMALL_DH_CHUNK``), which the
-    wrappers zero-pad to 32 and launch with the true scale, against their
-    plain versions at the true head dim, both dtypes, at phases 2–3's bars:
-    out and lse (float32 1e-4; bf16 out 2e-3 + 1e-2 relative, lse 1e-4), dk
-    and dv (float32 1e-4, bf16 one ulp), dq (float32 1e-4, bf16 two ulps),
-    and the gradients of ``flash_attention`` through autograd (the
-    ``_FlashAttention`` path of the examples' training)."""
+def compare_flash_head_dims(rng, cases, label):
+    """The three flash kernels at head dims they do not take in one piece —
+    ``cases`` of (q shape, kv shape): below 32 the wrappers zero-pad to 32,
+    above 128 the kernels take Dh in column chunks of 128 (192 and 320
+    zero-padded to 256 and 384 first) — against their plain versions at the
+    TRUE head dim, both dtypes, at phases 2–3's bars: out and lse (float32
+    1e-4; bf16 out 2e-3 + 1e-2 relative, lse 1e-4), dk and dv (float32 1e-4,
+    bf16 one ulp), dq (float32 1e-4, bf16 two ulps), and, where Nq = Nk, the
+    gradients of ``flash_attention`` through autograd (the ``_FlashAttention``
+    path of training). Each wrapper call must be one launch of its kernel."""
     worst = {name: {"float32": 0.0, "bfloat16": 0.0}
              for name in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
-    cases = [(shape, shape) for shape in FLASH_SMALL_DH] + [FLASH_SMALL_DH_CHUNK]
     for q_shape, kv_shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
             fwd_tol = dict(atol=1e-4) if dtype == torch.float32 else dict(atol=2e-3, rtol=1e-2)
             bwd_tol = dict(atol=1e-4) if dtype == torch.float32 else ONE_ULP
             dq_tol = dict(atol=1e-4) if dtype == torch.float32 else TWO_ULPS
-            tag = f"flash small Dh {key} q{q_shape} kv{kv_shape}"
+            tag = f"flash {label} {key} q{q_shape} kv{kv_shape}"
             q, k, v = flash_inputs(rng, kv_shape, dtype)
             q = q[:, :q_shape[1]]
+            reset_launch_counts()
             out, lse = fa.flash_attention_forward(q, k, v)
             ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
             e = check_close(f"{tag} out", out, ref_out, **fwd_tol)
             check_close(f"{tag} lse", lse, ref_lse, atol=1e-4)
             worst["flash_attn_fwd"][key] = max(worst["flash_attn_fwd"][key], e)
+            del ref_out, ref_lse
             dout = torch.from_numpy(rng.standard_normal(q_shape, dtype=np.float32)).cuda().to(dtype)
             delta = fa.flash_attention_delta(out, dout)
             dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
-            ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
+            ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                             q_block=1600)
             e = max(check_close(f"{tag} dk", dk, ref_dk, **bwd_tol),
                     check_close(f"{tag} dv", dv, ref_dv, **bwd_tol))
             worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
             dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
-            ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+            ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block=1600)
             e = check_close(f"{tag} dq", dq, ref_dq, **dq_tol)
             worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
+            counts = all_launch_counts()
+            if any(counts[name] != 1 for name in worst):
+                raise AssertionError(f"{tag}: launches {counts}, expected one of each")
             if q_shape == kv_shape:
                 qkv = torch.stack([q, k, v], dim=2).requires_grad_()
                 got, = torch.autograd.grad(
@@ -909,9 +950,12 @@ def compare_flash_small_dh(rng):
                 check_close(f"{tag} autograd dk, dv", got[:, :, 1:],
                             torch.stack([ref_dk, ref_dv], dim=2), **bwd_tol)
                 check_close(f"{tag} autograd dq", got[:, :, 0], ref_dq, **dq_tol)
+                del qkv, got
+            del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print(f"compare flash small Dh: {len(cases)} shapes x 2 dtypes ok (padded to "
-          f"{sorted({fa.kernel_head_dim(s[3]) for s in FLASH_SMALL_DH})}), "
+    print(f"compare flash {label}: {len(cases)} shapes x 2 dtypes ok (kernel head dims "
+          f"{sorted({fa.kernel_head_dim(kv[3]) for _, kv in cases})}), "
           f"max abs err {json.dumps(worst)}")
     return worst
 
@@ -978,6 +1022,76 @@ def time_flash_small_dh(rng):
                     row[f"{name}_library_ms"] = lib
             rows.append(row)
     print("flash_small_dh_times " + json.dumps(rows))
+    return rows
+
+
+def time_flash_large_dh(rng):
+    """The three kernels at the head dims above 128, through their wrappers
+    (as the models call them: the zero-padding copies at 192 and 320
+    included), beside the plain versions, the library
+    (``F.scaled_dot_product_attention``; backward: forward + backward less
+    forward, one call for dq, dk and dv) and the bound of the work at the
+    TRUE head dim: operations 4·B·H·Nq·Nk·Dh (forward), 8· (dkv), 6· (dq)
+    over the rate of the input type, or the bytes of the operands and outputs
+    read and written once. ``plan``: the launch (``chunks`` blocks along the
+    grid's column axis)."""
+    rows = []
+    cases = [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK]
+    for q_shape, kv_shape in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            b, nq, h, d = q_shape
+            nk = kv_shape[1]
+            key = str(dtype).replace("torch.", "")
+            heavy = b * h * nq * nk * d >= 8 * 800 * 800 * 512 or dtype == torch.float32
+            repeats = LONG_REPEATS if heavy else REPEATS
+            q, k, v = flash_inputs(rng, kv_shape, dtype)
+            q = q[:, :nq]
+            out, lse = fa.flash_attention_forward(q, k, v)
+            dout = torch.from_numpy(rng.standard_normal(q_shape, dtype=np.float32)).cuda().to(dtype)
+            delta = fa.flash_attention_delta(out, dout)
+            qt, kt, vt = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+            dout_t = dout.permute(0, 2, 1, 3)
+
+            def sdpa_fb():
+                o = F.scaled_dot_product_attention(qt, kt, vt)
+                torch.autograd.grad(o, (qt, kt, vt), dout_t)
+
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), repeats)
+            el = q.element_size()
+            q_bytes, kv_bytes, stat = b * nq * h * d * el, b * nk * h * d * el, 4 * b * h * nq
+            row = {"q": list(q_shape), "kv": list(kv_shape), "dtype": key,
+                   "kernel_head_dim": fa.kernel_head_dim(d),
+                   "library_backward_ms": time_ms(sdpa_fb, repeats) - sdpa_ms}
+            kd = fa.kernel_head_dim(d)
+            for name, kernel, fn, ref, products, nbytes, lib in (
+                ("fwd", "flash_attn_fwd", lambda: fa.flash_attention_forward(q, k, v),
+                 lambda: fa.flash_attention_reference(q, k, v), 2,
+                 2 * q_bytes + 2 * kv_bytes + stat, sdpa_ms),
+                ("dkv", "flash_attn_bwd_dkv",
+                 lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+                 lambda: fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                         q_block=1600), 4,
+                 2 * q_bytes + 4 * kv_bytes + 2 * stat, None),
+                ("dq", "flash_attn_bwd_dq",
+                 lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta),
+                 lambda: fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                                        q_block=1600), 3,
+                 3 * q_bytes + 2 * kv_bytes + 2 * stat, None),
+            ):
+                t_flops = products * 2 * b * h * nq * nk * d / PEAK_FLOPS[key] * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                rows_of = nk if kernel == "flash_attn_bwd_dkv" else nq
+                row.update({f"{name}_ms": time_ms(fn, repeats),
+                            f"{name}_plain_ms": time_ms(ref, repeats),
+                            f"{name}_bound_ms": max(t_flops, t_bytes),
+                            f"{name}_bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                            f"{name}_plan": flash_plan_note(kernel, (b, rows_of, h, kd), dtype)})
+                if lib is not None:
+                    row[f"{name}_library_ms"] = lib
+            rows.append(row)
+            del q, k, v, out, lse, dout, delta, qt, kt, vt
+            torch.cuda.empty_cache()
+    print("flash_large_dh_times " + json.dumps(rows))
     return rows
 
 
@@ -1099,7 +1213,13 @@ def time_groupnorm(rng):
     per_forward = weighted(rows_2d, lambda r: r["calls_per_unet2d_forward"])
     print("groupnorm_times_2d " + json.dumps(rows_2d))
     print("groupnorm_per_unet2d_forward " + json.dumps({"batch": BATCH_2D, **per_forward}))
-    return rows, rows_2d
+    rows_wide = []
+    for b, n, c in GN_WIDE_CHANNELS:
+        row = groupnorm_row(rng, b, n, c)
+        row["stats_shared_bytes"] = gn.launch_plan(n, c, GROUPS, 2, 16, b).shared_bytes(c)
+        rows_wide.append(row)
+    print("groupnorm_times_wide_channels " + json.dumps(rows_wide))
+    return rows, rows_2d, rows_wide
 
 
 def profile_groupnorm_stats(rng, calls=10):
@@ -1320,12 +1440,14 @@ def layout_check():
     print("layout: Conv3d / Downsample / Upsample answer channels-last, no copy")
 
 
-def build_flagship():
-    """The flagship pair at full width, bf16, seeded random weights, on the card."""
+def build_flagship(num_heads=4, attention_levels=()):
+    """The flagship pair at full width, bf16, seeded random weights, on the card
+    (``num_heads`` and ``attention_levels``: phase 17's variants)."""
 
     unet = seeded_weights(UNet3D(
         in_channels=LATENT_CHANNELS, base_channels=128, channel_mults=(1, 2, 4),
-        use_attention=True, num_heads=4, time_emb_dim=256, dtype=torch.bfloat16,
+        use_attention=True, num_heads=num_heads, attention_levels=attention_levels,
+        time_emb_dim=256, dtype=torch.bfloat16,
     ), SEED + 1).cuda().eval()
     vae = seeded_weights(VAE3D(
         in_channels=4, base_channels=32, num_down=3, latent_channels=LATENT_CHANNELS,
@@ -1502,14 +1624,17 @@ def small_training_check():
           f"{loss_err:.3e}, parameter rel-L2 {rel:.3e}, EMA rel-L2 {rel_ema:.3e} ok")
 
 
-def build_flagship_trainer(remat_levels, mesh=None, sp_mesh=None):
+def build_flagship_trainer(remat_levels, mesh=None, sp_mesh=None, num_heads=4,
+                           attention_levels=()):
     """The flagship UNet3D as it is trained: float32 parameters, bf16 compute,
     seeded weights, Adam lr 1e-4 and an EMA shadow, on the card. ``mesh``:
     the step's data-parallel mesh; ``sp_mesh``: the attention's token axis
-    split over its ``model`` axis."""
+    split over its ``model`` axis; ``num_heads``, ``attention_levels``: phase
+    17's variant."""
     unet = seeded_weights(UNet3D(
         in_channels=LATENT_CHANNELS, base_channels=128, channel_mults=(1, 2, 4),
-        use_attention=True, num_heads=4, time_emb_dim=256, remat_levels=remat_levels,
+        use_attention=True, num_heads=num_heads, attention_levels=attention_levels,
+        time_emb_dim=256, remat_levels=remat_levels,
         dtype=torch.bfloat16, param_dtype=torch.float32,
         sp_axis="model" if sp_mesh is not None else None, mesh=sp_mesh,
     ), SEED + 1).train()
@@ -4093,6 +4218,193 @@ def entry_points_path():
 # ----------------------------------------------------------------------- main
 
 
+# -------------------------------------------------------------------- phase 17
+
+LARGE_HEAD_LEVELS = (1,)     # attention also at level 1: 256 channels, 16·20·20 = 6400 tokens
+FLASH_PER_LARGE_HEAD_UNET = 3   # the bottleneck (Dh 512) and level 1 down and up (Dh 256)
+
+
+def small_large_head_check():
+    """A small float32 UNet3D with 1 head and attention at level 1 (base 72:
+    Dh 144 at level 1 and 288 at the bottleneck, both zero-padded and run in
+    128-column chunks) on the card against the CPU: ``generate_3d_volumes``
+    with a small VAE3D (5 DDIM steps, 1e-3 as in ``small_pipeline_check``),
+    then 2 cached-latent Adam steps (losses 1e-4, parameters 1e-3 relative
+    L2, as in ``small_training_check``)."""
+    kw = dict(in_channels=4, base_channels=72, channel_mults=(1, 2, 4), time_emb_dim=32,
+              num_heads=1, attention_levels=LARGE_HEAD_LEVELS)
+    unet = seeded_weights(UNet3D(**kw), SEED + 11)
+    vae = seeded_weights(VAE3D(in_channels=2, base_channels=16, num_down=2, latent_channels=4),
+                         SEED + 12)
+    diffusion = GaussianDiffusion(make_schedule(cosine_beta_schedule(20)))
+    rng = np.random.default_rng(SEED + 13)
+    x_t = torch.from_numpy(rng.standard_normal((2, 8, 8, 8, 4), dtype=np.float32))
+    gen_kw = dict(num_volumes=2, latent_spatial=(8, 8, 8), latent_channels=4, ddim_steps=5,
+                  x_t=x_t)
+    reset_launch_counts()
+    on_card = generate_3d_volumes(unet, vae, diffusion, device="cuda", **gen_kw).cpu()
+    counts = all_launch_counts()
+    if counts["flash_attn_fwd"] != 5 * FLASH_PER_LARGE_HEAD_UNET:
+        raise AssertionError(f"small large-head pipeline: launches {counts}")
+    on_cpu = generate_3d_volumes(unet, vae, diffusion, device="cpu", **gen_kw)
+    gen_err = check_close("small large-head pipeline, card vs CPU", on_card, on_cpu, atol=1e-3)
+
+    batches = [{"latent": torch.from_numpy(rng.standard_normal((2, 8, 8, 8, 4), dtype=np.float32)),
+                "noise": torch.from_numpy(rng.standard_normal((2, 8, 8, 8, 4), dtype=np.float32)),
+                "t": torch.from_numpy(rng.integers(1, 20, size=2))} for _ in range(2)]
+    train_diffusion = GaussianDiffusion(make_schedule(cosine_beta_schedule(20)), loss_type="min_snr")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = seeded_weights(UNet3D(**kw), SEED + 14)
+        state = create_train_state(model, 1e-3, ema=False, device=device)
+        step = make_cached_latent_train_step(model, train_diffusion)
+        reset_launch_counts()
+        losses = []
+        for batch in batches:
+            state, loss = step(state, {"latent": batch["latent"]}, None, 0.7,
+                               t=batch["t"], noise=batch["noise"])
+            losses.append(loss)
+        counts = all_launch_counts()
+        flash = ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+        if device == "cuda" and any(counts[k] != len(batches) * FLASH_PER_LARGE_HEAD_UNET
+                                    for k in flash):
+            raise AssertionError(f"small large-head training: launches {counts}")
+        runs[device] = (torch.stack(losses).cpu(),
+                        torch.cat([p.detach().flatten().cpu() for p in model.parameters()]))
+    (loss_g, par_g), (loss_c, par_c) = runs["cuda"], runs["cpu"]
+    loss_err = check_close("small large-head training losses, card vs CPU", loss_g, loss_c,
+                           atol=1e-4)
+    rel = float((par_g - par_c).norm() / par_c.norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"small large-head training: parameters differ by {rel:.3e}")
+    return {"generate_max_abs_err": gen_err, "train_loss_max_abs_err": loss_err,
+            "train_parameter_rel_l2": rel}
+
+
+def large_head_path(four_heads_generate, four_heads_train):
+    """Phase 17: the flagship UNet3D at 1 head with attention at level 1 as
+    well (``attention_levels=(1,)``): every forward runs the bottleneck at
+    Dh 512 (N = 800) and level 1 down and up at Dh 256 (N = 6400), the flash
+    kernels' column-chunk route. After ``small_large_head_check``:
+    ``generate_3d_volumes`` (2 volumes, 20 DDIM steps, the flagship VAE3D
+    decode) and 2 + 5 cached-latent train steps at batch 8, each with the
+    launch counts set to 0 just before and read just after and held exact
+    (29 GroupNorm pairs and 3 flash forwards a forward; 3 + 3 + 3 flash
+    launches a step); one forward of the flagship at 2 heads (Dh 256 at the
+    bottleneck). s a step, s a call and peak memory beside the 4-head
+    flagship's of phases 5 and 7 of this run."""
+    phase_t0 = time.perf_counter()
+    small = small_large_head_check()
+    unet, vae, diffusion = build_flagship(num_heads=1, attention_levels=LARGE_HEAD_LEVELS)
+    shape = (NUM_VOLUMES, *LATENT_SPATIAL, LATENT_CHANNELS)
+    warm = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    generate_3d_volumes(unet, vae, diffusion, num_volumes=NUM_VOLUMES,
+                        latent_spatial=LATENT_SPATIAL, latent_channels=LATENT_CHANNELS,
+                        ddim_steps=2, generator=warm)
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diffusion.ddim_sample(unet, shape, gen, num_steps=DDIM_STEPS)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / DDIM_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    vols = generate_3d_volumes(unet, vae, diffusion, num_volumes=NUM_VOLUMES,
+                               latent_spatial=LATENT_SPATIAL, latent_channels=LATENT_CHANNELS,
+                               ddim_steps=DDIM_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    gen_counts = all_launch_counts()
+    gen_peak = torch.cuda.max_memory_allocated()
+    want_gn = DDIM_STEPS * GN_CALLS_PER_UNET + GN_CALLS_PER_DECODE
+    want = {"gn_silu_stats": want_gn, "gn_silu_apply": want_gn,
+            "flash_attn_fwd": DDIM_STEPS * FLASH_PER_LARGE_HEAD_UNET,
+            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+    if gen_counts != want:
+        raise AssertionError(f"large-head generation: launch counts {gen_counts}, expected {want}")
+    check_output("large-head generation", vols, (NUM_VOLUMES, 128, 160, 160, 4))
+    del unet, vae, vols
+    torch.cuda.empty_cache()
+
+    # the flagship at 2 heads: one forward, Dh 256 at the bottleneck
+    two, _, _ = build_flagship(num_heads=2)
+    x = torch.from_numpy(np.random.default_rng(SEED + 15).standard_normal(
+        shape, dtype=np.float32)).cuda()
+    t = torch.full((NUM_VOLUMES,), T_STEPS // 2, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        two(x, t)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = two(x, t)
+        torch.cuda.synchronize()
+        two_s = time.perf_counter() - t0
+    two_counts = all_launch_counts()
+    want = {"gn_silu_stats": GN_CALLS_PER_UNET, "gn_silu_apply": GN_CALLS_PER_UNET,
+            "flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+    if two_counts != want:
+        raise AssertionError(f"2-head forward: launch counts {two_counts}, expected {want}")
+    check_output("2-head forward", out, shape)
+    del two, x, out
+    torch.cuda.empty_cache()
+
+    batch = train_latents()
+    model, state, step = build_flagship_trainer(None, num_heads=1,
+                                                attention_levels=LARGE_HEAD_LEVELS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    losses = []
+    for _ in range(TRAIN_WARMUP_STEPS):
+        state, loss = step(state, batch, gen, 1.0)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, batch, gen, 1.0)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    train_counts = all_launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    want = {"gn_silu_stats": TRAIN_STEPS * GN_CALLS_PER_UNET,
+            "gn_silu_apply": TRAIN_STEPS * GN_CALLS_PER_UNET,
+            **{name: TRAIN_STEPS * FLASH_PER_LARGE_HEAD_UNET for name in
+               ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}}
+    if train_counts != want:
+        raise AssertionError(f"large-head training: launch counts {train_counts}, expected {want}")
+    losses = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(losses).all()) or state.step != TRAIN_WARMUP_STEPS + TRAIN_STEPS:
+        raise AssertionError(f"large-head training: losses {losses.tolist()}, {state.step} updates")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    result = {
+        "model": "flagship UNet3D, 1 head, attention at the bottleneck and level 1",
+        "head_dims": {"bottleneck": 512, "level_1": 256},
+        "card_vs_cpu": small,
+        "seconds_per_ddim_step": step_s, "generate_3d_volumes_seconds": call_s,
+        "generate_peak_memory_bytes": gen_peak, "generate_launches": gen_counts,
+        "two_heads_forward_seconds": two_s, "two_heads_forward_launches": two_counts,
+        "train_seconds_per_step": train_s, "train_peak_memory_bytes": train_peak,
+        "train_launches_per_step": {k: v // TRAIN_STEPS for k, v in train_counts.items()},
+        "train_losses": losses.tolist(),
+        "four_heads": {
+            "seconds_per_ddim_step": four_heads_generate["seconds_per_ddim_step"],
+            "generate_3d_volumes_seconds": four_heads_generate["generate_3d_volumes_seconds"],
+            "generate_peak_memory_bytes": four_heads_generate["peak_memory_bytes"],
+            "train_seconds_per_step": four_heads_train["no_remat"]["seconds_per_step"],
+            "train_peak_memory_bytes": four_heads_train["no_remat"]["peak_memory_bytes"]},
+        "phase_seconds": time.perf_counter() - phase_t0,
+    }
+    print("large_head_path " + json.dumps(result))
+    return {"large_head_generate": gen_counts, "large_head_two_heads_forward": two_counts,
+            "large_head_train": train_counts}
+
+
 def report_ptxas(name):
     """Registers and spills of one library's kernels as ``ptxas -v`` printed
     them: the worst over all, and a line for every tensor-core kernel."""
@@ -4114,9 +4426,14 @@ def report_ptxas(name):
             params = ", ".join(f"{label}={value}" for label, value in
                                zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
             print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
+        elif m := re.search(r"(flash_\w*?wide\w*?_kernel)", entry):
+            print(f"    {m.group(1)}{'<float>' if 'If' in entry else ''} (Dh > 128, "
+                  f"128-column chunks): {regs} registers, {spilled} bytes spilled")
 
 
-TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
+                       "flash_fwd_wide_tc_kernel", "flash_bwd_dkv_wide_tc_kernel",
+                       "flash_bwd_dq_wide_tc_kernel")
 
 
 def tensor_core_proof(libs):
@@ -4141,7 +4458,8 @@ def tensor_core_proof(libs):
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
-                   counts_by_path, chunk_worst, chunk_rows, small_worst, small_rows):
+                   counts_by_path, chunk_worst, chunk_rows, small_worst, small_rows,
+                   large_worst, large_rows, gn_wide_rows):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
     ``launches`` adds up the counted runs of every path (``counts_by_path``:
@@ -4149,7 +4467,11 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     flash kernels also carry their Nq ≠ Nk chunks (``nq_ne_nk``: max abs
     error by dtype and the bf16 times of phase 3) and the head dims they are
     not compiled for (``small_head_dims``: padded to ``kernel_head_dim``,
-    max abs error by dtype and the times of ``time_flash_small_dh``)."""
+    max abs error by dtype and the times of ``time_flash_small_dh``) and the
+    head dims above 128 (``large_head_dims``: run in column chunks, max abs
+    error by dtype and the times of ``time_flash_large_dh``);
+    ``gn_silu_stats`` and ``gn_silu_apply`` their times at 4096 and 8192
+    channels (``wide_channels``)."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
@@ -4181,6 +4503,23 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
                        "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
                       for r in small_rows]}}
 
+    def large(name, prefix):
+        return {"large_head_dims": {
+            "max_abs_err": large_worst[name],
+            "times": [{"q": r["q"], "kv": r["kv"], "dtype": r["dtype"],
+                       "kernel_head_dim": r["kernel_head_dim"], "ms": r[f"{prefix}_ms"],
+                       "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"],
+                       "bound_by": r[f"{prefix}_bound_by"],
+                       "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
+                      for r in large_rows]}}
+
+    def wide(prefix, library):
+        return {"wide_channels": [
+            {"shape": r["shape"], "ms": r[f"{prefix}_ms"], "plain_ms": r[f"{prefix}_plain_ms"],
+             "bound_ms": r[f"{prefix}_bound_ms"], "bound_by": "bytes",
+             "library_ms": r[f"{prefix}_library_ms"] if library else None}
+            for r in gn_wide_rows]}
+
     return [
         {"name": "gn_silu_stats", "route": "cuda", "source": src_gn,
          "replaces": "mrijax/kernels/groupnorm_pallas.py:120",
@@ -4189,7 +4528,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": gn_worst["gn_silu_stats"]["bfloat16"],
          "ms": big["stats_ms"], "plain_ms": big["stats_plain_ms"],
          "bound_ms": big["stats_bound_ms"], "bound_by": "bytes",
-         "library_ms": big["stats_library_ms"]},
+         "library_ms": big["stats_library_ms"], **wide("stats", True)},
         {"name": "gn_silu_apply", "route": "cuda", "source": src_gn,
          "replaces": "mrijax/kernels/groupnorm_pallas.py:135",
          **launches("gn_silu_apply"), "shape": big["shape"], "dtype": "bfloat16",
@@ -4197,7 +4536,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": gn_worst["gn_silu_apply"]["bfloat16"],
          "ms": big["apply_ms"], "plain_ms": big["apply_plain_ms"],
          "bound_ms": big["apply_bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, **wide("apply", False)},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "mrijax_torch/csrc/flash_attention_fwd.cu",
          "replaces": "mrijax/kernels/flash_attention_pallas.py:162",
@@ -4205,7 +4544,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err": flash_worst["float32"], "max_abs_err_bf16": flash_worst["bfloat16"],
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
-         **chunks("flash_attn_fwd", "fwd"), **small("flash_attn_fwd", "fwd")},
+         **chunks("flash_attn_fwd", "fwd"), **small("flash_attn_fwd", "fwd"),
+         **large("flash_attn_fwd", "fwd")},
         # library_ms of the two backward kernels is one call that computes dq,
         # dk and dv together
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src_bwd,
@@ -4215,7 +4555,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dkv"]["bfloat16"],
          "ms": bw["dkv_ms"], "plain_ms": bw["dkv_plain_ms"], "bound_ms": bw["dkv_bound_ms"],
          "bound_by": bw["dkv_bound_by"], "library_ms": bw["library_ms"],
-         **chunks("flash_attn_bwd_dkv", "dkv"), **small("flash_attn_bwd_dkv", "dkv")},
+         **chunks("flash_attn_bwd_dkv", "dkv"), **small("flash_attn_bwd_dkv", "dkv"),
+         **large("flash_attn_bwd_dkv", "dkv")},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src_bwd,
          "replaces": "mrijax/kernels/flash_attention_pallas.py:358",
          **launches("flash_attn_bwd_dq"), "shape": bw["shape"], "dtype": bw["dtype"],
@@ -4223,7 +4564,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "max_abs_err_bf16": bwd_worst["flash_attn_bwd_dq"]["bfloat16"],
          "ms": bw["dq_ms"], "plain_ms": bw["dq_plain_ms"], "bound_ms": bw["dq_bound_ms"],
          "bound_by": bw["dq_bound_by"], "library_ms": bw["library_ms"],
-         **chunks("flash_attn_bwd_dq", "dq"), **small("flash_attn_bwd_dq", "dq")},
+         **chunks("flash_attn_bwd_dq", "dq"), **small("flash_attn_bwd_dq", "dq"),
+         **large("flash_attn_bwd_dq", "dq")},
     ]
 
 
@@ -4263,10 +4605,13 @@ def main() -> int:
     flash_worst = compare_flash(rng)
     bwd_worst = compare_flash_backward(rng)
     chunk_worst = compare_flash_chunks(rng)
-    small_worst = compare_flash_small_dh(rng)
+    small_worst = compare_flash_head_dims(
+        rng, [(shape, shape) for shape in FLASH_SMALL_DH] + [FLASH_SMALL_DH_CHUNK], "small Dh")
+    large_worst = compare_flash_head_dims(
+        rng, [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK], "large Dh")
     compare_groupnorm_autograd(rng)
     torch.cuda.empty_cache()
-    gn_rows, _ = time_groupnorm(rng)
+    gn_rows, _, gn_wide_rows = time_groupnorm(rng)
     if args.profile:
         profile_groupnorm_stats(rng)
     time_groupnorm_backward(rng)
@@ -4274,6 +4619,7 @@ def main() -> int:
     bwd_rows = time_flash_backward(rng)
     chunk_rows = time_flash_chunks(rng)
     small_rows = time_flash_small_dh(rng)
+    large_rows = time_flash_large_dh(rng)
     torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
@@ -4307,15 +4653,17 @@ def main() -> int:
     counts_train_2d = train_path_2d()
     counts_driver = driver_path(train_result["no_remat"]["seconds_per_step"])
     counts_entry = entry_points_path()
+    counts_large_head = large_head_path(result, train_result)
 
     counts_by_path = {"generate": result["launches"],
                       "train_no_remat": train_counts["no_remat"],
                       "train_remat_level0": train_counts["remat_level0"],
                       **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
-                      **counts_driver, **counts_entry}
+                      **counts_driver, **counts_entry, **counts_large_head}
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
-        chunk_worst, chunk_rows, small_worst, small_rows)}))
+        chunk_worst, chunk_rows, small_worst, small_rows, large_worst, large_rows,
+        gn_wide_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,17 +138,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
     }
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two tiles of pitch
-// DH + 4.
+// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two tiles of
+// pitch DH + 4.
 template <int DH>
-__device__ __forceinline__ void tile_dot_rows(const float* A, const float* B,
-                                              int tx, int ty,
-                                              float (&acc)[4][4]) {
+__device__ __forceinline__ void tile_dot_add(const float* A, const float* B,
+                                             int tx, int ty,
+                                             float (&acc)[4][4]) {
     constexpr int LD = DH + 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < DH; d += 4) {
         float4 a[4], b[4];
@@ -170,6 +166,39 @@ __device__ __forceinline__ void tile_dot_rows(const float* A, const float* B,
     }
 }
 
+// The same from acc = 0.
+template <int DH>
+__device__ __forceinline__ void tile_dot_rows(const float* A, const float* B,
+                                              int tx, int ty,
+                                              float (&acc)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    tile_dot_add<DH>(A, B, tx, ty, acc);
+}
+
+// P = exp(S - lse) and dU = P o (dP - delta) in place, from the thread's
+// 4 x 4 pieces of S (in p) and dP (in du): query rows q0 + ty + 16 i, keys
+// k0 + tx + 16 j. Rows and keys beyond N give 0.
+__device__ __forceinline__ void finish_p_and_du(const float (&lse_r)[4],
+                                                const float (&delta_r)[4],
+                                                int q0, int k0, int NQ, int NK,
+                                                int tx, int ty, float (&p)[4][4],
+                                                float (&du)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const bool row_ok = q0 + ty + 16 * i < NQ;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const bool ok = row_ok && (k0 + tx + 16 * j < NK);
+            const float pv = ok ? expf(p[i][j] - lse_r[i]) : 0.f;
+            p[i][j] = pv;
+            du[i][j] = pv * (du[i][j] - delta_r[i]);
+        }
+    }
+}
+
 // The thread's 4 x 4 piece of P = exp(q'k^T - lse) and dU = P o (dO v^T -
 // delta): query rows q0 + ty + 16 i, keys k0 + tx + 16 j. Rows and keys
 // beyond N give 0.
@@ -182,17 +211,7 @@ __device__ __forceinline__ void p_and_du(const float* Qs, const float* Ks,
                                          float (&p)[4][4], float (&du)[4][4]) {
     tile_dot_rows<DH>(Qs, Ks, tx, ty, p);    // S
     tile_dot_rows<DH>(dOs, Vs, tx, ty, du);  // dP
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const bool row_ok = q0 + ty + 16 * i < NQ;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const bool ok = row_ok && (k0 + tx + 16 * j < NK);
-            const float pv = ok ? expf(p[i][j] - lse_r[i]) : 0.f;
-            p[i][j] = pv;
-            du[i][j] = pv * (du[i][j] - delta_r[i]);
-        }
-    }
+    finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
 }
 
 // lse and delta of the thread's four query rows (0 beyond N).
@@ -226,6 +245,73 @@ __device__ __forceinline__ void load_cols(const float* src, float (&dst)[CW]) {
     }
 }
 
+// dV[key][d] += sum_row P[row][key] dO[row][d] and dK[key][d] += sum_row
+// dU[row][key] q'[row][d] for keys ty + 16 i, columns tx*CW + 16*CW*jj + w,
+// from the transposed P and dU tiles and q', dO tiles of pitch LD.
+template <int LD, int CW, int NJ>
+__device__ __forceinline__ void fma_dkv(const float* PT, const float* dUT,
+                                        const float* dOs, const float* Qs,
+                                        int tx, int ty,
+                                        float (&acc_dk)[4][NJ * CW],
+                                        float (&acc_dv)[4][NJ * CW]) {
+#pragma unroll 1
+    for (int rr = 0; rr < BQ; rr += 4) {
+        float pa[4][4], ua[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            load_cols<4>(&PT[(ty + 16 * i) * LDP + rr], pa[i]);
+            load_cols<4>(&dUT[(ty + 16 * i) * LDP + rr], ua[i]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int jj = 0; jj < NJ; ++jj) {
+                const int col = tx * CW + 16 * CW * jj;
+                float gv[CW], qv[CW];
+                load_cols<CW>(&dOs[(rr + u) * LD + col], gv);
+                load_cols<CW>(&Qs[(rr + u) * LD + col], qv);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int w = 0; w < CW; ++w) {
+                        acc_dv[i][jj * CW + w] =
+                            fmaf(pa[i][u], gv[w], acc_dv[i][jj * CW + w]);
+                        acc_dk[i][jj * CW + w] =
+                            fmaf(ua[i][u], qv[w], acc_dk[i][jj * CW + w]);
+                    }
+            }
+        }
+    }
+}
+
+// dQ'[row][d] += sum_key dU[row][key] k[key][d] for rows ty + 16 i, columns
+// tx*CW + 16*CW*jj + w, from the dU tile and a K tile of pitch LD.
+template <int LD, int CW, int NJ>
+__device__ __forceinline__ void fma_dq(const float* dUs, const float* Ks, int tx,
+                                       int ty, float (&acc)[4][NJ * CW]) {
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+        float ua[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            load_cols<4>(&dUs[(ty + 16 * i) * LDP + kk], ua[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int jj = 0; jj < NJ; ++jj) {
+                float kv[CW];
+                load_cols<CW>(&Ks[(kk + u) * LD + tx * CW + 16 * CW * jj], kv);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int w = 0; w < CW; ++w)
+                        acc[i][jj * CW + w] =
+                            fmaf(ua[i][u], kv[w], acc[i][jj * CW + w]);
+            }
+        }
+    }
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -239,8 +325,12 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int CW = DH >= 64 ? 4 : DH / 16;
     constexpr int NJ = DH / (16 * CW);
     constexpr int NC = NJ * CW;
-    static_assert(CW == 4 || CW == 2, "Dh must be 32 or a multiple of 64");
-    static_assert(NC * 16 == DH, "Dh must be 32 or a multiple of 64");
+    static_assert(CW == 4 || CW == 2,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_bwd_dkv_wide_kernel)");
+    static_assert(NC * 16 == DH,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_bwd_dkv_wide_kernel)");
 
     extern __shared__ __align__(16) float smem[];
     float* Ks = smem;             // [BK][LD]
@@ -298,36 +388,7 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         __syncthreads();
 
-        // dV[key][d] += sum_row P[row][key] dO[row][d]
-        // dK[key][d] += sum_row dU[row][key] q'[row][d]
-#pragma unroll 1
-        for (int rr = 0; rr < BQ; rr += 4) {
-            float pa[4][4], ua[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                load_cols<4>(&PT[(ty + 16 * i) * LDP + rr], pa[i]);
-                load_cols<4>(&dUT[(ty + 16 * i) * LDP + rr], ua[i]);
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                for (int jj = 0; jj < NJ; ++jj) {
-                    const int col = tx * CW + 16 * CW * jj;
-                    float gv[CW], qv[CW];
-                    load_cols<CW>(&dOs[(rr + u) * LD + col], gv);
-                    load_cols<CW>(&Qs[(rr + u) * LD + col], qv);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-#pragma unroll
-                        for (int w = 0; w < CW; ++w) {
-                            acc_dv[i][jj * CW + w] =
-                                fmaf(pa[i][u], gv[w], acc_dv[i][jj * CW + w]);
-                            acc_dk[i][jj * CW + w] =
-                                fmaf(ua[i][u], qv[w], acc_dk[i][jj * CW + w]);
-                        }
-                }
-            }
-        }
+        fma_dkv<LD, CW, NJ>(PT, dUT, dOs, Qs, tx, ty, acc_dk, acc_dv);
     }
 
 #pragma unroll
@@ -358,8 +419,12 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int CW = DH >= 64 ? 4 : DH / 16;
     constexpr int NJ = DH / (16 * CW);
     constexpr int NC = NJ * CW;
-    static_assert(CW == 4 || CW == 2, "Dh must be 32 or a multiple of 64");
-    static_assert(NC * 16 == DH, "Dh must be 32 or a multiple of 64");
+    static_assert(CW == 4 || CW == 2,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_bwd_dq_wide_kernel)");
+    static_assert(NC * 16 == DH,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_bwd_dq_wide_kernel)");
 
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;             // [BQ][LD]  q', fp32
@@ -410,28 +475,7 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 dUs[(ty + 16 * i) * LDP + tx + 16 * j] = du[i][j];
         __syncthreads();
 
-        // dQ'[row][d] += sum_key dU[row][key] k[key][d]
-#pragma unroll 2
-        for (int kk = 0; kk < BK; kk += 4) {
-            float ua[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                load_cols<4>(&dUs[(ty + 16 * i) * LDP + kk], ua[i]);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                for (int jj = 0; jj < NJ; ++jj) {
-                    float kv[CW];
-                    load_cols<CW>(&Ks[(kk + u) * LD + tx * CW + 16 * CW * jj], kv);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-#pragma unroll
-                        for (int w = 0; w < CW; ++w)
-                            acc[i][jj * CW + w] =
-                                fmaf(ua[i][u], kv[w], acc[i][jj * CW + w]);
-                }
-            }
-        }
+        fma_dq<LD, CW, NJ>(dUs, Ks, tx, ty, acc);
     }
 
     // dQ = Dh^-1/2 * dQ': dQ' is rounded to the input type, scaled in fp32 and
@@ -441,6 +485,208 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int n = q0 + ty + 16 * i;
         if (n >= NQ) continue;
         const long long row = (((long long)b * NQ + n) * H + h) * DH;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+            for (int w = 0; w < CW; ++w) {
+                const int col = tx * CW + 16 * CW * jj + w;
+                dq[row + col] =
+                    from_float<T>(round_to<T>(acc[i][jj * CW + w]) * scale);
+            }
+    }
+}
+
+// ------------------------------------------------ float32, Dh above 128
+//
+// As in flash_attention_fwd.cu, a head dim above 128 is zero-padded by the
+// wrapper to a multiple of WIDE = 128 and a block owns ONE chunk of WIDE
+// output columns (grid z): dK and dV (or dQ') of 64 keys (rows) x 128
+// columns keep the 16 x 16 thread grid's 2 x 32 (32) registers at any Dh.
+// S and dP are summed over all of Dh, a piece of WIDE columns of each of
+// q', K, dO and V at a time through the four tiles of the Dh = 128 layout;
+// the pieces are taken in the order chunk + 1, ..., chunk (mod pieces), so
+// that the block's own columns of q' and dO (dkv) or of K (dq) are in
+// shared memory when the products that need them run. Every chunk
+// recomputes P and dU: Dh / 128 times the S and dP work of one pass.
+
+constexpr int WIDE = 128;   // columns of a piece and of a chunk
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_attn_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int NQ,
+                               int NK, int H, int DH, Strides qs, Strides ks,
+                               Strides vs, Strides gs, float scale) {
+    constexpr int LD = WIDE + 4;
+    constexpr int CW = 4;
+    constexpr int NJ = WIDE / (16 * CW);
+    constexpr int NC = NJ * CW;
+
+    extern __shared__ __align__(16) float smem[];
+    float* Ks = smem;             // [BK][LD]  pieces of K, V, q', dO
+    float* Vs = Ks + BK * LD;     // [BK][LD]
+    float* Qs = Vs + BK * LD;     // [BQ][LD]
+    float* dOs = Qs + BQ * LD;    // [BQ][LD]
+    float* PT = dOs + BQ * LD;    // [BK][LDP] P transposed: PT[key][row]
+    float* dUT = PT + BK * LDP;   // [BK][LDP] dU transposed
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int k0 = blockIdx.x * BK;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+    const long long row_base = (long long)bh * NQ;
+
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* kb = k + b * ks.b + h * ks.h;
+    const T* vb = v + b * vs.b + h * vs.h;
+    const T* gb = dout + b * gs.b + h * gs.h;
+
+    float acc_dk[4][NC], acc_dv[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            acc_dk[i][c] = 0.f;
+            acc_dv[i][c] = 0.f;
+        }
+
+    for (int q0 = 0; q0 < NQ; q0 += BQ) {
+        float p[4][4], du[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) p[i][j] = du[i][j] = 0.f;
+        for (int c = 1; c <= pieces; ++c) {
+            const int col = (chunk + c) % pieces * WIDE;
+            // the readers of the last piece (and of PT, dUT) are done
+            __syncthreads();
+            load_tile<T, WIDE, false>(Ks, kb + col, ks.n, k0, NK, 1.f, tid);
+            load_tile<T, WIDE, false>(Vs, vb + col, vs.n, k0, NK, 1.f, tid);
+            load_tile<T, WIDE, true>(Qs, qb + col, qs.n, q0, NQ, scale, tid);
+            load_tile<T, WIDE, false>(dOs, gb + col, gs.n, q0, NQ, 1.f, tid);
+            __syncthreads();
+            tile_dot_add<WIDE>(Qs, Ks, tx, ty, p);    // S
+            tile_dot_add<WIDE>(dOs, Vs, tx, ty, du);  // dP
+        }
+        float lse_r[4], delta_r[4];
+        load_row_stats(lse, delta, row_base, q0, NQ, ty, lse_r, delta_r);
+        finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                PT[(tx + 16 * j) * LDP + ty + 16 * i] = p[i][j];
+                dUT[(tx + 16 * j) * LDP + ty + 16 * i] = du[i][j];
+            }
+        __syncthreads();
+
+        // the chunk's columns: Qs and dOs hold its piece (the last one)
+        fma_dkv<LD, CW, NJ>(PT, dUT, dOs, Qs, tx, ty, acc_dk, acc_dv);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int n = k0 + ty + 16 * i;
+        if (n >= NK) continue;
+        const long long row = (((long long)b * NK + n) * H + h) * DH + chunk * WIDE;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+            for (int w = 0; w < CW; ++w) {
+                const int col = tx * CW + 16 * CW * jj + w;
+                dk[row + col] = from_float<T>(acc_dk[i][jj * CW + w]);
+                dv[row + col] = from_float<T>(acc_dv[i][jj * CW + w]);
+            }
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_attn_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta, T* __restrict__ dq,
+                              int NQ, int NK, int H, int DH, Strides qs,
+                              Strides ks, Strides vs, Strides gs, float scale) {
+    constexpr int LD = WIDE + 4;
+    constexpr int CW = 4;
+    constexpr int NJ = WIDE / (16 * CW);
+    constexpr int NC = NJ * CW;
+
+    extern __shared__ __align__(16) float smem[];
+    float* Qs = smem;             // [BQ][LD]  pieces of q', dO, K, V
+    float* dOs = Qs + BQ * LD;    // [BQ][LD]
+    float* Ks = dOs + BQ * LD;    // [BK][LD]
+    float* Vs = Ks + BK * LD;     // [BK][LD]
+    float* dUs = Vs + BK * LD;    // [BQ][LDP] dU[row][key]
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * BQ;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* kb = k + b * ks.b + h * ks.h;
+    const T* vb = v + b * vs.b + h * vs.h;
+    const T* gb = dout + b * gs.b + h * gs.h;
+
+    float lse_r[4], delta_r[4];
+    load_row_stats(lse, delta, (long long)bh * NQ, q0, NQ, ty, lse_r, delta_r);
+
+    float acc[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+
+    for (int k0 = 0; k0 < NK; k0 += BK) {
+        float p[4][4], du[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) p[i][j] = du[i][j] = 0.f;
+        for (int c = 1; c <= pieces; ++c) {
+            const int col = (chunk + c) % pieces * WIDE;
+            __syncthreads();  // the readers of the last piece (and of dUs) are done
+            load_tile<T, WIDE, true>(Qs, qb + col, qs.n, q0, NQ, scale, tid);
+            load_tile<T, WIDE, false>(dOs, gb + col, gs.n, q0, NQ, 1.f, tid);
+            load_tile<T, WIDE, false>(Ks, kb + col, ks.n, k0, NK, 1.f, tid);
+            load_tile<T, WIDE, false>(Vs, vb + col, vs.n, k0, NK, 1.f, tid);
+            __syncthreads();
+            tile_dot_add<WIDE>(Qs, Ks, tx, ty, p);    // S
+            tile_dot_add<WIDE>(dOs, Vs, tx, ty, du);  // dP
+        }
+        finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                dUs[(ty + 16 * i) * LDP + tx + 16 * j] = du[i][j];
+        __syncthreads();
+
+        // the chunk's columns: Ks holds its piece (the last one)
+        fma_dq<LD, CW, NJ>(dUs, Ks, tx, ty, acc);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int n = q0 + ty + 16 * i;
+        if (n >= NQ) continue;
+        const long long row = (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -488,33 +734,128 @@ __device__ __forceinline__ void load_q_stage(uint32_t Qst, uint32_t dOst,
     }
 }
 
-// After its own copies of a ROWS x DH q tile have landed, a thread turns the
-// chunks it brought into q' = round(q * scale).
-template <int ROWS, int DH, int NT>
-__device__ __forceinline__ void scale_own_chunks(bf16* Qst, float scale,
-                                                 int tid) {
-    typedef mma::TileCopy<ROWS, DH, NT> TC;
-    uint4* chunk = reinterpret_cast<uint4*>(Qst + (tid / TC::CPR) * TC::LD +
-                                            (tid % TC::CPR) * 8);
-#pragma unroll
-    for (int i = 0; i < TC::ITER; ++i) {
-        uint4* at = chunk + i * (TC::RSTEP * TC::LD / 8);
-        uint4 x = *at;
-        x.x = mma::scale_round_bf16(x.x, scale);
-        x.y = mma::scale_round_bf16(x.y, scale);
-        x.z = mma::scale_round_bf16(x.z, scale);
-        x.w = mma::scale_round_bf16(x.w, scale);
-        *at = x;
-    }
-}
-
-// The same for one stage of dkv's Q-side operands, and the lse values the
-// thread brought become lse * log2(e).
+// mma::scale_own_chunks for one stage of dkv's Q-side operands, and the lse
+// values the thread brought become lse * log2(e).
 template <int DH, int NT>
 __device__ __forceinline__ void finish_q_stage(bf16* Qst, float* stats,
                                                float scale, int tid) {
-    scale_own_chunks<TC_BQ, DH, NT>(Qst, scale, tid);
+    mma::scale_own_chunks<TC_BQ, DH, NT>(Qst, scale, tid);
     for (int e = tid; e < TC_BQ; e += NT) stats[e] *= mma::LOG2E;
+}
+
+// Two products whose B operands come from rows of one tile stage: c0 +=
+// A0 B0^T and c1 += A1 B1^T over KD k-steps of 16, for the warp's 16 rows
+// of A0, A1 (ldmatrix at a0, a1) against N rows of B0, B1 (ldmatrix at b0,
+// b1; both tiles of pitch LD). S^T = K q'^T and dP^T = V dO^T in dkv; S =
+// q' K^T and dP = dO V^T in dq.
+template <int KD, int N, int LD>
+__device__ __forceinline__ void tc_two_products(uint32_t a0, uint32_t a1,
+                                                uint32_t b0, uint32_t b1,
+                                                float (&c0)[N / 8][4],
+                                                float (&c1)[N / 8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+        uint32_t x0[4], x1[4];
+        mma::ldmatrix_x4(x0, a0 + kk * 32);
+        mma::ldmatrix_x4(x1, a1 + kk * 32);
+#pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+            const uint32_t off = (nb * 16 * LD + kk * 16) * 2;
+            uint32_t r[4];
+            mma::ldmatrix_x4(r, b0 + off);
+            mma::mma_bf16(c0[2 * nb], x0, r[0], r[1]);
+            mma::mma_bf16(c0[2 * nb + 1], x0, r[2], r[3]);
+            mma::ldmatrix_x4(r, b1 + off);
+            mma::mma_bf16(c1[2 * nb], x1, r[0], r[1]);
+            mma::mma_bf16(c1[2 * nb + 1], x1, r[2], r[3]);
+        }
+    }
+}
+
+// dV += P^T dO and dK += dU^T q' over N query rows: P^T and dU^T, in the
+// accumulator layout that is the A operand's, as two bf16 terms; dO and q'
+// read transposed from g_t and q_t (the lane's addresses, pitch LD).
+template <int KD, int N, int LD>
+__device__ __forceinline__ void tc_dkv_accumulate(const float (&sT)[N / 8][4],
+                                                  const float (&dpT)[N / 8][4],
+                                                  uint32_t g_t, uint32_t q_t,
+                                                  float (&acc_dk)[2 * KD][4],
+                                                  float (&acc_dv)[2 * KD][4]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t ph[4], pl[4], uh[4], ul[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
+            const int jn = 2 * kk + (i >> 1);
+            const int e = 2 * (i & 1);
+            mma::split_bf16(sT[jn][e], sT[jn][e + 1], ph[i], pl[i]);
+            mma::split_bf16(dpT[jn][e], dpT[jn][e + 1], uh[i], ul[i]);
+        }
+#pragma unroll
+        for (int nd2 = 0; nd2 < KD; ++nd2) {
+            const uint32_t off = (kk * 16 * LD + nd2 * 16) * 2;
+            uint32_t r[4];
+            mma::ldmatrix_x4_trans(r, g_t + off);
+            mma::mma_bf16(acc_dv[2 * nd2], ph, r[0], r[1]);
+            mma::mma_bf16(acc_dv[2 * nd2], pl, r[0], r[1]);
+            mma::mma_bf16(acc_dv[2 * nd2 + 1], ph, r[2], r[3]);
+            mma::mma_bf16(acc_dv[2 * nd2 + 1], pl, r[2], r[3]);
+            mma::ldmatrix_x4_trans(r, q_t + off);
+            mma::mma_bf16(acc_dk[2 * nd2], uh, r[0], r[1]);
+            mma::mma_bf16(acc_dk[2 * nd2], ul, r[0], r[1]);
+            mma::mma_bf16(acc_dk[2 * nd2 + 1], uh, r[2], r[3]);
+            mma::mma_bf16(acc_dk[2 * nd2 + 1], ul, r[2], r[3]);
+        }
+    }
+}
+
+// P = exp(S - lse) and dU = P o (dP - delta), in place in dp, for the
+// lane's rows g, g + 8 (lse2 = lse * log2(e), dl = delta) and N keys from
+// key0; a key beyond NK (zero-filled, S = 0) gets P = 0, whatever lse is.
+template <int N>
+__device__ __forceinline__ void tc_p_du_rows(const float (&s)[N / 8][4],
+                                             float (&dp)[N / 8][4],
+                                             const float (&lse2)[2],
+                                             const float (&dl)[2], int key0,
+                                             int NK, int t) {
+    const bool ragged = key0 + N > NK;
+#pragma unroll
+    for (int jn = 0; jn < N / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float p = mma::fast_exp2(fmaf(s[jn][e], mma::LOG2E, -lse2[e >> 1]));
+            if (ragged && key0 + 8 * jn + 2 * t + (e & 1) >= NK) p = 0.f;
+            dp[jn][e] = p * (dp[jn][e] - dl[e >> 1]);
+        }
+}
+
+// dQ' += dU K over N keys: dU as two bf16 terms, K read transposed from k_t
+// (the lane's address, pitch LD).
+template <int KD, int N, int LD>
+__device__ __forceinline__ void tc_dq_accumulate(const float (&dp)[N / 8][4],
+                                                 uint32_t k_t,
+                                                 float (&acc)[2 * KD][4]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t uh[4], ul[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
+            const int jn = 2 * kk + (i >> 1);
+            const int e = 2 * (i & 1);
+            mma::split_bf16(dp[jn][e], dp[jn][e + 1], uh[i], ul[i]);
+        }
+#pragma unroll
+        for (int nd2 = 0; nd2 < KD; ++nd2) {
+            uint32_t r[4];
+            mma::ldmatrix_x4_trans(r, k_t + (kk * 16 * LD + nd2 * 16) * 2);
+            mma::mma_bf16(acc[2 * nd2], uh, r[0], r[1]);
+            mma::mma_bf16(acc[2 * nd2], ul, r[0], r[1]);
+            mma::mma_bf16(acc[2 * nd2 + 1], uh, r[2], r[3]);
+            mma::mma_bf16(acc[2 * nd2 + 1], ul, r[2], r[3]);
+        }
+    }
 }
 
 template <int DH, int NWARPS>
@@ -619,23 +960,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     sT[jn][e] = 0.f;
                     dpT[jn][e] = 0.f;
                 }
-#pragma unroll
-            for (int kk = 0; kk < KD; ++kk) {
-                uint32_t ka[4], va[4];
-                mma::ldmatrix_x4(ka, k_addr + kk * 32);
-                mma::ldmatrix_x4(va, v_addr + kk * 32);
-#pragma unroll
-                for (int nb = 0; nb < TC_QH / 16; ++nb) {
-                    const uint32_t off = rows + (nb * 16 * LD + kk * 16) * 2;
-                    uint32_t r[4];
-                    mma::ldmatrix_x4(r, q_b + off);
-                    mma::mma_bf16(sT[2 * nb], ka, r[0], r[1]);
-                    mma::mma_bf16(sT[2 * nb + 1], ka, r[2], r[3]);
-                    mma::ldmatrix_x4(r, g_b + off);
-                    mma::mma_bf16(dpT[2 * nb], va, r[0], r[1]);
-                    mma::mma_bf16(dpT[2 * nb + 1], va, r[2], r[3]);
-                }
-            }
+            tc_two_products<KD, TC_QH, LD>(k_addr, v_addr, q_b + rows, g_b + rows,
+                                           sT, dpT);
 
             // P^T = exp(S^T - lse) and dU^T = P^T o (dP^T - delta), in place;
             // lse and delta belong to the column (the query row)
@@ -654,34 +980,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 }
             }
 
-            // dV += P^T dO and dK += dU^T q', P^T and dU^T as two bf16 terms
-#pragma unroll
-            for (int kk = 0; kk < TC_QH / 16; ++kk) {
-                uint32_t ph[4], pl[4], uh[4], ul[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
-                    const int jn = 2 * kk + (i >> 1);
-                    const int e = 2 * (i & 1);
-                    mma::split_bf16(sT[jn][e], sT[jn][e + 1], ph[i], pl[i]);
-                    mma::split_bf16(dpT[jn][e], dpT[jn][e + 1], uh[i], ul[i]);
-                }
-#pragma unroll
-                for (int nd2 = 0; nd2 < KD; ++nd2) {
-                    const uint32_t off = rows + (kk * 16 * LD + nd2 * 16) * 2;
-                    uint32_t r[4];
-                    mma::ldmatrix_x4_trans(r, g_t + off);
-                    mma::mma_bf16(acc_dv[2 * nd2], ph, r[0], r[1]);
-                    mma::mma_bf16(acc_dv[2 * nd2], pl, r[0], r[1]);
-                    mma::mma_bf16(acc_dv[2 * nd2 + 1], ph, r[2], r[3]);
-                    mma::mma_bf16(acc_dv[2 * nd2 + 1], pl, r[2], r[3]);
-                    mma::ldmatrix_x4_trans(r, q_t + off);
-                    mma::mma_bf16(acc_dk[2 * nd2], uh, r[0], r[1]);
-                    mma::mma_bf16(acc_dk[2 * nd2], ul, r[0], r[1]);
-                    mma::mma_bf16(acc_dk[2 * nd2 + 1], uh, r[2], r[3]);
-                    mma::mma_bf16(acc_dk[2 * nd2 + 1], ul, r[2], r[3]);
-                }
-            }
+            tc_dkv_accumulate<KD, TC_QH, LD>(sT, dpT, g_t + rows, q_t + rows, acc_dk,
+                                             acc_dv);
         }
         __syncthreads();  // this stage may be refilled in the next pass
     }
@@ -788,7 +1088,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
     mma::cp_async_wait<1>();  // q and dO have landed, K / V tile 0 may fly
-    scale_own_chunks<BQT, DH, NT>(Qs, scale, tid);  // published by the first barrier
+    mma::scale_own_chunks<BQT, DH, NT>(Qs, scale, tid);  // published by the first barrier
 
     // A operands of S and dP: the warp's rows of q' and dO; B operands: K and
     // V as [n][k] for S and dP, K as [k][n] for dQ'
@@ -829,60 +1129,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     s[jn][e] = 0.f;
                     dp[jn][e] = 0.f;
                 }
-#pragma unroll
-            for (int kk = 0; kk < KD; ++kk) {
-                uint32_t qa[4], ga[4];
-                mma::ldmatrix_x4(qa, q_a + kk * 32);
-                mma::ldmatrix_x4(ga, g_a + kk * 32);
-#pragma unroll
-                for (int nb = 0; nb < DQ_KH / 16; ++nb) {
-                    const uint32_t off = keys + (nb * 16 * LD + kk * 16) * 2;
-                    uint32_t r[4];
-                    mma::ldmatrix_x4(r, k_b + off);
-                    mma::mma_bf16(s[2 * nb], qa, r[0], r[1]);
-                    mma::mma_bf16(s[2 * nb + 1], qa, r[2], r[3]);
-                    mma::ldmatrix_x4(r, v_b + off);
-                    mma::mma_bf16(dp[2 * nb], ga, r[0], r[1]);
-                    mma::mma_bf16(dp[2 * nb + 1], ga, r[2], r[3]);
-                }
-            }
+            tc_two_products<KD, DQ_KH, LD>(q_a, g_a, k_b + keys, v_b + keys, s, dp);
 
-            // P = exp(S - lse) and dU = P o (dP - delta), in place; a key
-            // beyond NK (zero-filled, S = 0) gets P = 0, whatever lse is
-            const int key0 = j * DQ_KT + half * DQ_KH;
-            const bool ragged = key0 + DQ_KH > NK;
-#pragma unroll
-            for (int jn = 0; jn < DQ_KH / 8; ++jn)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float p = mma::fast_exp2(
-                        fmaf(s[jn][e], mma::LOG2E, -lse2[e >> 1]));
-                    if (ragged && key0 + 8 * jn + 2 * t + (e & 1) >= NK) p = 0.f;
-                    dp[jn][e] = p * (dp[jn][e] - dl[e >> 1]);
-                }
-
-            // dQ' += dU K, dU as two bf16 terms
-#pragma unroll
-            for (int kk = 0; kk < DQ_KH / 16; ++kk) {
-                uint32_t uh[4], ul[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    // a0, a1 from fragment 2 kk; a2, a3 from fragment 2 kk + 1
-                    const int jn = 2 * kk + (i >> 1);
-                    const int e = 2 * (i & 1);
-                    mma::split_bf16(dp[jn][e], dp[jn][e + 1], uh[i], ul[i]);
-                }
-#pragma unroll
-                for (int nd2 = 0; nd2 < KD; ++nd2) {
-                    const uint32_t off = keys + (kk * 16 * LD + nd2 * 16) * 2;
-                    uint32_t r[4];
-                    mma::ldmatrix_x4_trans(r, k_t + off);
-                    mma::mma_bf16(acc[2 * nd2], uh, r[0], r[1]);
-                    mma::mma_bf16(acc[2 * nd2], ul, r[0], r[1]);
-                    mma::mma_bf16(acc[2 * nd2 + 1], uh, r[2], r[3]);
-                    mma::mma_bf16(acc[2 * nd2 + 1], ul, r[2], r[3]);
-                }
-            }
+            tc_p_du_rows<DQ_KH>(s, dp, lse2, dl, j * DQ_KT + half * DQ_KH, NK, t);
+            tc_dq_accumulate<KD, DQ_KH, LD>(dp, k_t + keys, acc);
         }
         __syncthreads();  // this stage may be refilled in the next pass
     }
@@ -906,6 +1156,307 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int n = q0 + warp * 16 + r;
         if (n >= NQ) continue;
         const long long at = (((long long)b * NQ + n) * H + h) * DH + c * 8;
+        *reinterpret_cast<uint4*>(dq + at) =
+            *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
+    }
+}
+
+// ----------------------------------------------- bfloat16, Dh above 128
+//
+// The chunk design of the float32 kernels above on the tensor cores: a
+// block owns 64 keys (dkv) or 64 query rows (dq), 4 warps of 16, and ONE
+// chunk of WIDE output columns; a warp's accumulators are those of the
+// Dh = 128 kernels (128 registers a thread in dkv, 64 in dq) at any Dh.
+// S^T and dP^T (dkv) or S and dP (dq) are summed over all of Dh from pieces
+// of WIDE columns streamed through shared memory: a stage holds a piece of
+// each of the 64 own rows (K and V, or q' and dO) and of WQ = 32 rows of the
+// other side, 104 KB for two stages, two blocks an SM. The pieces of all
+// tiles of the other side form one stream (i = tile * pieces + piece,
+// columns in the order chunk + 1, ..., chunk mod pieces, so that the
+// block's own columns come last and stay in their stage for the products
+// that need them); piece i + 1 is copied while piece i is multiplied, one
+// barrier a piece. The own rows are copied again with every piece: a block
+// re-reads them from L2 once per tile of the other side. P and dU are split
+// into two bf16 terms, as in the Dh <= 128 kernels. lse and delta are read
+// from global memory where a lane needs them.
+constexpr int WQ = 32;                            // rows of the other side a tile
+constexpr int WIDE_LD = WIDE + mma::PAD;
+constexpr int WIDE_STAGE = (2 * 64 + 2 * WQ) * WIDE_LD;  // elements of a stage
+
+constexpr size_t wide_tc_smem_bytes() { return sizeof(bf16) * 2 * WIDE_STAGE; }
+
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, int NQ, int NK, int H, int DH,
+                             Strides qs, Strides ks, Strides vs, Strides gs,
+                             float scale) {
+    constexpr int NT = 128;
+    constexpr int LD = WIDE_LD;
+    constexpr int KD = WIDE / 16;
+    constexpr int ND = WIDE / 8;
+    constexpr int CPR = WIDE / 8;
+
+    // a stage: K [64][LD], V [64][LD], q' [WQ][LD], dO [WQ][LD]
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+    auto Kst = [&](int st) { return stages + st * WIDE_STAGE; };
+    auto Vst = [&](int st) { return stages + st * WIDE_STAGE + 64 * LD; };
+    auto Qst = [&](int st) { return stages + st * WIDE_STAGE + 128 * LD; };
+    auto Gst = [&](int st) { return stages + st * WIDE_STAGE + (128 + WQ) * LD; };
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int k0 = blockIdx.x * 64;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+    const bf16* gb = dout + b * gs.b + h * gs.h;
+    const float* lse_row = lse + (long long)bh * NQ;
+    const float* delta_row = delta + (long long)bh * NQ;
+
+    const int ntiles = (NQ + WQ - 1) / WQ;
+    const int total = ntiles * pieces;
+    auto load_piece = [&](int i) {
+        const int st = i & 1, col = (chunk + 1 + i % pieces) % pieces * WIDE;
+        const int q0 = (i / pieces) * WQ;
+        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Kst(st)), kb + col, ks.n,
+                                           k0, NK, tid);
+        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Vst(st)), vb + col, vs.n,
+                                           k0, NK, tid);
+        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Qst(st)), qb + col, qs.n,
+                                           q0, NQ, tid);
+        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Gst(st)), gb + col, gs.n,
+                                           q0, NQ, tid);
+    };
+    load_piece(0);
+    mma::cp_async_commit();
+
+    float acc_dk[ND][4], acc_dv[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            acc_dk[nd][e] = 0.f;
+            acc_dv[nd][e] = 0.f;
+        }
+
+    const uint32_t k_lane = mma::smem_addr(Kst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t v_lane = mma::smem_addr(Vst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t q_b = mma::smem_addr(Qst(0)) + mma::b_offset(lane, LD);
+    const uint32_t g_b = mma::smem_addr(Gst(0)) + mma::b_offset(lane, LD);
+    const uint32_t q_t = mma::smem_addr(Qst(0)) + mma::a_offset(lane, LD);
+    const uint32_t g_t = mma::smem_addr(Gst(0)) + mma::a_offset(lane, LD);
+
+    for (int j = 0; j < ntiles; ++j) {
+        // S^T and dP^T: 16 keys x WQ queries, fragment jn holds queries 8 jn ..
+        float sT[WQ / 8][4], dpT[WQ / 8][4];
+#pragma unroll
+        for (int jn = 0; jn < WQ / 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sT[jn][e] = dpT[jn][e] = 0.f;
+        uint32_t stage_bytes = 0;
+        for (int c = 0; c < pieces; ++c) {
+            const int i = j * pieces + c;
+            const int st = i & 1;
+            stage_bytes = st * WIDE_STAGE * 2;
+            mma::cp_async_wait<0>();  // piece i has landed
+            mma::scale_own_chunks<WQ, WIDE, NT>(Qst(st), scale, tid);
+            __syncthreads();          // ... for all; piece i - 1's readers are done
+            if (i + 1 < total) load_piece(i + 1);
+            mma::cp_async_commit();
+            tc_two_products<KD, WQ, LD>(k_lane + stage_bytes, v_lane + stage_bytes,
+                                        q_b + stage_bytes, g_b + stage_bytes, sT, dpT);
+        }
+
+        // P^T = exp(S^T - lse), dU^T = P^T o (dP^T - delta); a query row
+        // beyond N has q' = dO = 0 and lse = delta = 0 here: P = 1 times zeros
+#pragma unroll
+        for (int jn = 0; jn < WQ / 8; ++jn) {
+            const int n = j * WQ + 8 * jn + 2 * t;
+            const float l0 = n < NQ ? lse_row[n] * mma::LOG2E : 0.f;
+            const float l1 = n + 1 < NQ ? lse_row[n + 1] * mma::LOG2E : 0.f;
+            const float d0 = n < NQ ? delta_row[n] : 0.f;
+            const float d1 = n + 1 < NQ ? delta_row[n + 1] : 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = mma::fast_exp2(
+                    fmaf(sT[jn][e], mma::LOG2E, (e & 1) ? -l1 : -l0));
+                sT[jn][e] = p;
+                dpT[jn][e] = p * (dpT[jn][e] - ((e & 1) ? d1 : d0));
+            }
+        }
+
+        // dV += P^T dO and dK += dU^T q' over the chunk's columns, which the
+        // last piece's stage holds
+        tc_dkv_accumulate<KD, WQ, LD>(sT, dpT, g_t + stage_bytes, q_t + stage_bytes,
+                                      acc_dk, acc_dv);
+    }
+
+    // dk and dv, rounded once, staged through the warp's own K and V rows of
+    // stage 0 (only this warp reads them; every copy has landed)
+    bf16* Kw = Kst(0) + warp * 16 * LD;
+    bf16* Vw = Vst(0) + warp * 16 * LD;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&Kw[g * LD + col]) =
+            mma::pack_bf16(acc_dk[nd][0], acc_dk[nd][1]);
+        *reinterpret_cast<uint32_t*>(&Kw[(g + 8) * LD + col]) =
+            mma::pack_bf16(acc_dk[nd][2], acc_dk[nd][3]);
+        *reinterpret_cast<uint32_t*>(&Vw[g * LD + col]) =
+            mma::pack_bf16(acc_dv[nd][0], acc_dv[nd][1]);
+        *reinterpret_cast<uint32_t*>(&Vw[(g + 8) * LD + col]) =
+            mma::pack_bf16(acc_dv[nd][2], acc_dv[nd][3]);
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = k0 + warp * 16 + r;
+        if (n >= NK) continue;
+        const long long at =
+            (((long long)b * NK + n) * H + h) * DH + chunk * WIDE + c * 8;
+        *reinterpret_cast<uint4*>(dk + at) =
+            *reinterpret_cast<const uint4*>(&Kw[r * LD + c * 8]);
+        *reinterpret_cast<uint4*>(dv + at) =
+            *reinterpret_cast<const uint4*>(&Vw[r * LD + c * 8]);
+    }
+}
+
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dq,
+                            int NQ, int NK, int H, int DH, Strides qs, Strides ks,
+                            Strides vs, Strides gs, float scale) {
+    constexpr int NT = 128;
+    constexpr int LD = WIDE_LD;
+    constexpr int KD = WIDE / 16;
+    constexpr int ND = WIDE / 8;
+    constexpr int CPR = WIDE / 8;
+
+    // a stage: q' [64][LD], dO [64][LD], K [WQ][LD], V [WQ][LD]
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+    auto Qst = [&](int st) { return stages + st * WIDE_STAGE; };
+    auto Gst = [&](int st) { return stages + st * WIDE_STAGE + 64 * LD; };
+    auto Kst = [&](int st) { return stages + st * WIDE_STAGE + 128 * LD; };
+    auto Vst = [&](int st) { return stages + st * WIDE_STAGE + (128 + WQ) * LD; };
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * 64;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+    const bf16* gb = dout + b * gs.b + h * gs.h;
+
+    const int ntiles = (NK + WQ - 1) / WQ;
+    const int total = ntiles * pieces;
+    auto load_piece = [&](int i) {
+        const int st = i & 1, col = (chunk + 1 + i % pieces) % pieces * WIDE;
+        const int key0 = (i / pieces) * WQ;
+        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Qst(st)), qb + col, qs.n,
+                                           q0, NQ, tid);
+        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Gst(st)), gb + col, gs.n,
+                                           q0, NQ, tid);
+        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Kst(st)), kb + col, ks.n,
+                                           key0, NK, tid);
+        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Vst(st)), vb + col, vs.n,
+                                           key0, NK, tid);
+    };
+    load_piece(0);
+    mma::cp_async_commit();
+
+    // lse * log2(e) and delta of the lane's rows g and g + 8 (0 beyond NQ)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int n = q0 + warp * 16 + g + 8 * i;
+        const bool ok = n < NQ;
+        lse2[i] = ok ? lse[(long long)bh * NQ + n] * mma::LOG2E : 0.f;
+        dl[i] = ok ? delta[(long long)bh * NQ + n] : 0.f;
+    }
+
+    float acc[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+    const uint32_t q_a = mma::smem_addr(Qst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t g_a = mma::smem_addr(Gst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t k_b = mma::smem_addr(Kst(0)) + mma::b_offset(lane, LD);
+    const uint32_t v_b = mma::smem_addr(Vst(0)) + mma::b_offset(lane, LD);
+    const uint32_t k_t = mma::smem_addr(Kst(0)) + mma::a_offset(lane, LD);
+
+    for (int j = 0; j < ntiles; ++j) {
+        float s[WQ / 8][4], dp[WQ / 8][4];
+#pragma unroll
+        for (int jn = 0; jn < WQ / 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jn][e] = dp[jn][e] = 0.f;
+        uint32_t stage_bytes = 0;
+        for (int c = 0; c < pieces; ++c) {
+            const int i = j * pieces + c;
+            const int st = i & 1;
+            stage_bytes = st * WIDE_STAGE * 2;
+            mma::cp_async_wait<0>();
+            mma::scale_own_chunks<64, WIDE, NT>(Qst(st), scale, tid);
+            __syncthreads();
+            if (i + 1 < total) load_piece(i + 1);
+            mma::cp_async_commit();
+            tc_two_products<KD, WQ, LD>(q_a + stage_bytes, g_a + stage_bytes,
+                                        k_b + stage_bytes, v_b + stage_bytes, s, dp);
+        }
+
+        tc_p_du_rows<WQ>(s, dp, lse2, dl, j * WQ, NK, t);
+        // dQ' += dU K over the chunk's columns, which the last piece's stage
+        // holds
+        tc_dq_accumulate<KD, WQ, LD>(dp, k_t + stage_bytes, acc);
+    }
+
+    // dQ = Dh^-1/2 * dQ' (two roundings), staged through the warp's own q'
+    // rows of stage 0 (only this warp reads them; every copy has landed)
+    bf16* Qw = Qst(0) + warp * 16 * LD;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(&Qw[g * LD + col]) = mma::pack_bf16(
+            round_to<bf16>(acc[nd][0]) * scale, round_to<bf16>(acc[nd][1]) * scale);
+        *reinterpret_cast<uint32_t*>(&Qw[(g + 8) * LD + col]) = mma::pack_bf16(
+            round_to<bf16>(acc[nd][2]) * scale, round_to<bf16>(acc[nd][3]) * scale);
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = q0 + warp * 16 + r;
+        if (n >= NQ) continue;
+        const long long at =
+            (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE + c * 8;
         *reinterpret_cast<uint4*>(dq + at) =
             *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
     }
@@ -985,6 +1536,25 @@ int launch_dq_tc(const Args& a, void* dq) {
     return (int)cudaGetLastError();
 }
 
+// Above 128 (a multiple of WIDE): a block per (64 keys or query rows,
+// (batch, head), chunk of WIDE output columns); `rows` is NK for dkv, NQ
+// for dq.
+template <typename T, typename Kernel, typename... Outs>
+int launch_wide(Kernel kernel, size_t smem, int threads, int rows, const Args& a,
+                int Dh, Outs... outs) {
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((rows + 63) / 64), (unsigned)(a.B * a.H),
+                    (unsigned)(Dh / WIDE));
+    kernel<<<grid, threads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
+        static_cast<T*>(outs)..., a.NQ, a.NK, a.H, Dh, a.qs, a.ks, a.vs, a.gs,
+        a.scale);
+    return (int)cudaGetLastError();
+}
+
+bool wide_head_dim(int Dh) { return Dh > WIDE && Dh % WIDE == 0; }
+
 // float32: the FMA kernel, BK keys per block.
 int dispatch_dkv_fma(int Dh, const Args& a, void* dk, void* dv) {
     switch (Dh) {
@@ -992,6 +1562,9 @@ int dispatch_dkv_fma(int Dh, const Args& a, void* dk, void* dv) {
         case 64: return launch_dkv_fma<64>(a, dk, dv);
         case 128: return launch_dkv_fma<128>(a, dk, dv);
     }
+    if (wide_head_dim(Dh))
+        return launch_wide<float>(flash_attn_bwd_dkv_wide_kernel<float>,
+                                  dkv_smem_bytes<WIDE>(), NT, a.NK, a, Dh, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1002,6 +1575,9 @@ int dispatch_dkv_tc(int Dh, const Args& a, void* dk, void* dv) {
         case 64: return launch_dkv_tc<64, TC_WARPS>(a, dk, dv);
         case 128: return launch_dkv_tc<128, TC_WARPS>(a, dk, dv);
     }
+    if (wide_head_dim(Dh))
+        return launch_wide<bf16>(flash_bwd_dkv_wide_tc_kernel, wide_tc_smem_bytes(),
+                                 32 * TC_WARPS, a.NK, a, Dh, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1012,6 +1588,9 @@ int dispatch_dq_fma(int Dh, const Args& a, void* dq) {
         case 64: return launch_dq_fma<64>(a, dq);
         case 128: return launch_dq_fma<128>(a, dq);
     }
+    if (wide_head_dim(Dh))
+        return launch_wide<float>(flash_attn_bwd_dq_wide_kernel<float>,
+                                  dq_smem_bytes<WIDE>(), NT, a.NQ, a, Dh, dq);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1022,6 +1601,9 @@ int dispatch_dq_tc(int Dh, const Args& a, void* dq) {
         case 64: return launch_dq_tc<64>(a, dq);
         case 128: return launch_dq_tc<128>(a, dq);
     }
+    if (wide_head_dim(Dh))
+        return launch_wide<bf16>(flash_bwd_dq_wide_tc_kernel, wide_tc_smem_bytes(),
+                                 32 * TC_WARPS, a.NQ, a, Dh, dq);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1056,8 +1638,10 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // values in elements: q, k, v, dout), last dimension contiguous; in bfloat16
 // every row start must be 16-byte aligned. lse, delta: contiguous fp32
 // (B*H, N), the forward's logsumexp and rowsum(dO o O). dk, dv: contiguous
-// (B, Nk, H, Dh), dq: contiguous (B, N, H, Dh), of the input type. A block
-// owns 64 keys (dkv) or 64 query rows (dq) in either type. Both entries
+// (B, Nk, H, Dh), dq: contiguous (B, N, H, Dh), of the input type. Dh: 32,
+// 64, 128 or a multiple of 128 (the wrapper zero-pads the others). A block
+// owns 64 keys (dkv) or 64 query rows (dq) in either type, and above
+// Dh = 128 one chunk of 128 output columns. Both entries
 // choose their kernel by dtype, here: float32 runs the FMA kernel, bfloat16
 // the tensor-core kernel; neither stands in for the other.
 // Each entry returns the cudaError_t of its launch (0 on success); launches on

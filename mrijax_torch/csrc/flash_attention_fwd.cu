@@ -103,6 +103,112 @@ __device__ __forceinline__ float half_warp_sum(float v) {
     return v;
 }
 
+// s[i][j] += q'[ty + 16 i] . k[tx + 16 j] over W columns of two fp32 tiles
+// of pitch LD.
+template <int LD, int W>
+__device__ __forceinline__ void fma_logits(const float* Qs, const float* Ks,
+                                           int tx, int ty, float (&s)[4][4]) {
+#pragma unroll 2
+    for (int d = 0; d < W; d += 4) {
+        float4 qa[4], ka[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + d]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            ka[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+                s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+                s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+                s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+            }
+    }
+}
+
+// Keys beyond NK get -inf (only the last tile has any), then the online
+// softmax update of rows ty + 16 i: P, rounded to T, goes to Ps for the P V
+// product; running max m and sum l advance and acc is rescaled.
+template <typename T, int NC>
+__device__ __forceinline__ void fma_softmax(float (&s)[4][4], int k0, int NK,
+                                            float (&m)[4], float (&l)[4],
+                                            float (&acc)[4][NC], float* Ps,
+                                            int tx, int ty) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        if (k0 + tx + 16 * j >= NK) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
+        }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float mc = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+        mc = half_warp_max(mc);
+        const float mn = fmaxf(m[i], mc);
+        const float alpha = expf(m[i] - mn);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float p = expf(s[i][j] - mn);
+            rs += p;
+            Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
+        }
+        rs = half_warp_sum(rs);
+        l[i] = alpha * l[i] + rs;
+        m[i] = mn;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+}
+
+// acc += P V for rows ty + 16 i, columns tx*CW + 16*CW*jj + w of a V tile
+// of pitch LDV.
+template <int LDV, int CW, int NJ>
+__device__ __forceinline__ void fma_pv(const float* Ps, const float* Vs, int tx,
+                                       int ty, float (&acc)[4][NJ * CW]) {
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+        float pa[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                &Ps[(ty + 16 * i) * LDP + kk]);
+            pa[i][0] = t.x;
+            pa[i][1] = t.y;
+            pa[i][2] = t.z;
+            pa[i][3] = t.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int jj = 0; jj < NJ; ++jj) {
+                const float* vp = &Vs[(kk + u) * LDV + tx * CW + 16 * CW * jj];
+                float vv[CW];
+                if constexpr (CW == 4) {
+                    const float4 t = *reinterpret_cast<const float4*>(vp);
+                    vv[0] = t.x;
+                    vv[1] = t.y;
+                    vv[2] = t.z;
+                    vv[3] = t.w;
+                } else {
+                    const float2 t = *reinterpret_cast<const float2*>(vp);
+                    vv[0] = t.x;
+                    vv[1] = t.y;
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int w = 0; w < CW; ++w)
+                        acc[i][jj * CW + w] =
+                            fmaf(pa[i][u], vv[w], acc[i][jj * CW + w]);
+            }
+        }
+    }
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -113,8 +219,12 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // columns of Dh owned by a thread in the PV product: NJ pieces of CW
     constexpr int CW = DH >= 64 ? 4 : DH / 16;
     constexpr int NJ = DH / (16 * CW);
-    static_assert(CW == 4 || CW == 2, "Dh must be 32 or a multiple of 64");
-    static_assert(NJ * CW * 16 == DH, "Dh must be 32 or a multiple of 64");
+    static_assert(CW == 4 || CW == 2,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_fwd_wide_kernel)");
+    static_assert(NJ * CW * 16 == DH,
+                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
+                  "in 128-column chunks (flash_attn_fwd_wide_kernel)");
 
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;            // [BQ][LD]  q', fp32
@@ -173,99 +283,10 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-
-#pragma unroll 2
-        for (int d = 0; d < DH; d += 4) {
-            float4 qa[4], ka[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                qa[i] = *reinterpret_cast<const float4*>(
-                    &Qs[(ty + 16 * i) * LD + d]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                ka[j] = *reinterpret_cast<const float4*>(
-                    &Ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-                    s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-                    s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-                    s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-                }
-        }
-
-        // mask keys beyond NK (only the last tile has any)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            if (k0 + tx + 16 * j >= NK) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
-            }
-
-        // online softmax update; P goes to shared memory for the PV product
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float mc = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-            mc = half_warp_max(mc);
-            const float mn = fmaxf(m[i], mc);
-            const float alpha = expf(m[i] - mn);
-            float rs = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = expf(s[i][j] - mn);
-                rs += p;
-                Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
-            }
-            rs = half_warp_sum(rs);
-            l[i] = alpha * l[i] + rs;
-            m[i] = mn;
-#pragma unroll
-            for (int c = 0; c < NJ * CW; ++c) acc[i][c] *= alpha;
-        }
+        fma_logits<LD, DH>(Qs, Ks, tx, ty, s);
+        fma_softmax<T, NJ * CW>(s, k0, NK, m, l, acc, Ps, tx, ty);
         __syncthreads();
-
-        // acc += P V for rows ty + 16 i, columns tx*CW + 16*CW*jj + w
-#pragma unroll 2
-        for (int kk = 0; kk < BK; kk += 4) {
-            float pa[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float4 t = *reinterpret_cast<const float4*>(
-                    &Ps[(ty + 16 * i) * LDP + kk]);
-                pa[i][0] = t.x;
-                pa[i][1] = t.y;
-                pa[i][2] = t.z;
-                pa[i][3] = t.w;
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                for (int jj = 0; jj < NJ; ++jj) {
-                    const float* vp =
-                        &Vs[(kk + u) * DH + tx * CW + 16 * CW * jj];
-                    float vv[CW];
-                    if constexpr (CW == 4) {
-                        const float4 t = *reinterpret_cast<const float4*>(vp);
-                        vv[0] = t.x;
-                        vv[1] = t.y;
-                        vv[2] = t.z;
-                        vv[3] = t.w;
-                    } else {
-                        const float2 t = *reinterpret_cast<const float2*>(vp);
-                        vv[0] = t.x;
-                        vv[1] = t.y;
-                    }
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-#pragma unroll
-                        for (int w = 0; w < CW; ++w)
-                            acc[i][jj * CW + w] =
-                                fmaf(pa[i][u], vv[w], acc[i][jj * CW + w]);
-                }
-            }
-        }
+        fma_pv<DH, CW, NJ>(Ps, Vs, tx, ty, acc);
     }
 
     // every valid row has seen at least one valid key, so l >= 1
@@ -294,6 +315,92 @@ constexpr int TC_BN = 64;  // keys per tile of the tensor-core kernel
 template <int DH, int NWARPS, int MT>
 constexpr size_t flash_tc_smem_bytes() {
     return sizeof(bf16) * (16 * MT * NWARPS + 4 * TC_BN) * (DH + mma::PAD);
+}
+
+// Keys beyond NK get -inf (only the last tile has any), then the online
+// softmax on the S fragments of MT row fragments (rows g and g + 8 of each):
+// running max m, the lane's share l of the row sum, accumulators o
+// rescaled; S becomes the unrounded P.
+template <int MT, int ND>
+__device__ __forceinline__ void tc_softmax(float (&s)[MT][8][4], int k0, int NK,
+                                           int t, float (&m)[MT][2],
+                                           float (&l)[MT][2],
+                                           float (&o)[MT][ND][4]) {
+    if (k0 + TC_BN > NK) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (k0 + 8 * jn + 2 * t + (e & 1) >= NK)
+                        s[mt][jn][e] = NEG_INF;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mc = NEG_INF;
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+                mc = fmaxf(mc, fmaxf(s[mt][jn][2 * r], s[mt][jn][2 * r + 1]));
+            mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+            mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+            const float mn = fmaxf(m[mt][r], mc);
+            const float alpha =
+                mma::fast_exp2((m[mt][r] - mn) * mma::LOG2E);
+            const float mn2 = mn * mma::LOG2E;
+            float rs = 0.f;
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn) {
+                const float p0 = mma::fast_exp2(
+                    fmaf(s[mt][jn][2 * r], mma::LOG2E, -mn2));
+                const float p1 = mma::fast_exp2(
+                    fmaf(s[mt][jn][2 * r + 1], mma::LOG2E, -mn2));
+                rs += p0 + p1;
+                s[mt][jn][2 * r] = p0;
+                s[mt][jn][2 * r + 1] = p1;
+            }
+            l[mt][r] = alpha * l[mt][r] + rs;
+            m[mt][r] = mn;
+#pragma unroll
+            for (int nd = 0; nd < ND; ++nd) {
+                o[mt][nd][2 * r] *= alpha;
+                o[mt][nd][2 * r + 1] *= alpha;
+            }
+        }
+    }
+}
+
+// o += P V over one tile of TC_BN keys: the S fragments, rounded to bf16,
+// are the A operand; a V fragment (ldmatrix.trans at v_addr, the lane's
+// address in a tile of pitch LD) serves all MT row fragments.
+template <int MT, int KD, int LD>
+__device__ __forceinline__ void tc_pv(const float (&s)[MT][8][4], uint32_t v_addr,
+                                      float (&o)[MT][2 * KD][4]) {
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            a[mt][0] = mma::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+            a[mt][1] = mma::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+            a[mt][2] =
+                mma::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+            a[mt][3] =
+                mma::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int nd2 = 0; nd2 < KD; ++nd2) {
+            uint32_t r[4];
+            mma::ldmatrix_x4_trans(r, v_addr + (kk * 16 * LD + nd2 * 16) * 2);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                mma::mma_bf16(o[mt][2 * nd2], a[mt], r[0], r[1]);
+                mma::mma_bf16(o[mt][2 * nd2 + 1], a[mt], r[2], r[3]);
+            }
+        }
+    }
 }
 
 template <int DH, int NWARPS, int MT>
@@ -445,80 +552,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 v_tiles + (stage ^ 1) * TILE * 2, vb, vs.n, k0 + TC_BN, NK, tid);
         mma::cp_async_commit();
 
-        // keys beyond NK (only the last tile has any)
-        if (k0 + TC_BN > NK) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        if (k0 + 8 * jn + 2 * t + (e & 1) >= NK)
-                            s[mt][jn][e] = NEG_INF;
-        }
-
-        // online softmax on the fragments
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                float mc = NEG_INF;
-#pragma unroll
-                for (int jn = 0; jn < 8; ++jn)
-                    mc = fmaxf(mc, fmaxf(s[mt][jn][2 * r], s[mt][jn][2 * r + 1]));
-                mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-                mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-                const float mn = fmaxf(m[mt][r], mc);
-                const float alpha =
-                    mma::fast_exp2((m[mt][r] - mn) * mma::LOG2E);
-                const float mn2 = mn * mma::LOG2E;
-                float rs = 0.f;
-#pragma unroll
-                for (int jn = 0; jn < 8; ++jn) {
-                    const float p0 = mma::fast_exp2(
-                        fmaf(s[mt][jn][2 * r], mma::LOG2E, -mn2));
-                    const float p1 = mma::fast_exp2(
-                        fmaf(s[mt][jn][2 * r + 1], mma::LOG2E, -mn2));
-                    rs += p0 + p1;
-                    s[mt][jn][2 * r] = p0;
-                    s[mt][jn][2 * r + 1] = p1;
-                }
-                l[mt][r] = alpha * l[mt][r] + rs;
-                m[mt][r] = mn;
-#pragma unroll
-                for (int nd = 0; nd < ND; ++nd) {
-                    o[mt][nd][2 * r] *= alpha;
-                    o[mt][nd][2 * r + 1] *= alpha;
-                }
-            }
-        }
-
-        // acc += P V: the S fragments, rounded to bf16, are the A operand;
-        // a V fragment serves all MT row fragments
-#pragma unroll
-        for (int kk = 0; kk < TC_BN / 16; ++kk) {
-            uint32_t a[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                a[mt][0] = mma::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-                a[mt][1] = mma::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-                a[mt][2] =
-                    mma::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-                a[mt][3] =
-                    mma::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-            }
-#pragma unroll
-            for (int nd2 = 0; nd2 < KD; ++nd2) {
-                uint32_t r[4];
-                mma::ldmatrix_x4_trans(r,
-                                       v_addr + (kk * 16 * LD + nd2 * 16) * 2);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    mma::mma_bf16(o[mt][2 * nd2], a[mt], r[0], r[1]);
-                    mma::mma_bf16(o[mt][2 * nd2 + 1], a[mt], r[2], r[3]);
-                }
-            }
-        }
+        tc_softmax<MT, ND>(s, k0, NK, t, m, l, o);
+        tc_pv<MT, KD, LD>(s, v_addr, o);
     }
 
     // out = acc / l, staged through the warp's own Q rows (no other warp ever
@@ -549,6 +584,271 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (n < NQ)
             *reinterpret_cast<uint4*>(
                 out + (((long long)b * NQ + n) * H + h) * DH + c * 8) =
+                *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
+    }
+}
+
+// ------------------------------------------------------- Dh above 128
+//
+// The wrapper zero-pads a head dim above 128 to a multiple of WIDE = 128.
+// A block owns a tile of 64 query rows and ONE chunk of WIDE output columns
+// (grid z): a warp's 16 rows x 128 columns of fp32 accumulator are 64
+// registers a thread at any Dh, where all of a row would take Dh / 2. The
+// block computes the logits over all of Dh, streaming q and K through shared
+// memory in pieces of WIDE columns and summing each piece's product into the
+// same fp32 logits, and then P V for its own chunk of V only. Every chunk
+// recomputes the logits (Dh / 128 times the q'k^T work of one pass): that
+// is the price of the register file, paid in operations. All chunks compute
+// the same lse; chunk 0 writes it.
+
+constexpr int WIDE = 128;                  // columns of a piece and of a chunk
+
+// float32: 256 threads as in flash_attn_fwd_kernel; one piece of q' and of
+// K at a time (plain loads, two barriers a piece), then the chunk of V into
+// K's tile for the P V product.
+constexpr size_t flash_wide_smem_bytes() {
+    return sizeof(float) * (BQ * (WIDE + 4) + BK * (WIDE + 4) + BQ * LDP);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_wide_piece(float* dst, const T* base,
+                                                long long stride_n, int row0,
+                                                int N, float scale, bool scaled,
+                                                int tid) {
+    constexpr int LD = WIDE + 4;
+    for (int e = tid; e < 64 * WIDE; e += NT) {
+        const int r = e / WIDE, d = e % WIDE;
+        const int n = row0 + r;
+        float x = 0.f;
+        if (n < N) {
+            x = to_float<T>(base[n * stride_n + d]);
+            if (scaled) x = round_to<T>(x * scale);
+        }
+        dst[r * LD + d] = x;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_attn_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int NQ, int NK, int H,
+                           int DH, Strides qs, Strides ks, Strides vs,
+                           float scale) {
+    constexpr int LD = WIDE + 4;
+    constexpr int CW = 4;                  // columns a thread owns per piece
+    constexpr int NJ = WIDE / (16 * CW);   // pieces of CW columns
+    constexpr int NC = NJ * CW;
+
+    extern __shared__ __align__(16) float smem[];
+    float* Qs = smem;            // [BQ][LD]  a piece of q', fp32
+    float* Ks = Qs + BQ * LD;    // [BK][LD]  a piece of K, then the chunk of V
+    float* Ps = Ks + BK * LD;    // [BQ][LDP]
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * BQ;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* kb = k + b * ks.b + h * ks.h;
+    const T* vb = v + b * vs.b + h * vs.h + chunk * WIDE;
+
+    float m[4], l[4], acc[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        m[i] = NEG_INF;
+        l[i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < NK; k0 += BK) {
+        // S = q' k^T over all of Dh, a piece of WIDE columns at a time
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        for (int c = 0; c < pieces; ++c) {
+            __syncthreads();  // the readers of the last piece (or of V) are done
+            load_wide_piece<T>(Qs, qb + c * WIDE, qs.n, q0, NQ, scale, true, tid);
+            load_wide_piece<T>(Ks, kb + c * WIDE, ks.n, k0, NK, 1.f, false, tid);
+            __syncthreads();
+            fma_logits<LD, WIDE>(Qs, Ks, tx, ty, s);
+        }
+        fma_softmax<T, NC>(s, k0, NK, m, l, acc, Ps, tx, ty);
+        __syncthreads();  // K's tile is free, P is visible
+        load_wide_piece<T>(Ks, vb, vs.n, k0, NK, 1.f, false, tid);
+        __syncthreads();
+        fma_pv<LD, CW, NJ>(Ps, Ks, tx, ty, acc);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int n = q0 + ty + 16 * i;
+        if (n >= NQ) continue;
+        T* orow = out + (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+            for (int w = 0; w < CW; ++w) {
+                const int col = tx * CW + 16 * CW * jj + w;
+                orow[col] = from_float<T>(acc[i][jj * CW + w] / l[i]);
+            }
+        if (chunk == 0 && tx == 0) lse[(long long)bh * NQ + n] = m[i] + logf(l[i]);
+    }
+}
+
+// bfloat16: 4 warps of 16 query rows (64 a block) as flash_fwd_tc_kernel at
+// MT = 1. Shared memory: two stages of (a piece of q', a piece of K), each
+// 64 rows of WIDE + 8, and the chunk of V: 87 KB, two blocks an SM. The
+// pieces of all KV tiles form one stream, i = tile * pieces + piece; piece
+// i + 1 is copied while piece i is multiplied (one barrier a piece), and
+// the chunk of V of a tile is copied behind its first piece, so it has the
+// products of the others to land (pieces >= 2). A thread scales the q
+// chunks its own copies brought, as dkv does, before the barrier.
+constexpr int WIDE_LD = WIDE + mma::PAD;
+constexpr int WIDE_TILE = 64 * WIDE_LD;    // elements of one 64-row piece
+
+constexpr size_t flash_wide_tc_smem_bytes() {
+    return sizeof(bf16) * 5 * WIDE_TILE;
+}
+
+__global__ void __launch_bounds__(128)
+flash_fwd_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ lse, int NQ, int NK, int H, int DH,
+                         Strides qs, Strides ks, Strides vs, float scale) {
+    constexpr int NT = 128;
+    constexpr int BM = 64;
+    constexpr int LD = WIDE_LD;
+    constexpr int KD = WIDE / 16;       // k-steps over a piece
+    constexpr int ND = WIDE / 8;        // 8-column fragments of the chunk
+    constexpr int CPR = WIDE / 8;       // 16-byte chunks per row
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [2][BM][LD]
+    bf16* Ks = Qs + 2 * WIDE_TILE;                 // [2][TC_BN][LD]
+    bf16* Vs = Ks + 2 * WIDE_TILE;                 // [TC_BN][LD]
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int q0 = blockIdx.x * BM;
+    const int chunk = blockIdx.z;
+    const int pieces = DH / WIDE;
+
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h + chunk * WIDE;
+
+    const uint32_t q_tiles = mma::smem_addr(Qs);
+    const uint32_t k_tiles = mma::smem_addr(Ks);
+    const int ntiles = (NK + TC_BN - 1) / TC_BN;
+    const int total = ntiles * pieces;
+    auto load_piece = [&](int i) {
+        const int stage = i & 1, col = (i % pieces) * WIDE;
+        mma::load_tile_async<BM, WIDE, NT>(q_tiles + stage * WIDE_TILE * 2,
+                                           qb + col, qs.n, q0, NQ, tid);
+        mma::load_tile_async<TC_BN, WIDE, NT>(k_tiles + stage * WIDE_TILE * 2,
+                                              kb + col, ks.n,
+                                              (i / pieces) * TC_BN, NK, tid);
+    };
+    load_piece(0);
+    mma::cp_async_commit();
+
+    float m[1][2] = {{NEG_INF, NEG_INF}}, l[1][2] = {{0.f, 0.f}};
+    float o[1][ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[0][nd][e] = 0.f;
+
+    const uint32_t q_lane = mma::smem_addr(Qs + warp * 16 * LD) + mma::a_offset(lane, LD);
+    const uint32_t k_lane = k_tiles + mma::b_offset(lane, LD);
+    const uint32_t v_lane = mma::smem_addr(Vs) + mma::a_offset(lane, LD);
+
+    for (int j = 0; j < ntiles; ++j) {
+        const int k0 = j * TC_BN;
+        float s[1][8][4];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[0][jn][e] = 0.f;
+
+        for (int c = 0; c < pieces; ++c) {
+            const int i = j * pieces + c;
+            const int stage = i & 1;
+            // piece i (and, at c == 1, this tile's V) has landed; the
+            // barrier publishes it and frees the other stage (piece i - 1)
+            // and, at c == 0, the V of the last tile
+            mma::cp_async_wait<0>();
+            mma::scale_own_chunks<BM, WIDE, NT>(Qs + stage * WIDE_TILE, scale, tid);
+            __syncthreads();
+            if (i + 1 < total) load_piece(i + 1);
+            if (c == 0)
+                mma::load_tile_async<TC_BN, WIDE, NT>(mma::smem_addr(Vs), vb, vs.n,
+                                                      k0, NK, tid);
+            mma::cp_async_commit();
+
+            const uint32_t q_addr = q_lane + stage * WIDE_TILE * 2;
+            const uint32_t k_addr = k_lane + stage * WIDE_TILE * 2;
+#pragma unroll
+            for (int kk = 0; kk < KD; ++kk) {
+                uint32_t qa[4];
+                mma::ldmatrix_x4(qa, q_addr + kk * 32);
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb) {
+                    uint32_t kf[4];
+                    mma::ldmatrix_x4(kf, k_addr + (nb * 16 * LD + kk * 16) * 2);
+                    mma::mma_bf16(s[0][2 * nb], qa, kf[0], kf[1]);
+                    mma::mma_bf16(s[0][2 * nb + 1], qa, kf[2], kf[3]);
+                }
+            }
+        }
+
+        tc_softmax<1, ND>(s, k0, NK, t, m, l, o);
+        // the chunk's columns of V landed before the barrier of piece 1
+        tc_pv<1, KD, LD>(s, v_lane, o);
+    }
+
+    // out = acc / l, staged through the warp's own rows of q' stage 0 (only
+    // this warp reads them; every copy has landed), then 16-byte pieces of
+    // the chunk's columns
+    bf16* Qw = Qs + warp * 16 * LD;
+    const int row0 = q0 + warp * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float sum = l[0][r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        bf16* orow = Qw + (g + 8 * r) * LD + 2 * t;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+            *reinterpret_cast<uint32_t*>(orow + nd * 8) =
+                mma::pack_bf16(o[0][nd][2 * r] / sum, o[0][nd][2 * r + 1] / sum);
+        const int n = row0 + g + 8 * r;
+        if (chunk == 0 && t == 0 && n < NQ)
+            lse[(long long)bh * NQ + n] = m[0][r] + logf(sum);
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * CPR; e += 32) {
+        const int r = e / CPR, c = e % CPR;
+        const int n = row0 + r;
+        if (n < NQ)
+            *reinterpret_cast<uint4*>(out + (((long long)b * NQ + n) * H + h) * DH +
+                                      chunk * WIDE + c * 8) =
                 *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
     }
 }
@@ -597,6 +897,21 @@ int launch_tc(const Args& a) {
     return (int)cudaGetLastError();
 }
 
+// Above 128 (a multiple of WIDE): a block per (tile of query rows, (batch,
+// head), chunk of WIDE output columns).
+template <typename Kernel, typename... KArgs>
+int launch_wide(Kernel kernel, size_t smem, int rows, int threads, const Args& a,
+                int Dh, KArgs... kargs) {
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.NQ + rows - 1) / rows), (unsigned)(a.B * a.H),
+                    (unsigned)(Dh / WIDE));
+    kernel<<<grid, threads, smem, a.stream>>>(kargs..., a.NQ, a.NK, a.H, Dh, a.qs,
+                                              a.ks, a.vs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+bool wide_head_dim(int Dh) { return Dh > WIDE && Dh % WIDE == 0; }
+
 // float32: the FMA kernel, whose tile is fixed at BQ rows.
 int dispatch_fma(int Dh, int tile, const Args& a) {
     if (tile != BQ) return (int)cudaErrorInvalidValue;
@@ -605,6 +920,12 @@ int dispatch_fma(int Dh, int tile, const Args& a) {
         case 64: return launch_fma<64>(a);
         case 128: return launch_fma<128>(a);
     }
+    if (wide_head_dim(Dh))
+        return launch_wide(flash_attn_fwd_wide_kernel<float>, flash_wide_smem_bytes(),
+                           BQ, NT, a, Dh, static_cast<const float*>(a.q),
+                           static_cast<const float*>(a.k),
+                           static_cast<const float*>(a.v),
+                           static_cast<float*>(a.out), a.lse);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -619,13 +940,20 @@ int dispatch_tc_tile(int tile, const Args& a) {
     return (int)cudaErrorInvalidValue;
 }
 
-// bfloat16: the tensor-core kernel, `tile` query rows per block.
+// bfloat16: the tensor-core kernel, `tile` query rows per block (64 above
+// Dh = 128).
 int dispatch_tc(int Dh, int tile, const Args& a) {
     switch (Dh) {
         case 32: return dispatch_tc_tile<32>(tile, a);
         case 64: return dispatch_tc_tile<64>(tile, a);
         case 128: return dispatch_tc_tile<128>(tile, a);
     }
+    if (wide_head_dim(Dh) && tile == 64)
+        return launch_wide(flash_fwd_wide_tc_kernel, flash_wide_tc_smem_bytes(), 64,
+                           128, a, Dh, static_cast<const bf16*>(a.q),
+                           static_cast<const bf16*>(a.k),
+                           static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
+                           a.lse);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -637,7 +965,8 @@ int dispatch_tc(int Dh, int tile, const Args& a) {
 // every row start must be 16-byte aligned. out: contiguous (B, N, H, Dh) of
 // the input type. lse: contiguous fp32 (B*H, N). `tile` is the number of query
 // rows per block from the wrapper's launch plan: 64 or 128 for bfloat16, 64
-// for float32.
+// for float32 and for any Dh above 128. Dh: 32, 64, 128 or a multiple of 128
+// (the wrapper zero-pads the others).
 // The kernel is chosen by dtype, here: float32 runs the FMA kernel, bfloat16
 // the tensor-core kernel; neither stands in for the other. Returns the
 // cudaError_t of the launch (0 on success); launches on `stream`, does not

@@ -405,6 +405,11 @@ gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     }
 }
 
+// Dynamic shared memory a stats launch gets without asking: 48 KB less the
+// kernel's static tot[] and flag.
+constexpr size_t kStatsDefaultSmem =
+    48 * 1024 - sizeof(float) * 2 * kMaxGroups - 16;
+
 template <typename T, int VEC, int R>
 int launch_stats_rows(const void* x, float* partials, int* counters,
                       float* stats, StatsShape s, long long B, int tx, int ty,
@@ -412,7 +417,15 @@ int launch_stats_rows(const void* x, float* partials, int* counters,
     const dim3 grid((unsigned)s.blocks, (unsigned)B);
     const int slots = tx < 32 ? ty * tx / 32 : ty;
     const size_t smem = sizeof(float) * 2 * ((size_t)slots * tx * VEC + s.C);
-    gn_silu_stats_kernel<T, VEC, R><<<grid, dim3(tx, ty), smem, stream>>>(
+    auto kernel = gn_silu_stats_kernel<T, VEC, R>;
+    // above 3840 channels the [2][C] group-piece sums need more than the
+    // default: raise the kernel's limit (up to the 227 KB a block may have)
+    if (smem > kStatsDefaultSmem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, dim3(tx, ty), smem, stream>>>(
         static_cast<const T*>(x), partials, counters, stats, s);
     return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@
 //
 // Shared-memory tiles are rows of DH bf16 with a pitch of DH + 8 elements
 // (16 bytes of padding). The pitch in 16-byte chunks is then odd (5, 9, 17
-// for DH = 32, 64, 128), so the 8 rows that one ldmatrix phase reads fall
+// for DH = 32, 64, 128 and for the 128-column pieces of a larger Dh), so the 8 rows that one ldmatrix phase reads fall
 // into 8 distinct groups of 4 banks: no bank conflicts, for plain and for
 // transposed loads, without a swizzle.
 #pragma once
@@ -96,7 +96,8 @@ struct TileCopy {
 // steps it by a constant, and a tile that lies inside N takes a path without
 // predicates: at one or two warps a scheduler the address arithmetic, not the
 // copy, is what a block waits for. After cp_async_wait a thread may touch the
-// chunks it copied (see TileCopy) before any barrier.
+// chunks it copied (see TileCopy) before any barrier. `base` may point at a
+// window of DH columns inside longer rows: stride_n is the row pitch.
 template <int ROWS, int DH, int NT>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
                                                 long long stride_n, int row0,
@@ -181,6 +182,27 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
 __device__ __forceinline__ uint32_t scale_round_bf16(uint32_t x, float scale) {
     const float2 f = unpack_bf16(x);
     return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// After its own copies of a ROWS x DH q tile (load_tile_async with the same
+// ROWS, DH, NT) have landed, a thread turns the chunks it brought into
+// q' = round(q * scale); a barrier then publishes them.
+template <int ROWS, int DH, int NT>
+__device__ __forceinline__ void scale_own_chunks(bf16* Qst, float scale,
+                                                 int tid) {
+    typedef TileCopy<ROWS, DH, NT> TC;
+    uint4* chunk = reinterpret_cast<uint4*>(Qst + (tid / TC::CPR) * TC::LD +
+                                            (tid % TC::CPR) * 8);
+#pragma unroll
+    for (int i = 0; i < TC::ITER; ++i) {
+        uint4* at = chunk + i * (TC::RSTEP * TC::LD / 8);
+        uint4 x = *at;
+        x.x = scale_round_bf16(x.x, scale);
+        x.y = scale_round_bf16(x.y, scale);
+        x.z = scale_round_bf16(x.z, scale);
+        x.w = scale_round_bf16(x.w, scale);
+        *at = x;
+    }
 }
 
 // Two-term bf16 split of a pair of floats: hi = bf16(x), lo = bf16(x - hi).

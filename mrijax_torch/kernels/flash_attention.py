@@ -25,15 +25,22 @@ self-attention, Nk ≠ N a block of query rows against every key (what
 ``mrijax_torch.parallel.sequence`` gives each rank); scale = Dh**-0.5, folded into q and rounded to the input
 dtype before the product, as in the TPU version.
 
-Head dims: the kernels are compiled for ``SUPPORTED_HEAD_DIMS`` (32, 64,
-128); the wrappers take any Dh from 1 to 128. A Dh between those sizes is
-zero-padded up to the next one (``kernel_head_dim``) in q, k, v and dO and
-launched with the true scale Dh**-0.5; zero columns change neither q′kᵀ nor
-the logsumexp, the padded columns of out, dq, dk and dv are zero, and the
-wrappers slice them off (``at_kernel_head_dim``). At 32, 64 and 128 nothing
-is copied. Dh > 128 is a ``ValueError``. ``flash_attention`` is a
-``torch.autograd.Function``: its forward saves (q, k, v, out, lse), its
-backward launches the two backward kernels.
+Head dims: the wrappers take any Dh from 1 to ``MAX_HEAD_DIM`` (the grid's
+limit of 65 535 column chunks; the Pallas kernel has no limit). The
+kernels run Dh = 32, 64 and 128 in one piece (``SUPPORTED_HEAD_DIMS``) and
+any multiple of ``COLUMN_CHUNK`` = 128 above that in column chunks: a block
+owns one chunk of 128 output columns (a grid axis), computes the logits over
+all of Dh from 128-column pieces and accumulates P·V (dK, dV; dQ′) for its
+own columns only, so its accumulators fit the register file at any Dh; every
+chunk recomputes the logits. ``flash_attention_column_chunks_reference`` and
+its two backward counterparts are that decomposition in plain PyTorch. Any
+other Dh is zero-padded up to the next size the kernels take
+(``kernel_head_dim``) in q, k, v and dO and launched with the true scale
+Dh**-0.5; zero columns change neither q′kᵀ nor the logsumexp, the padded
+columns of out, dq, dk and dv are zero, and the wrappers slice them off
+(``at_kernel_head_dim``). At 32, 64, 128 and the multiples of 128 nothing is
+copied. ``flash_attention`` is a ``torch.autograd.Function``: its forward
+saves (q, k, v, out, lse), its backward launches the two backward kernels.
 
 For a CUDA tensor a wrapper launches its kernel or raises. The plain PyTorch
 versions ``flash_attention_reference`` and
@@ -60,8 +67,10 @@ from mrijax_torch.kernels import _build
 launches = _build.LaunchCounts("flash_attn_fwd", "flash_attn_bwd_dkv",
                                "flash_attn_bwd_dq")
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)   # what the kernels are compiled for
-MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
+SUPPORTED_HEAD_DIMS = (32, 64, 128)   # what the kernels run in one piece
+COLUMN_CHUNK = 128                     # above that: multiples of this, one chunk a block
+MAX_GRID_YZ = 65535                    # blocks along grid y (B·H) and z (column chunks)
+MAX_HEAD_DIM = COLUMN_CHUNK * MAX_GRID_YZ
 
 SM_COUNT = 132                     # streaming multiprocessors of an H100
 MAX_SHARED_BYTES = 232448          # dynamic shared memory a block may ask for
@@ -76,8 +85,14 @@ class LaunchPlan(NamedTuple):
     """How one of the three flash-attention kernels is launched."""
     tile: int          # query rows (forward, dq) or keys (dkv) owned by a block
     warps: int         # warps per block
-    blocks: int        # B·H·⌈N/tile⌉
+    blocks: int        # B·H·⌈N/tile⌉·chunks
     shared_bytes: int  # dynamic shared memory per block, as the source computes it
+    chunks: int = 1    # column chunks of COLUMN_CHUNK output columns (grid z), Dh > 128
+
+
+def runs_in_chunks(d: int) -> bool:
+    """Whether the kernels take head dim ``d`` in column chunks."""
+    return d > COLUMN_CHUNK and d % COLUMN_CHUNK == 0 and d <= MAX_HEAD_DIM
 
 
 def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
@@ -105,12 +120,24 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     rows' lse and Δ; dq Q, dO + 2 stages of K and V.
     float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
     Dh + 4 and (64, 68) P (and, in dkv, dU) tiles.
+
+    Dh a multiple of 128 above 128: ``chunks`` = Dh/128 blocks per tile
+    (grid z), each owning 128 output columns; 64 rows or keys a block in
+    both types. bfloat16: two stages of 128-column pieces, pitch 136 —
+    forward 64 rows of q′ and 64 keys of K a stage, plus V's chunk; dkv 64
+    keys of K and V and 32 rows of q′ and dO a stage; dq 64 rows of q′ and
+    dO and 32 keys of K and V a stage. float32: the Dh = 128 kernels' tiles
+    (pitch 132), the forward holding one piece of q′ and of K (V's chunk
+    goes into K's tile) beside P.
     """
     if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         raise ValueError(f"no launch plan for {kernel!r}")
+    if runs_in_chunks(d):
+        return _chunked_plan(kernel, b, n, h, d, dtype)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
-            f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+            f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS} or a multiple "
+            f"of {COLUMN_CHUNK} up to {MAX_HEAD_DIM}, got {d}")
     forward = kernel == "flash_attn_fwd"
     if dtype == torch.float32:
         tile, warps = 64, 8
@@ -135,6 +162,26 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"{kernel}: {shared} bytes of shared memory exceed {MAX_SHARED_BYTES}")
     return LaunchPlan(tile, warps, b * h * -(-n // tile), shared)
+
+
+def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
+                  dtype: torch.dtype) -> LaunchPlan:
+    """``launch_plan`` of the column-chunk kernels (Dh a multiple of 128)."""
+    chunks = d // COLUMN_CHUNK
+    width = COLUMN_CHUNK
+    if dtype == torch.float32:
+        warps = 8
+        floats = {"flash_attn_fwd": 2 * 64 * (width + 4) + 64 * 68,
+                  "flash_attn_bwd_dkv": 4 * 64 * (width + 4) + 2 * 64 * 68,
+                  "flash_attn_bwd_dq": 4 * 64 * (width + 4) + 64 * 68}[kernel]
+        shared = 4 * floats
+    elif dtype == torch.bfloat16:
+        warps = 4
+        rows = 5 * 64 if kernel == "flash_attn_fwd" else 2 * (2 * 64 + 2 * 32)
+        shared = 2 * rows * (width + 8)
+    else:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return LaunchPlan(64, warps, b * h * -(-n // 64) * chunks, shared, chunks)
 
 
 def _misalignment(t: torch.Tensor) -> Optional[str]:
@@ -191,10 +238,14 @@ def flash_attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor
     return delta.permute(0, 2, 1).reshape(b * h, n).contiguous()
 
 
-def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale):
+def _logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bnhd,bmhd->bhnm", a, b)
+
+
+def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale, logits=_logits):
     """Per block of query rows: (rows, q′, dO, p, dU), all fp32, with
     q′ = q·scale rounded to the input dtype, p = exp(q′kᵀ − lse) and
-    dU = p∘(dO·Vᵀ − Δ) as (B, H, rows, N)."""
+    dU = p∘(dO·Vᵀ − Δ) as (B, H, rows, N); ``logits`` takes the products."""
     b, n, h, d = q.shape
     step = n if q_block is None else q_block
     kf, vf = k.float(), v.float()
@@ -202,9 +253,8 @@ def _p_and_du_blocks(q, k, v, dout, lse, delta, q_block, scale):
     for start in range(0, n, step):
         rows = slice(start, start + step)
         qs = (q[:, rows].float() * scale).to(q.dtype).float()
-        p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qs, kf)
-                      - lse[:, :, rows, None])
-        dp = torch.einsum("bnhd,bmhd->bhnm", dout[:, rows].to(v.dtype).float(), vf)
+        p = torch.exp(logits(qs, kf) - lse[:, :, rows, None])
+        dp = logits(dout[:, rows].to(v.dtype).float(), vf)
         du = p * (dp - delta[:, :, rows, None])
         yield rows, qs, dout[:, rows].float(), p, du
 
@@ -260,6 +310,87 @@ def flash_attention_backward_reference(
     delta = flash_attention_delta(out, dout)
     dk, dv = flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta, q_block)
     return flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block), dk, dv
+
+
+def _piecewise_logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, M) fp32 logits a·bᵀ of fp32 (B, N, H, D) and (B, M, H, D),
+    summed over pieces of ``COLUMN_CHUNK`` columns in order, as the
+    column-chunk kernels sum them."""
+    s = None
+    for c0 in range(0, a.shape[-1], COLUMN_CHUNK):
+        cols = slice(c0, c0 + COLUMN_CHUNK)
+        part = torch.einsum("bnhd,bmhd->bhnm", a[..., cols], b[..., cols])
+        s = part if s is None else s + part
+    return s
+
+
+def _column_chunks(d: int):
+    return [slice(c0, c0 + COLUMN_CHUNK) for c0 in range(0, d, COLUMN_CHUNK)]
+
+
+def flash_attention_column_chunks_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The column-chunk forward in plain PyTorch: ``(out, lse)``.
+
+    For each chunk of ``COLUMN_CHUNK`` output columns, as a block of the
+    kernel does: the logits over all of Dh, summed piece by piece; max, the
+    probabilities (rounded to the input dtype for the product, the row sum
+    unrounded) and P·V over that chunk's columns of V only; lse from the
+    first chunk. Rounds where ``flash_attention_reference`` rounds.
+    """
+    b, n, h, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    qs = (q.float() * scale).to(q.dtype).float()
+    kf, vf = k.float(), v.float()
+    outs, lse = [], None
+    for cols in _column_chunks(d):
+        s = _piecewise_logits(qs, kf)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bhnm,bmhd->bhnd", p.to(q.dtype).float(), vf[..., cols])
+        outs.append(acc / l)
+        if lse is None:
+            lse = (m + torch.log(l)).reshape(b * h, n)
+    out = torch.cat(outs, dim=-1).permute(0, 2, 1, 3).to(q.dtype)
+    return out.contiguous(), lse
+
+
+def flash_attn_bwd_dkv_column_chunks_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The column-chunk ``flash_attn_bwd_dkv`` in plain PyTorch: for each
+    chunk of ``COLUMN_CHUNK`` columns, p and dU over all of Dh (logits summed
+    piece by piece), then dV and dK of that chunk's columns only."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for cols in _column_chunks(q.shape[-1]):
+        for _, qs, do, p, du in _p_and_du_blocks(q, k, v, dout, lse, delta, None, scale,
+                                                 logits=_piecewise_logits):
+            dv[..., cols] += torch.einsum("bhnm,bnhd->bmhd", p, do[..., cols])
+            dk[..., cols] += torch.einsum("bhnm,bnhd->bmhd", du, qs[..., cols])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attn_bwd_dq_column_chunks_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The column-chunk ``flash_attn_bwd_dq`` in plain PyTorch: for each
+    chunk, dU over all of Dh, then dQ′ = dU·K of that chunk's columns, rounded
+    to the input dtype, times ``scale`` and rounded again."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kf = k.float()
+    for cols in _column_chunks(q.shape[-1]):
+        for rows, _, _, _, du in _p_and_du_blocks(q, k, v, dout, lse, delta, None, scale,
+                                                  logits=_piecewise_logits):
+            dq_prime = torch.einsum("bhnm,bmhd->bnhd", du, kf[..., cols])
+            dq[:, rows, :, cols] = (dq_prime.to(q.dtype).float() * scale).to(q.dtype)
+    return dq
 
 
 def _library() -> ctypes.CDLL:
@@ -324,21 +455,24 @@ def _check_kernel_operands(**operands: torch.Tensor) -> None:
 
 def _check_kernel_sizes(q: torch.Tensor, nk: int) -> None:
     b, n, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
+    if d not in SUPPORTED_HEAD_DIMS and not runs_in_chunks(d):
         raise ValueError(
-            f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS}, got {d}"
+            f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS} or a multiple "
+            f"of {COLUMN_CHUNK} up to {MAX_HEAD_DIM}, got {d}"
         )
-    if n < 1 or nk < 1 or b * h < 1 or b * h > 65535:
-        raise ValueError(f"unsupported sizes: N={n}, Nk={nk}, B*H={b * h} (1..65535)")
+    if n < 1 or nk < 1 or b * h < 1 or b * h > MAX_GRID_YZ:
+        raise ValueError(f"unsupported sizes: N={n}, Nk={nk}, B*H={b * h} (1..{MAX_GRID_YZ})")
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim a true head dim ``d`` is launched at: the least of
-    ``SUPPORTED_HEAD_DIMS`` that holds it. A ``ValueError`` above
-    ``MAX_HEAD_DIM``."""
+    """The head dim a true head dim ``d`` is launched at: up to 128 the least
+    of ``SUPPORTED_HEAD_DIMS`` that holds it, above 128 the least multiple of
+    ``COLUMN_CHUNK``. A ``ValueError`` outside 1..``MAX_HEAD_DIM``."""
     for size in SUPPORTED_HEAD_DIMS:
         if 1 <= d <= size:
             return size
+    if SUPPORTED_HEAD_DIMS[-1] < d <= MAX_HEAD_DIM:
+        return -(-d // COLUMN_CHUNK) * COLUMN_CHUNK
     raise ValueError(f"flash-attention kernels take head dims 1..{MAX_HEAD_DIM}, got {d}")
 
 

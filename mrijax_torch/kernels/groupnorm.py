@@ -42,7 +42,8 @@ from mrijax_torch.kernels import _build
 launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply")
 
 MAX_GROUPS = 128           # the stats kernel sums (2, G) partials in 2 * 128 floats of shared memory
-MAX_CHANNELS = 3840        # stats: (2048 + C) * 8 bytes of dynamic shared memory beside 1 KB static fit 48 KB
+MAX_CHANNELS = 26624       # stats: (2048 + C) * 8 bytes of dynamic shared memory beside 1 KB static
+MAX_SHARED_BYTES = 232448  # fit the 227 KB a block may ask for; above 48 KB (C > 3840) the launch raises the limit
 SM_COUNT = 132             # streaming multiprocessors of an H100
 STATS_ROWS_PER_THREAD = (4, 2)   # loads a thread compiled into gn_silu_stats, most first
 STATS_BLOCKS_PER_SM = 2    # blocks of the whole batch per SM that gn_silu_stats launches, at most
@@ -92,6 +93,13 @@ class LaunchPlan:
     def slabs_per_block(self) -> int:
         """Slab sums the busiest thread adds: in runs of ``SLAB_CHAIN``."""
         return -(-self.slabs // self.blocks)
+
+    def shared_bytes(self, c: int) -> int:
+        """Dynamic shared memory of the launch for ``c`` channels, as the
+        source computes it: float32 (2, warps' rows, tx·vec) row sums and
+        (2, C) group-piece sums."""
+        slots = self.ty * self.tx // 32 if self.tx < 32 else self.ty
+        return 4 * 2 * (slots * self.tx * self.vec + c)
 
 
 @functools.lru_cache(maxsize=256)

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the three bf16 flash-attention kernels of one tree of ``mrijax_torch``
+on one NVIDIA GPU, so that two trees can be compared in turns on one card.
+
+    python3 scripts/probe_torch_flash_times.py [--tree DIR] [--label NAME]
+
+``--tree`` is the root of a checkout or of a ``git archive`` copy (default:
+this script's own checkout); its ``mrijax_torch`` is imported and its kernels
+are built into its own ``mrijax_torch/_build/``. To compare a change with its
+parent, unpack the parent into a git-ignored directory and run the script on
+the two trees alternately (parent, change, change, parent, …), one process
+each. Times: CUDA events around single calls after a spin kernel, 3 warm-up
+calls, the median of 25 calls (7 at N = 51 200), at the flagship's shapes
+(8, 800, 4, 128) and (2, 800, 4, 128), at N = 51 200 with Dh 32 and at
+(1, 1000, 2, 32). It prints the card's name and power limit, then one JSON
+line: per shape, the ms of ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
+``flash_attn_bwd_dq``.
+"""
+
+import argparse
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SHAPES = (((1, 51200, 4, 32), 7), ((8, 800, 4, 128), 25), ((2, 800, 4, 128), 25),
+          ((1, 1000, 2, 32), 25))
+
+
+def time_ms(fn, repeats):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", type=Path, default=Path(__file__).resolve().parent.parent)
+    parser.add_argument("--label", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.tree.resolve()))
+    fa = importlib.import_module("mrijax_torch.kernels.flash_attention")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip())
+    rng = np.random.default_rng(0)
+    row = {"tree": args.label or str(args.tree), "module": fa.__file__}
+    for shape, repeats in SHAPES:
+        b, n, h, d = shape
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, d), dtype=np.float32))
+        qkv = qkv.cuda().bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out, lse = fa.flash_attention_forward(q, k, v)
+        dout = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16()
+        delta = fa.flash_attention_delta(out, dout)
+        row[str(shape)] = [
+            time_ms(lambda: fa.flash_attention_forward(q, k, v), repeats),
+            time_ms(lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta), repeats),
+            time_ms(lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta), repeats)]
+    print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

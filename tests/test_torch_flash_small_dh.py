@@ -1,7 +1,9 @@
 """The flash-attention wrappers at head dims the kernels are not compiled for.
 
-The CUDA kernels take Dh of 32, 64 and 128. For any other Dh up to 128 the
-wrappers zero-pad q, k, v (and dO) along Dh to the next of those sizes,
+The CUDA kernels take Dh of 32, 64 and 128 in one piece (and multiples of
+128 above that in column chunks: ``tests/test_torch_flash_large_dh.py``).
+For any other Dh up to 128 the wrappers zero-pad q, k, v (and dO) along Dh
+to the next of those sizes,
 launch with the true scale Dh^-1/2 and cut the results back
 (``at_kernel_head_dim``). Here that same helper runs on CPU tensors with the
 kernels' plain versions in place of the launches, and the result is held
@@ -113,8 +115,19 @@ def test_compiled_head_dims_go_to_the_launch_as_they_are(d):
 
 @pytest.mark.parametrize("d", [0, 129, 256])
 def test_head_dims_outside_1_to_128_raise(d):
-    with pytest.raises(ValueError, match="head dims 1..128"):
-        fa.kernel_head_dim(d)
+    """Outside 1..128 the wrappers refuse Dh 0 and anything above
+    ``MAX_HEAD_DIM`` (the grid's 65 535 column chunks of 128); above 128 they
+    take Dh in column chunks, zero-padded to a multiple of 128 (129 -> 256)."""
+    limit = f"head dims 1..{fa.MAX_HEAD_DIM}"
+    with pytest.raises(ValueError, match=limit):
+        fa.kernel_head_dim(fa.MAX_HEAD_DIM + 1)
     q = torch.zeros(1, 3, 1, d)
-    with pytest.raises(ValueError, match="head dims 1..128"):
-        fa.at_kernel_head_dim(fa.flash_attention_reference, q, q, q)
+    if d == 0:
+        with pytest.raises(ValueError, match=limit):
+            fa.kernel_head_dim(d)
+        with pytest.raises(ValueError, match=limit):
+            fa.at_kernel_head_dim(fa.flash_attention_reference, q, q, q)
+        return
+    assert fa.kernel_head_dim(d) == 256
+    out, lse = fa.at_kernel_head_dim(fa.flash_attention_reference, q, q, q)
+    assert tuple(out.shape) == (1, 3, 1, d) and tuple(lse.shape) == (1, 3)

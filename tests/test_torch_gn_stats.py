@@ -135,8 +135,8 @@ def test_launch_plan_rejects_what_the_kernel_does_not_take():
         gn.launch_plan(10, 30, 8, 4)
     with pytest.raises(ValueError, match="groups"):
         gn.launch_plan(10, 256, 256, 4)
-    with pytest.raises(ValueError, match="channels"):
-        gn.launch_plan(10, 4096, 8, 2)
+    with pytest.raises(ValueError, match="channels"):   # beyond 227 KB of shared memory
+        gn.launch_plan(10, gn.MAX_CHANNELS + 8, 8, 2)
 
 
 # ------------------------------------------------------------------ arithmetic

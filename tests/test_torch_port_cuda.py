@@ -53,6 +53,8 @@ def cuda():
     ((64, 128, 128, 128), 8), ((64, 64, 64, 256), 8), ((64, 32, 32, 512), 8),
     ((64, 16, 16, 512), 8), ((64, 32, 32, 256), 8), ((64, 64, 64, 128), 8),
     ((64, 128, 128, 64), 8),
+    # above 3840 channels the stats launch raises its shared-memory limit
+    ((2, 256, 4096), 8), ((2, 64, 8192), 8),
 ])
 def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype):
     """fp32: 2e-5 absolute (another summation order). bf16: one ulp of the output."""
@@ -74,7 +76,10 @@ def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype)
 @pytest.mark.parametrize("shape", [(2, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
                                    (1, 4100, 2, 32), (1, 17, 2, 64),
                                    # head dims padded to the next compiled one
-                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48)])
+                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48),
+                                   # above 128: column chunks (192 and 320 padded first)
+                                   (2, 800, 2, 256), (2, 130, 1, 192), (1, 64, 1, 320),
+                                   (1, 300, 1, 512), (1, 70, 1, 1024)])
 def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums against a running max). bf16:
     2e-3 + 1e-2 relative on out (probabilities rounded against another max)."""
@@ -167,18 +172,25 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         gn.group_norm_silu_fused(x.transpose(1, 2), w[:16], w[:16], 8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         gn.group_norm_silu_fused(x.half(), w, w, 8)
-    q = torch.zeros(1, 8, 2, 129, device=cuda)   # above the largest compiled head dim
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_forward(q, q, q)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(q.requires_grad_(), q, q)
+    # no head dim, and one above MAX_HEAD_DIM (an expanded view: no memory)
+    for q in (torch.zeros(1, 8, 2, 0, device=cuda),
+              torch.zeros(1, 1, 1, 1, device=cuda).expand(1, 8, 2, fa.MAX_HEAD_DIM + 1)):
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention_forward(q, q, q)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="channels"):
+        gn.gn_silu_stats(torch.zeros(1, 2, gn.MAX_CHANNELS + 8, device=cuda), 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 800, 4, 128), (1, 1000, 2, 32), (1, 130, 3, 64), (1, 1, 1, 32),
                                    (1, 4100, 2, 32), (1, 17, 2, 64),
                                    # head dims padded to the next compiled one
-                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48)])
+                                   (2, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16), (1, 70, 2, 48),
+                                   # above 128: column chunks (192 and 320 padded first)
+                                   (2, 800, 2, 256), (2, 130, 1, 192), (1, 64, 1, 320),
+                                   (1, 300, 1, 512), (1, 70, 1, 1024)])
 def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtype):
     """fp32: 1e-4 absolute (tile-by-tile sums). bf16 dk, dv: 1e-5 + 2**-7
     relative, one bf16 ulp (float32 sums rounded to bf16 once on both
