@@ -151,9 +151,12 @@ What it does, in order:
 Phases 2 and 3 also hold the three flash kernels at head dims above 128
 (``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
 256 and 384; ``FLASH_LARGE_DH_CHUNK``: Nq ≠ Nk at Dh 512), which they take
-in column chunks of 128, against their plain versions at the bars of Dh
-128, one launch a wrapper call, and time them beside the plain versions,
-``F.scaled_dot_product_attention`` and the bound at the true head dim
+in column chunks (128 in the forward and in float32, 256 in the bf16
+backward's warpgroup kernels), against their plain versions at the bars of
+Dh 128, one launch a wrapper call, two launches of each backward kernel
+bitwise equal, and time them beside the plain versions,
+``F.scaled_dot_product_attention`` and the bound at the true head dim, with
+the registers and spills ``ptxas`` gave each bf16 backward kernel
 (``flash_large_dh_times``); and GroupNorm+SiLU at 4096 and 8192 channels
 (``GN_WIDE_CHANNELS``), compared and timed (``groupnorm_times_wide_channels``).
 
@@ -909,7 +912,8 @@ def compare_flash_head_dims(rng, cases, label):
     1e-4; bf16 out 2e-3 + 1e-2 relative, lse 1e-4), dk and dv (float32 1e-4,
     bf16 one ulp), dq (float32 1e-4, bf16 two ulps), and, where Nq = Nk, the
     gradients of ``flash_attention`` through autograd (the ``_FlashAttention``
-    path of training). Each wrapper call must be one launch of its kernel."""
+    path of training). Each wrapper call must be one launch of its kernel, and
+    a second launch of each backward kernel must give the same bits."""
     worst = {name: {"float32": 0.0, "bfloat16": 0.0}
              for name in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     for q_shape, kv_shape in cases:
@@ -943,6 +947,11 @@ def compare_flash_head_dims(rng, cases, label):
             counts = all_launch_counts()
             if any(counts[name] != 1 for name in worst):
                 raise AssertionError(f"{tag}: launches {counts}, expected one of each")
+            again = (*fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+                     fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta))
+            if not all(torch.equal(a, b) for a, b in zip(again, (dk, dv, dq))):
+                raise AssertionError(f"{tag}: two launches of the backward differ")
+            del again
             if q_shape == kv_shape:
                 qkv = torch.stack([q, k, v], dim=2).requires_grad_()
                 got, = torch.autograd.grad(
@@ -1034,8 +1043,13 @@ def time_flash_large_dh(rng):
     TRUE head dim: operations 4·B·H·Nq·Nk·Dh (forward), 8· (dkv), 6· (dq)
     over the rate of the input type, or the bytes of the operands and outputs
     read and written once. ``plan``: the launch (``chunks`` blocks along the
-    grid's column axis)."""
+    grid's column axis). bf16 rows also carry, for ``dkv`` and ``dq``: the
+    registers and spill bytes of the wide backward kernels (``*_ptxas``), the
+    time of the operations with P and dU entering as two bf16 terms, 1.5 and
+    4/3 times the operations (``*_split_floor_ms``), and the bytes
+    the kernel copies from L2 into shared memory (``*_l2_bytes``)."""
     rows = []
+    ptxas = wide_backward_ptxas()
     cases = [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK]
     for q_shape, kv_shape in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1088,6 +1102,13 @@ def time_flash_large_dh(rng):
                             f"{name}_plan": flash_plan_note(kernel, (b, rows_of, h, kd), dtype)})
                 if lib is not None:
                     row[f"{name}_library_ms"] = lib
+            if dtype == torch.bfloat16:
+                for name, kernel, products, split in (("dkv", "flash_attn_bwd_dkv", 4, 1.5),
+                                                      ("dq", "flash_attn_bwd_dq", 3, 4 / 3)):
+                    row[f"{name}_ptxas"] = ptxas.get(f"flash_bwd_{name}_wide_tc_kernel")
+                    row[f"{name}_split_floor_ms"] = (
+                        split * products * 2 * b * h * nq * nk * d / PEAK_FLOPS[key] * 1e3)
+                    row[f"{name}_l2_bytes"] = wide_backward_copy_bytes(kernel, b, nq, nk, h, kd)
             rows.append(row)
             del q, k, v, out, lse, dout, delta, qt, kt, vt
             torch.cuda.empty_cache()
@@ -4405,9 +4426,9 @@ def large_head_path(four_heads_generate, four_heads_train):
             "large_head_train": train_counts}
 
 
-def report_ptxas(name):
-    """Registers and spills of one library's kernels as ``ptxas -v`` printed
-    them: the worst over all, and a line for every tensor-core kernel."""
+def ptxas_rows(name):
+    """(entry, registers, spill bytes) of one library's kernels as ``ptxas
+    -v`` printed them."""
     entry, spills, rows = None, 0, []
     for line in _build.build_log(name).splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -4417,6 +4438,40 @@ def report_ptxas(name):
         elif (m := re.search(r"Used (\d+) registers", line)) and entry:
             rows.append((entry, int(m.group(1)), spills))
             entry = None
+    return rows
+
+
+def wide_backward_copy_bytes(kernel, b, nq, nk, h, d):
+    """Bytes the bf16 backward kernels above Dh 128 copy from L2 into shared
+    memory in one launch (the loads of ``csrc/flash_attention_bwd.cu``,
+    namespace ``wide``): per chunk of 256 columns (the last may be 128) and
+    block of 64 own rows, the chunk's own rows once, then for every tile of
+    64 rows of the other side the tile's chunk columns of two tensors, the
+    other columns of all four tensors (own rows and tile) and, in dkv, the
+    tile's lse and delta."""
+    dkv = kernel == "flash_attn_bwd_dkv"
+    own_rows, other_rows = (nk, nq) if dkv else (nq, nk)
+    total = 0
+    for c0 in range(0, d, fa.BACKWARD_CHUNK):
+        width = min(fa.BACKWARD_CHUNK, d - c0)
+        per_tile = 2 * 64 * width * 2 + 4 * 64 * (d - width) * 2 + (2 * 64 * 4 if dkv else 0)
+        total += b * h * -(-own_rows // 64) * (2 * 64 * width * 2 + -(-other_rows // 64) * per_tile)
+    return total
+
+
+def wide_backward_ptxas():
+    """Registers and spill bytes of the two bf16 backward kernels above Dh
+    128, by kernel name."""
+    return {kernel: {"registers": regs, "spill_bytes": spilled}
+            for entry, regs, spilled in ptxas_rows("flash_attention_bwd")
+            for kernel in ("flash_bwd_dkv_wide_tc_kernel", "flash_bwd_dq_wide_tc_kernel")
+            if kernel in entry}
+
+
+def report_ptxas(name):
+    """Registers and spills of one library's kernels as ``ptxas -v`` printed
+    them: the worst over all, and a line for every tensor-core kernel."""
+    rows = ptxas_rows(name)
     print(f"  ptxas {name}: {len(rows)} kernels, at most "
           f"{max((r[1] for r in rows), default=0)} registers, at most "
           f"{max((r[2] for r in rows), default=0)} bytes spilled")
@@ -4427,8 +4482,10 @@ def report_ptxas(name):
                                zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
             print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
         elif m := re.search(r"(flash_\w*?wide\w*?_kernel)", entry):
+            chunks = ("256-column chunks, wgmma" if "bwd" in m.group(1) and "tc" in m.group(1)
+                      else "128-column chunks")
             print(f"    {m.group(1)}{'<float>' if 'If' in entry else ''} (Dh > 128, "
-                  f"128-column chunks): {regs} registers, {spilled} bytes spilled")
+                  f"{chunks}): {regs} registers, {spilled} bytes spilled")
 
 
 TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",

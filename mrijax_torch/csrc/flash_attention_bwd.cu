@@ -13,6 +13,10 @@
 // No atomics anywhere: every output element is summed by one thread in a
 // fixed order, so results are identical from run to run.
 //
+// The notes below are of the kernels for Dh = 32, 64 and 128. Above 128 each
+// type has column-chunk kernels of its own: see "float32, Dh above 128" and
+// "bfloat16, Dh above 128" (warpgroup products, wgmma.cuh) further down.
+//
 // flash_attn_bwd_dkv, bfloat16 -> flash_bwd_dkv_tc_kernel, on the tensor
 // cores (mma.sync.aligned.m16n8k16 fed by ldmatrix; see flash_attention_fwd.cu
 // for why not wgmma):
@@ -96,6 +100,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -1163,29 +1168,195 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ----------------------------------------------- bfloat16, Dh above 128
 //
-// The chunk design of the float32 kernels above on the tensor cores: a
-// block owns 64 keys (dkv) or 64 query rows (dq), 4 warps of 16, and ONE
-// chunk of WIDE output columns; a warp's accumulators are those of the
-// Dh = 128 kernels (128 registers a thread in dkv, 64 in dq) at any Dh.
-// S^T and dP^T (dkv) or S and dP (dq) are summed over all of Dh from pieces
-// of WIDE columns streamed through shared memory: a stage holds a piece of
-// each of the 64 own rows (K and V, or q' and dO) and of WQ = 32 rows of the
-// other side, 104 KB for two stages, two blocks an SM. The pieces of all
-// tiles of the other side form one stream (i = tile * pieces + piece,
-// columns in the order chunk + 1, ..., chunk mod pieces, so that the
-// block's own columns come last and stay in their stage for the products
-// that need them); piece i + 1 is copied while piece i is multiplied, one
-// barrier a piece. The own rows are copied again with every piece: a block
-// re-reads them from L2 once per tile of the other side. P and dU are split
-// into two bf16 terms, as in the Dh <= 128 kernels. lse and delta are read
-// from global memory where a lane needs them.
-constexpr int WQ = 32;                            // rows of the other side a tile
-constexpr int WIDE_LD = WIDE + mma::PAD;
-constexpr int WIDE_STAGE = (2 * 64 + 2 * WQ) * WIDE_LD;  // elements of a stage
+// flash_bwd_dkv_wide_tc_kernel and flash_bwd_dq_wide_tc_kernel: the TPU's
+// _dkv_kernel and _dq_kernel for Dh = 128 P, P >= 2, on Hopper's warpgroup
+// products (wgmma.mma_async, see wgmma.cuh).
+//
+// Bound: operations. dkv does 8 B H Nq Nk Dh flops, dq 6 B H Nq Nk Dh, over
+// the 989 TFLOP/s of bf16; P and dU enter dV, dK and dQ' as two bf16 terms
+// (hi = bf16(x), lo = bf16(x - hi): 16 significant bits, which keeps the
+// TPU's Precision.HIGHEST within the bars), so the products the card must
+// issue are 1.5 times (dkv) and 4/3 times (dq) that.
+//
+// A block owns 64 keys (dkv) or 64 query rows (dq) of one (batch, head) and
+// one chunk of CHUNK = 256 output columns (grid z; at Dh 384 the last chunk
+// is 128 wide). It is 8 warps, two warpgroups; warpgroup w owns output
+// columns 128 w .. 128 w + 127 of the chunk, with the Dh = 128 kernels'
+// accumulators (dK and dV: 128 fp32 registers a thread; dQ': 64). What the
+// design does about what held the earlier 128-column-chunk kernels back:
+// * The logits once per tile pair. Each warpgroup computes S^T = K q'^T and
+//   dP^T = V dO^T (dkv) or S = q' K^T and dP = dO V^T (dq) for its half of
+//   the other side's 64 rows (m64n32k16, fp32), summed over all of Dh; P =
+//   exp(S - lse) and dU = P o (dP - delta) stay fp32 in its registers and go
+//   to shared memory as bf16 hi and lo tiles, which both warpgroups read as
+//   the A operand of dV += P^T dO, dK += dU^T q' or dQ' += dU K
+//   (m64n128k16, B read MN-major from the tile the logits read K-major).
+//   At Dh 256 a tile pair costs 6 (dkv) or 4 (dq) units of one full-Dh
+//   product, where the 128-column chunks issued 8 and 6.
+// * Own rows staged once. K and V (dkv) or q' and dO (dq), the chunk's
+//   columns, are copied once per block (64 KB at Dh 256). The other side
+//   streams through a ring of two 64 KB slots of 64-row tiles: the copies
+//   (cp.async) of slot u + 1 are issued while the logits of slot u run, one
+//   block barrier a slot; lse and delta of a dkv tile arrive in the slot
+//   beside it. Above Dh 256 the logits also need the columns outside the
+//   chunk: those come as pieces of 128 columns, own rows and other side
+//   together in a slot (the own rows' are re-read from L2, the chunk's
+//   never), before the slot that holds the tile's chunk. L2 -> shared bytes
+//   a launch at (8, 6400, 1, 256): dkv 800 blocks x (64 KB + 100 tiles x
+//   64.5 KB) = 5.3 GB, dq 5.3 GB, against 31.5 GB each for the 128-column
+//   chunks (1600 blocks x 400 pieces x 48 KB).
+// * 64-row tiles on wgmma. A product is one warpgroup instruction over 64
+//   rows and 32 or 128 columns; the operands are read from shared memory
+//   in the 128-byte swizzle, without ldmatrix. Two barriers a tile at Dh
+//   256 (one more for each piece above).
+// Shared memory: own rows 64 KB, two slots 128 KB, P and dU tiles 32 KB
+// (dkv; dq: dU 16 KB), lse and delta 1 KB, and 1 KB to align the swizzle:
+// 226 KB (dkv) and 209 KB (dq), one block an SM.
+// Measured at (8, 6400, 1, 256) on an H100 SXM at 700 W
+// (scripts/probe_torch_flash_wide_bwd.py): dkv 2.6 ms, dq 1.8 ms, 2.5 and 2.6
+// times the bound with the split. Leaving one phase out saves 0.44 / 0.35 ms
+// (copies), 0.59 / 0.57 (logits), 0.23 / 0.11 (P and dU stores) and 0.61 /
+// 0.26 (dV, dK, dQ'): the two warpgroups work in step, so the phases add up,
+// and the logits' m64n32 products read 3 KB of shared memory per 32 K
+// multiply-adds. Overlapping them (a producer warp, warpgroups a tile
+// apart) is what is left.
+// Numerics are those of the Dh <= 128 kernels: q' = round(q Dh^-1/2) made
+// in shared memory by the threads that copied it, P = ex2.approx(S log2 e -
+// lse log2 e), the two-term split, dQ' rounded, times Dh^-1/2, rounded.
+// Rows beyond N are zero-filled: a query row beyond Nq has q' = dO = 0 and
+// lse = delta = 0 (P = 1 times zeros); a key beyond Nk gets P = 0 in dq and
+// feeds only its own, unstored, dK and dV rows in dkv. No atomics: every
+// output element is summed by one thread in a fixed order.
+namespace wide {
 
-constexpr size_t wide_tc_smem_bytes() { return sizeof(bf16) * 2 * WIDE_STAGE; }
+constexpr int ROWS = 64;          // own rows of a block; rows of a tile of the other side
+constexpr int CHUNK = 256;        // output columns of a block
+constexpr int PIECE = 128;        // columns of a piece outside the chunk
+constexpr int THREADS = 256;      // two warpgroups
+constexpr uint32_t BB = wgmma::BLOCK_BYTES;
+constexpr uint32_t OWN_BYTES = 8 * BB;    // two tensors x CHUNK columns
+constexpr uint32_t SLOT_BYTES = 8 * BB;   // the same, or four tensors x PIECE columns
+constexpr uint32_t STATS_BYTES = 2 * ROWS * 4;
+constexpr uint32_t ALIGN = 1024;          // the swizzle repeats every 1024 bytes
+constexpr uint32_t OWN = 0, SLOTS = OWN_BYTES, TILES = SLOTS + 2 * SLOT_BYTES;
+constexpr size_t dkv_smem_bytes = ALIGN + TILES + 4 * BB + 2 * STATS_BYTES;
+constexpr size_t dq_smem_bytes = ALIGN + TILES + 2 * BB;
+constexpr int STAGE_LD = CHUNK + mma::PAD;   // pitch of the output staging rows
 
-__global__ void __launch_bounds__(128)
+// A block's chunk, and the pieces of the other columns in the order they
+// are streamed (ascending, the chunk skipped); a tile of the other side is
+// `units` slots: the pieces, then the chunk.
+struct Chunk {
+    int c0, width, nb, pieces, units;
+    __device__ Chunk(int chunk, int DH)
+        : c0(chunk * CHUNK), width(min(CHUNK, DH - chunk * CHUNK)),
+          nb(width / wgmma::BLOCK_COLS), pieces((DH - width) / PIECE),
+          units(pieces + 1) {}
+    __device__ int piece_col(int p) const { return p * PIECE < c0 ? p * PIECE : p * PIECE + width; }
+};
+
+// The 1024-byte-aligned shared window: (shared byte address, generic pointer).
+struct Smem {
+    uint32_t addr;
+    unsigned char* ptr;
+};
+__device__ __forceinline__ Smem aligned_smem(unsigned char* raw) {
+    const uint32_t a = mma::smem_addr(raw);
+    const uint32_t off = ((a + ALIGN - 1) & ~(ALIGN - 1)) - a;
+    return Smem{a + off, raw + off};
+}
+
+// Issues c0 += A0 B0^T and c1 += A1 B1^T over nb 64-column blocks
+// (K-major): A0, A1 64 rows; B0, B1 the warpgroup's 32 rows, from row
+// 32 wg. With `first` the sums start from zero (the products' scale-d, no
+// register writes). wait_logits() waits for them.
+__device__ __forceinline__ void issue_logits(float (&c0)[4][4], float (&c1)[4][4],
+                                             uint32_t a0, uint32_t b0, uint32_t a1,
+                                             uint32_t b1, int nb, int wg, bool first) {
+    b0 += wg * 32 * 128;
+    b1 += wg * 32 * 128;
+    wgmma::fence_operand(c0);
+    wgmma::fence_operand(c1);
+    wgmma::fence();
+#pragma unroll 1
+    for (int i = 0; i < nb; ++i)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const uint32_t off = i * BB + s * 32;
+            const int keep = !first || i > 0 || s > 0;
+            wgmma::m64n32k16(c0, wgmma::desc_k(a0 + off), wgmma::desc_k(b0 + off), keep);
+            wgmma::m64n32k16(c1, wgmma::desc_k(a1 + off), wgmma::desc_k(b1 + off), keep);
+        }
+    wgmma::commit();
+}
+
+__device__ __forceinline__ void wait_logits(float (&c0)[4][4], float (&c1)[4][4]) {
+    wgmma::wait<0>();
+    wgmma::fence_operand(c0);
+    wgmma::fence_operand(c1);
+}
+
+// acc += (hi + lo) B over 64 rows of depth: hi and lo [64][64] tiles
+// (K-major) at a and a + BB, B two blocks (128 columns, MN-major) at b.
+// Issues; the caller commits and waits.
+__device__ __forceinline__ void accumulate(float (&acc)[16][4], uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+        const uint64_t bd = wgmma::desc_mn(b + s * 16 * 128);
+        wgmma::m64n128k16_mn(acc, wgmma::desc_k(a + s * 32), bd);
+        wgmma::m64n128k16_mn(acc, wgmma::desc_k(a + BB + s * 32), bd);
+    }
+}
+
+// Rows (r, r + 8) of a fragment x[0..1], x[2..3] as bf16 hi and lo terms
+// into the [64][64] tiles at `hi` and `hi + BB`, column c.
+__device__ __forceinline__ void store_split(unsigned char* hi, const float (&x)[4], int r,
+                                            int c) {
+    uint32_t h, l;
+    mma::split_bf16(x[0], x[1], h, l);
+    *reinterpret_cast<uint32_t*>(hi + wgmma::swizzled(r, c)) = h;
+    *reinterpret_cast<uint32_t*>(hi + BB + wgmma::swizzled(r, c)) = l;
+    mma::split_bf16(x[2], x[3], h, l);
+    *reinterpret_cast<uint32_t*>(hi + wgmma::swizzled(r + 8, c)) = h;
+    *reinterpret_cast<uint32_t*>(hi + BB + wgmma::swizzled(r + 8, c)) = l;
+}
+
+// The warpgroup's 64 x 128 accumulator, rounded (ROUND2: to bf16, times
+// scale, to bf16 again), into row-major staging rows of pitch STAGE_LD.
+template <bool ROUND2>
+__device__ __forceinline__ void stage_rows(bf16* st, const float (&acc)[16][4], int r,
+                                           int col, int t, float scale) {
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+        const int c = col + jn * 8 + 2 * t;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            x[e] = ROUND2 ? round_to<bf16>(acc[jn][e]) * scale : acc[jn][e];
+        *reinterpret_cast<uint32_t*>(&st[r * STAGE_LD + c]) = mma::pack_bf16(x[0], x[1]);
+        *reinterpret_cast<uint32_t*>(&st[(r + 8) * STAGE_LD + c]) = mma::pack_bf16(x[2], x[3]);
+    }
+}
+
+// Staged rows [64][width] to a contiguous (B, N, H, DH) output, 16 bytes a
+// thread, rows from row0 below N only.
+__device__ __forceinline__ void write_rows(bf16* out, const bf16* st, int b, int h, int H,
+                                           int N, int DH, int row0, int c0, int width,
+                                           int tid) {
+    const int cpr = width / 8;
+    for (int e = tid; e < ROWS * cpr; e += THREADS) {
+        const int r = e / cpr, c = e % cpr;
+        const int n = row0 + r;
+        if (n >= N) continue;
+        const long long at = (((long long)b * N + n) * H + h) * DH + c0 + c * 8;
+        *reinterpret_cast<uint4*>(out + at) =
+            *reinterpret_cast<const uint4*>(&st[r * STAGE_LD + c * 8]);
+    }
+}
+
+}  // namespace wide
+
+__global__ void __launch_bounds__(wide::THREADS, 1)
 flash_bwd_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
                              const bf16* __restrict__ dout,
@@ -1194,31 +1365,23 @@ flash_bwd_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                              bf16* __restrict__ dv, int NQ, int NK, int H, int DH,
                              Strides qs, Strides ks, Strides vs, Strides gs,
                              float scale) {
-    constexpr int NT = 128;
-    constexpr int LD = WIDE_LD;
-    constexpr int KD = WIDE / 16;
-    constexpr int ND = WIDE / 8;
-    constexpr int CPR = WIDE / 8;
-
-    // a stage: K [64][LD], V [64][LD], q' [WQ][LD], dO [WQ][LD]
+    using namespace wide;
+    // own: K blocks 0-3, V 4-7; a slot: the tile's q' 0-3 and dO 4-7, or a
+    // piece's K 0-1, V 2-3, q' 4-5, dO 6-7; tiles: P hi, P lo, dU hi, dU lo
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-    auto Kst = [&](int st) { return stages + st * WIDE_STAGE; };
-    auto Vst = [&](int st) { return stages + st * WIDE_STAGE + 64 * LD; };
-    auto Qst = [&](int st) { return stages + st * WIDE_STAGE + 128 * LD; };
-    auto Gst = [&](int st) { return stages + st * WIDE_STAGE + (128 + WQ) * LD; };
+    const Smem sm = aligned_smem(smem_raw);
+    const uint32_t own = sm.addr + OWN, slots = sm.addr + SLOTS, tiles = sm.addr + TILES;
+    const uint32_t stats = tiles + 4 * BB;
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
+    const int wg = tid >> 7;
+    const int r0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);  // fragment row
+    const int t = tid & 3;
     const int bh = blockIdx.y;
     const int b = bh / H;
     const int h = bh % H;
-    const int k0 = blockIdx.x * 64;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
+    const int k0 = blockIdx.x * ROWS;
+    const Chunk ch(blockIdx.z, DH);
 
     const bf16* qb = q + b * qs.b + h * qs.h;
     const bf16* kb = k + b * ks.b + h * ks.h;
@@ -1227,115 +1390,118 @@ flash_bwd_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const float* lse_row = lse + (long long)bh * NQ;
     const float* delta_row = delta + (long long)bh * NQ;
 
-    const int ntiles = (NQ + WQ - 1) / WQ;
-    const int total = ntiles * pieces;
-    auto load_piece = [&](int i) {
-        const int st = i & 1, col = (chunk + 1 + i % pieces) % pieces * WIDE;
-        const int q0 = (i / pieces) * WQ;
-        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Kst(st)), kb + col, ks.n,
-                                           k0, NK, tid);
-        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Vst(st)), vb + col, vs.n,
-                                           k0, NK, tid);
-        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Qst(st)), qb + col, qs.n,
-                                           q0, NQ, tid);
-        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Gst(st)), gb + col, gs.n,
-                                           q0, NQ, tid);
+    const int ntiles = (NQ + ROWS - 1) / ROWS;
+    const int total = ntiles * ch.units;
+    auto load_unit = [&](int u) {
+        const int j = u / ch.units, p = u % ch.units;
+        const uint32_t slot = slots + (u & 1) * SLOT_BYTES;
+        if (p < ch.pieces) {
+            const int col = ch.piece_col(p);
+            wgmma::load_blocks(slot, kb, ks.n, k0, NK, col, 2, tid);
+            wgmma::load_blocks(slot + 2 * BB, vb, vs.n, k0, NK, col, 2, tid);
+            wgmma::load_blocks(slot + 4 * BB, qb, qs.n, j * ROWS, NQ, col, 2, tid);
+            wgmma::load_blocks(slot + 6 * BB, gb, gs.n, j * ROWS, NQ, col, 2, tid);
+            return;
+        }
+        wgmma::load_blocks(slot, qb, qs.n, j * ROWS, NQ, ch.c0, ch.nb, tid);
+        wgmma::load_blocks(slot + 4 * BB, gb, gs.n, j * ROWS, NQ, ch.c0, ch.nb, tid);
+        if (tid < 2 * ROWS) {
+            const int n = j * ROWS + (tid & (ROWS - 1));
+            const bool ok = n < NQ;
+            const float* src = (tid < ROWS ? lse_row : delta_row) + (ok ? n : 0);
+            mma::cp_async_4_zfill(stats + (u & 1) * STATS_BYTES + tid * 4, src, ok);
+        }
     };
-    load_piece(0);
+    wgmma::load_blocks(own, kb, ks.n, k0, NK, ch.c0, ch.nb, tid);
+    wgmma::load_blocks(own + 4 * BB, vb, vs.n, k0, NK, ch.c0, ch.nb, tid);
+    load_unit(0);
     mma::cp_async_commit();
 
-    float acc_dk[ND][4], acc_dv[ND][4];
+    float acc_dk[16][4], acc_dv[16][4], sT[4][4], dpT[4][4];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            acc_dk[nd][e] = 0.f;
-            acc_dv[nd][e] = 0.f;
-        }
+        for (int e = 0; e < 4; ++e) acc_dk[i][e] = acc_dv[i][e] = 0.f;
 
-    const uint32_t k_lane = mma::smem_addr(Kst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
-    const uint32_t v_lane = mma::smem_addr(Vst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
-    const uint32_t q_b = mma::smem_addr(Qst(0)) + mma::b_offset(lane, LD);
-    const uint32_t g_b = mma::smem_addr(Gst(0)) + mma::b_offset(lane, LD);
-    const uint32_t q_t = mma::smem_addr(Qst(0)) + mma::a_offset(lane, LD);
-    const uint32_t g_t = mma::smem_addr(Gst(0)) + mma::a_offset(lane, LD);
-
+    int u = 0;  // slot of the stream: tile j, piece p
     for (int j = 0; j < ntiles; ++j) {
-        // S^T and dP^T: 16 keys x WQ queries, fragment jn holds queries 8 jn ..
-        float sT[WQ / 8][4], dpT[WQ / 8][4];
-#pragma unroll
-        for (int jn = 0; jn < WQ / 8; ++jn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sT[jn][e] = dpT[jn][e] = 0.f;
-        uint32_t stage_bytes = 0;
-        for (int c = 0; c < pieces; ++c) {
-            const int i = j * pieces + c;
-            const int st = i & 1;
-            stage_bytes = st * WIDE_STAGE * 2;
-            mma::cp_async_wait<0>();  // piece i has landed
-            mma::scale_own_chunks<WQ, WIDE, NT>(Qst(st), scale, tid);
-            __syncthreads();          // ... for all; piece i - 1's readers are done
-            if (i + 1 < total) load_piece(i + 1);
+        uint32_t slot = slots;
+        for (int p = 0; p <= ch.pieces; ++p, ++u) {
+            const bool chunk_slot = p == ch.pieces;
+            slot = slots + (u & 1) * SLOT_BYTES;
+            mma::cp_async_wait<0>();  // slot u (and on the first pass the own rows) landed
+            wgmma::scale_blocks(sm.ptr + (slot - sm.addr) + (chunk_slot ? 0 : 4 * BB),
+                                chunk_slot ? ch.nb : 2, scale, tid);
+            wgmma::wait<0>();  // the last tile's dV and dK products, which read slot u - 1
+            wgmma::fence_operand(acc_dv);
+            wgmma::fence_operand(acc_dk);
+            wgmma::fence_proxy_async();
+            __syncthreads();  // ... for all; slot u - 1's readers are done
+            // S^T = K q'^T, dP^T = V dO^T: the chunk's columns from the own
+            // rows and the tile, or a piece's from the slot alone; slot u + 1
+            // is copied into slot u - 1 while they run
+            issue_logits(sT, dpT, chunk_slot ? own : slot, chunk_slot ? slot : slot + 4 * BB,
+                         chunk_slot ? own + 4 * BB : slot + 2 * BB,
+                         slot + (chunk_slot ? 4 : 6) * BB, chunk_slot ? ch.nb : 2, wg, p == 0);
+            if (u + 1 < total) load_unit(u + 1);
             mma::cp_async_commit();
-            tc_two_products<KD, WQ, LD>(k_lane + stage_bytes, v_lane + stage_bytes,
-                                        q_b + stage_bytes, g_b + stage_bytes, sT, dpT);
+            wait_logits(sT, dpT);
         }
 
-        // P^T = exp(S^T - lse), dU^T = P^T o (dP^T - delta); a query row
-        // beyond N has q' = dO = 0 and lse = delta = 0 here: P = 1 times zeros
+        // P^T = exp(S^T - lse), dU^T = P^T o (dP^T - delta): rows are keys,
+        // columns the warpgroup's queries 32 wg + 8 jn + 2 t (+1). They go to
+        // registers of their own: only the products write the accumulators (a
+        // first version that wrote them here and zeroed them under a branch
+        // had its products serialized by ptxas, warning C7520).
+        const float* st = reinterpret_cast<const float*>(sm.ptr + (stats - sm.addr) +
+                                                         ((u - 1) & 1) * STATS_BYTES);
+        unsigned char* tp = sm.ptr + (tiles - sm.addr);
 #pragma unroll
-        for (int jn = 0; jn < WQ / 8; ++jn) {
-            const int n = j * WQ + 8 * jn + 2 * t;
-            const float l0 = n < NQ ? lse_row[n] * mma::LOG2E : 0.f;
-            const float l1 = n + 1 < NQ ? lse_row[n + 1] * mma::LOG2E : 0.f;
-            const float d0 = n < NQ ? delta_row[n] : 0.f;
-            const float d1 = n + 1 < NQ ? delta_row[n + 1] : 0.f;
+        for (int jn = 0; jn < 4; ++jn) {
+            const int c = 32 * wg + 8 * jn + 2 * t;
+            const float2 l = *reinterpret_cast<const float2*>(st + c);
+            const float2 dl = *reinterpret_cast<const float2*>(st + ROWS + c);
+            const float l0 = l.x * mma::LOG2E, l1 = l.y * mma::LOG2E;
+            float pv[4], du[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float p = mma::fast_exp2(
-                    fmaf(sT[jn][e], mma::LOG2E, (e & 1) ? -l1 : -l0));
-                sT[jn][e] = p;
-                dpT[jn][e] = p * (dpT[jn][e] - ((e & 1) ? d1 : d0));
+                pv[e] = mma::fast_exp2(fmaf(sT[jn][e], mma::LOG2E, (e & 1) ? -l1 : -l0));
+                du[e] = pv[e] * (dpT[jn][e] - ((e & 1) ? dl.y : dl.x));
             }
+            store_split(tp, pv, r0, c);
+            store_split(tp + 2 * BB, du, r0, c);
         }
+        wgmma::fence_proxy_async();
+        __syncthreads();  // both halves of P and dU are in place
 
-        // dV += P^T dO and dK += dU^T q' over the chunk's columns, which the
-        // last piece's stage holds
-        tc_dkv_accumulate<KD, WQ, LD>(sT, dpT, g_t + stage_bytes, q_t + stage_bytes,
-                                      acc_dk, acc_dv);
+        // dV += P^T dO and dK += dU^T q' over the warpgroup's 128 columns
+        // (at a chunk 128 wide the second warpgroup's are not stored)
+        wgmma::fence_operand(acc_dv);
+        wgmma::fence_operand(acc_dk);
+        wgmma::fence();
+        accumulate(acc_dv, tiles, slot + (4 + 2 * wg) * BB);
+        accumulate(acc_dk, tiles + 2 * BB, slot + 2 * wg * BB);
+        wgmma::commit();  // waited for at the next slot, while its copies land
     }
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc_dv);
+    wgmma::fence_operand(acc_dk);
 
-    // dk and dv, rounded once, staged through the warp's own K and V rows of
-    // stage 0 (only this warp reads them; every copy has landed)
-    bf16* Kw = Kst(0) + warp * 16 * LD;
-    bf16* Vw = Vst(0) + warp * 16 * LD;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-        const int col = nd * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(&Kw[g * LD + col]) =
-            mma::pack_bf16(acc_dk[nd][0], acc_dk[nd][1]);
-        *reinterpret_cast<uint32_t*>(&Kw[(g + 8) * LD + col]) =
-            mma::pack_bf16(acc_dk[nd][2], acc_dk[nd][3]);
-        *reinterpret_cast<uint32_t*>(&Vw[g * LD + col]) =
-            mma::pack_bf16(acc_dv[nd][0], acc_dv[nd][1]);
-        *reinterpret_cast<uint32_t*>(&Vw[(g + 8) * LD + col]) =
-            mma::pack_bf16(acc_dv[nd][2], acc_dv[nd][3]);
+    // dk and dv, rounded once, staged through the slots (every product and
+    // copy is done), then written 16 bytes a thread
+    __syncthreads();
+    bf16* st_k = reinterpret_cast<bf16*>(sm.ptr + SLOTS);
+    bf16* st_v = st_k + ROWS * STAGE_LD;
+    if (wg * 128 < ch.width) {
+        stage_rows<false>(st_k, acc_dk, r0, 128 * wg, t, 1.f);
+        stage_rows<false>(st_v, acc_dv, r0, 128 * wg, t, 1.f);
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * CPR; e += 32) {
-        const int r = e / CPR, c = e % CPR;
-        const int n = k0 + warp * 16 + r;
-        if (n >= NK) continue;
-        const long long at =
-            (((long long)b * NK + n) * H + h) * DH + chunk * WIDE + c * 8;
-        *reinterpret_cast<uint4*>(dk + at) =
-            *reinterpret_cast<const uint4*>(&Kw[r * LD + c * 8]);
-        *reinterpret_cast<uint4*>(dv + at) =
-            *reinterpret_cast<const uint4*>(&Vw[r * LD + c * 8]);
-    }
+    __syncthreads();
+    write_rows(dk, st_k, b, h, H, NK, DH, k0, ch.c0, ch.width, tid);
+    write_rows(dv, st_v, b, h, H, NK, DH, k0, ch.c0, ch.width, tid);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(wide::THREADS, 1)
 flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const bf16* __restrict__ dout,
@@ -1343,123 +1509,123 @@ flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             const float* __restrict__ delta, bf16* __restrict__ dq,
                             int NQ, int NK, int H, int DH, Strides qs, Strides ks,
                             Strides vs, Strides gs, float scale) {
-    constexpr int NT = 128;
-    constexpr int LD = WIDE_LD;
-    constexpr int KD = WIDE / 16;
-    constexpr int ND = WIDE / 8;
-    constexpr int CPR = WIDE / 8;
-
-    // a stage: q' [64][LD], dO [64][LD], K [WQ][LD], V [WQ][LD]
+    using namespace wide;
+    // own: q' blocks 0-3, dO 4-7; a slot: the tile's K 0-3 and V 4-7, or a
+    // piece's q' 0-1, dO 2-3, K 4-5, V 6-7; tiles: dU hi, dU lo
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-    auto Qst = [&](int st) { return stages + st * WIDE_STAGE; };
-    auto Gst = [&](int st) { return stages + st * WIDE_STAGE + 64 * LD; };
-    auto Kst = [&](int st) { return stages + st * WIDE_STAGE + 128 * LD; };
-    auto Vst = [&](int st) { return stages + st * WIDE_STAGE + (128 + WQ) * LD; };
+    const Smem sm = aligned_smem(smem_raw);
+    const uint32_t own = sm.addr + OWN, slots = sm.addr + SLOTS, tiles = sm.addr + TILES;
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
+    const int wg = tid >> 7;
+    const int r0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
+    const int t = tid & 3;
     const int bh = blockIdx.y;
     const int b = bh / H;
     const int h = bh % H;
-    const int q0 = blockIdx.x * 64;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
+    const int q0 = blockIdx.x * ROWS;
+    const Chunk ch(blockIdx.z, DH);
 
     const bf16* qb = q + b * qs.b + h * qs.h;
     const bf16* kb = k + b * ks.b + h * ks.h;
     const bf16* vb = v + b * vs.b + h * vs.h;
     const bf16* gb = dout + b * gs.b + h * gs.h;
 
-    const int ntiles = (NK + WQ - 1) / WQ;
-    const int total = ntiles * pieces;
-    auto load_piece = [&](int i) {
-        const int st = i & 1, col = (chunk + 1 + i % pieces) % pieces * WIDE;
-        const int key0 = (i / pieces) * WQ;
-        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Qst(st)), qb + col, qs.n,
-                                           q0, NQ, tid);
-        mma::load_tile_async<64, WIDE, NT>(mma::smem_addr(Gst(st)), gb + col, gs.n,
-                                           q0, NQ, tid);
-        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Kst(st)), kb + col, ks.n,
-                                           key0, NK, tid);
-        mma::load_tile_async<WQ, WIDE, NT>(mma::smem_addr(Vst(st)), vb + col, vs.n,
-                                           key0, NK, tid);
+    const int ntiles = (NK + ROWS - 1) / ROWS;
+    const int total = ntiles * ch.units;
+    auto load_unit = [&](int u) {
+        const int j = u / ch.units, p = u % ch.units;
+        const uint32_t slot = slots + (u & 1) * SLOT_BYTES;
+        if (p < ch.pieces) {
+            const int col = ch.piece_col(p);
+            wgmma::load_blocks(slot, qb, qs.n, q0, NQ, col, 2, tid);
+            wgmma::load_blocks(slot + 2 * BB, gb, gs.n, q0, NQ, col, 2, tid);
+            wgmma::load_blocks(slot + 4 * BB, kb, ks.n, j * ROWS, NK, col, 2, tid);
+            wgmma::load_blocks(slot + 6 * BB, vb, vs.n, j * ROWS, NK, col, 2, tid);
+            return;
+        }
+        wgmma::load_blocks(slot, kb, ks.n, j * ROWS, NK, ch.c0, ch.nb, tid);
+        wgmma::load_blocks(slot + 4 * BB, vb, vs.n, j * ROWS, NK, ch.c0, ch.nb, tid);
     };
-    load_piece(0);
+    wgmma::load_blocks(own, qb, qs.n, q0, NQ, ch.c0, ch.nb, tid);
+    wgmma::load_blocks(own + 4 * BB, gb, gs.n, q0, NQ, ch.c0, ch.nb, tid);
+    load_unit(0);
     mma::cp_async_commit();
 
-    // lse * log2(e) and delta of the lane's rows g and g + 8 (0 beyond NQ)
+    // lse * log2(e) and delta of the fragment's rows r0 and r0 + 8 (0 beyond NQ)
     float lse2[2], dl[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        const int n = q0 + warp * 16 + g + 8 * i;
+        const int n = q0 + r0 + 8 * i;
         const bool ok = n < NQ;
         lse2[i] = ok ? lse[(long long)bh * NQ + n] * mma::LOG2E : 0.f;
         dl[i] = ok ? delta[(long long)bh * NQ + n] : 0.f;
     }
 
-    float acc[ND][4];
+    float acc[16][4], s[4][4], dp[4][4];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-    const uint32_t q_a = mma::smem_addr(Qst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
-    const uint32_t g_a = mma::smem_addr(Gst(0) + warp * 16 * LD) + mma::a_offset(lane, LD);
-    const uint32_t k_b = mma::smem_addr(Kst(0)) + mma::b_offset(lane, LD);
-    const uint32_t v_b = mma::smem_addr(Vst(0)) + mma::b_offset(lane, LD);
-    const uint32_t k_t = mma::smem_addr(Kst(0)) + mma::a_offset(lane, LD);
-
+    int u = 0;
     for (int j = 0; j < ntiles; ++j) {
-        float s[WQ / 8][4], dp[WQ / 8][4];
-#pragma unroll
-        for (int jn = 0; jn < WQ / 8; ++jn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[jn][e] = dp[jn][e] = 0.f;
-        uint32_t stage_bytes = 0;
-        for (int c = 0; c < pieces; ++c) {
-            const int i = j * pieces + c;
-            const int st = i & 1;
-            stage_bytes = st * WIDE_STAGE * 2;
+        uint32_t slot = slots;
+        for (int p = 0; p <= ch.pieces; ++p, ++u) {
+            const bool chunk_slot = p == ch.pieces;
+            slot = slots + (u & 1) * SLOT_BYTES;
             mma::cp_async_wait<0>();
-            mma::scale_own_chunks<64, WIDE, NT>(Qst(st), scale, tid);
+            if (u == 0) wgmma::scale_blocks(sm.ptr + OWN, ch.nb, scale, tid);
+            if (!chunk_slot) wgmma::scale_blocks(sm.ptr + (slot - sm.addr), 2, scale, tid);
+            wgmma::wait<0>();  // the last tile's dQ' products, which read slot u - 1
+            wgmma::fence_operand(acc);
+            wgmma::fence_proxy_async();
             __syncthreads();
-            if (i + 1 < total) load_piece(i + 1);
+            // S = q' K^T, dP = dO V^T: the chunk's columns from the own rows
+            // and the tile, or a piece's from the slot alone; slot u + 1 is
+            // copied while they run
+            issue_logits(s, dp, chunk_slot ? own : slot, chunk_slot ? slot : slot + 4 * BB,
+                         chunk_slot ? own + 4 * BB : slot + 2 * BB,
+                         slot + (chunk_slot ? 4 : 6) * BB, chunk_slot ? ch.nb : 2, wg, p == 0);
+            if (u + 1 < total) load_unit(u + 1);
             mma::cp_async_commit();
-            tc_two_products<KD, WQ, LD>(q_a + stage_bytes, g_a + stage_bytes,
-                                        k_b + stage_bytes, v_b + stage_bytes, s, dp);
+            wait_logits(s, dp);
         }
 
-        tc_p_du_rows<WQ>(s, dp, lse2, dl, j * WQ, NK, t);
-        // dQ' += dU K over the chunk's columns, which the last piece's stage
-        // holds
-        tc_dq_accumulate<KD, WQ, LD>(dp, k_t + stage_bytes, acc);
-    }
-
-    // dQ = Dh^-1/2 * dQ' (two roundings), staged through the warp's own q'
-    // rows of stage 0 (only this warp reads them; every copy has landed)
-    bf16* Qw = Qst(0) + warp * 16 * LD;
+        // dU = P o (dP - delta): rows are the block's queries, columns the
+        // warpgroup's keys j * 64 + 32 wg + 8 jn + 2 t (+1); a key beyond NK
+        // gets P = 0
+        const int key0 = j * ROWS + 32 * wg;
+        unsigned char* tp = sm.ptr + (tiles - sm.addr);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-        const int col = nd * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(&Qw[g * LD + col]) = mma::pack_bf16(
-            round_to<bf16>(acc[nd][0]) * scale, round_to<bf16>(acc[nd][1]) * scale);
-        *reinterpret_cast<uint32_t*>(&Qw[(g + 8) * LD + col]) = mma::pack_bf16(
-            round_to<bf16>(acc[nd][2]) * scale, round_to<bf16>(acc[nd][3]) * scale);
+        for (int jn = 0; jn < 4; ++jn) {
+            float du[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float pv = mma::fast_exp2(fmaf(s[jn][e], mma::LOG2E, -lse2[e >> 1]));
+                if (key0 + 8 * jn + 2 * t + (e & 1) >= NK) pv = 0.f;
+                du[e] = pv * (dp[jn][e] - dl[e >> 1]);
+            }
+            store_split(tp, du, r0, 32 * wg + 8 * jn + 2 * t);
+        }
+        wgmma::fence_proxy_async();
+        __syncthreads();
+
+        // dQ' += dU K over the warpgroup's 128 columns
+        wgmma::fence_operand(acc);
+        wgmma::fence();
+        accumulate(acc, tiles, slot + 2 * wg * BB);
+        wgmma::commit();  // waited for at the next slot
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * CPR; e += 32) {
-        const int r = e / CPR, c = e % CPR;
-        const int n = q0 + warp * 16 + r;
-        if (n >= NQ) continue;
-        const long long at =
-            (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE + c * 8;
-        *reinterpret_cast<uint4*>(dq + at) =
-            *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
-    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+
+    // dQ = Dh^-1/2 * dQ' (two roundings), staged through the slots
+    __syncthreads();
+    bf16* st_q = reinterpret_cast<bf16*>(sm.ptr + SLOTS);
+    if (wg * 128 < ch.width) stage_rows<true>(st_q, acc, r0, 128 * wg, t, scale);
+    __syncthreads();
+    write_rows(dq, st_q, b, h, H, NQ, DH, q0, ch.c0, ch.width, tid);
 }
 
 struct Args {
@@ -1537,14 +1703,14 @@ int launch_dq_tc(const Args& a, void* dq) {
 }
 
 // Above 128 (a multiple of WIDE): a block per (64 keys or query rows,
-// (batch, head), chunk of WIDE output columns); `rows` is NK for dkv, NQ
+// (batch, head), chunk of `chunk` output columns); `rows` is NK for dkv, NQ
 // for dq.
 template <typename T, typename Kernel, typename... Outs>
-int launch_wide(Kernel kernel, size_t smem, int threads, int rows, const Args& a,
-                int Dh, Outs... outs) {
+int launch_wide(Kernel kernel, size_t smem, int threads, int chunk, int rows,
+                const Args& a, int Dh, Outs... outs) {
     if (int err = raise_smem_limit(kernel, smem)) return err;
     const dim3 grid((unsigned)((rows + 63) / 64), (unsigned)(a.B * a.H),
-                    (unsigned)(Dh / WIDE));
+                    (unsigned)((Dh + chunk - 1) / chunk));
     kernel<<<grid, threads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
@@ -1564,7 +1730,7 @@ int dispatch_dkv_fma(int Dh, const Args& a, void* dk, void* dv) {
     }
     if (wide_head_dim(Dh))
         return launch_wide<float>(flash_attn_bwd_dkv_wide_kernel<float>,
-                                  dkv_smem_bytes<WIDE>(), NT, a.NK, a, Dh, dk, dv);
+                                  dkv_smem_bytes<WIDE>(), NT, WIDE, a.NK, a, Dh, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1576,8 +1742,8 @@ int dispatch_dkv_tc(int Dh, const Args& a, void* dk, void* dv) {
         case 128: return launch_dkv_tc<128, TC_WARPS>(a, dk, dv);
     }
     if (wide_head_dim(Dh))
-        return launch_wide<bf16>(flash_bwd_dkv_wide_tc_kernel, wide_tc_smem_bytes(),
-                                 32 * TC_WARPS, a.NK, a, Dh, dk, dv);
+        return launch_wide<bf16>(flash_bwd_dkv_wide_tc_kernel, wide::dkv_smem_bytes,
+                                 wide::THREADS, wide::CHUNK, a.NK, a, Dh, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1590,7 +1756,7 @@ int dispatch_dq_fma(int Dh, const Args& a, void* dq) {
     }
     if (wide_head_dim(Dh))
         return launch_wide<float>(flash_attn_bwd_dq_wide_kernel<float>,
-                                  dq_smem_bytes<WIDE>(), NT, a.NQ, a, Dh, dq);
+                                  dq_smem_bytes<WIDE>(), NT, WIDE, a.NQ, a, Dh, dq);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1602,8 +1768,8 @@ int dispatch_dq_tc(int Dh, const Args& a, void* dq) {
         case 128: return launch_dq_tc<128>(a, dq);
     }
     if (wide_head_dim(Dh))
-        return launch_wide<bf16>(flash_bwd_dq_wide_tc_kernel, wide_tc_smem_bytes(),
-                                 32 * TC_WARPS, a.NQ, a, Dh, dq);
+        return launch_wide<bf16>(flash_bwd_dq_wide_tc_kernel, wide::dq_smem_bytes,
+                                 wide::THREADS, wide::CHUNK, a.NQ, a, Dh, dq);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1641,7 +1807,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // (B, Nk, H, Dh), dq: contiguous (B, N, H, Dh), of the input type. Dh: 32,
 // 64, 128 or a multiple of 128 (the wrapper zero-pads the others). A block
 // owns 64 keys (dkv) or 64 query rows (dq) in either type, and above
-// Dh = 128 one chunk of 128 output columns. Both entries
+// Dh = 128 one chunk of output columns: 128 in float32, 256 in bfloat16
+// (the last 128 wide where Dh is an odd multiple of 128). Both entries
 // choose their kernel by dtype, here: float32 runs the FMA kernel, bfloat16
 // the tensor-core kernel; neither stands in for the other.
 // Each entry returns the cudaError_t of its launch (0 on success); launches on

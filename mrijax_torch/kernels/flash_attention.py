@@ -29,12 +29,15 @@ Head dims: the wrappers take any Dh from 1 to ``MAX_HEAD_DIM`` (the grid's
 limit of 65 535 column chunks; the Pallas kernel has no limit). The
 kernels run Dh = 32, 64 and 128 in one piece (``SUPPORTED_HEAD_DIMS``) and
 any multiple of ``COLUMN_CHUNK`` = 128 above that in column chunks: a block
-owns one chunk of 128 output columns (a grid axis), computes the logits over
-all of Dh from 128-column pieces and accumulates P·V (dK, dV; dQ′) for its
-own columns only, so its accumulators fit the register file at any Dh; every
-chunk recomputes the logits. ``flash_attention_column_chunks_reference`` and
-its two backward counterparts are that decomposition in plain PyTorch. Any
-other Dh is zero-padded up to the next size the kernels take
+owns one chunk of output columns (a grid axis), computes the logits over
+all of Dh and accumulates P·V (dK, dV; dQ′) for its own columns only, so
+its accumulators fit the register file at any Dh; every chunk recomputes
+the logits. The forward and the float32 backward take chunks of 128; the
+bfloat16 backward chunks of ``BACKWARD_CHUNK`` = 256 (the last one 128 wide
+where Dh is an odd multiple of 128), two warpgroups of 128 columns a block.
+``flash_attention_column_chunks_reference`` and its two backward
+counterparts (``width``: the chunk) are that decomposition in plain
+PyTorch. Any other Dh is zero-padded up to the next size the kernels take
 (``kernel_head_dim``) in q, k, v and dO and launched with the true scale
 Dh**-0.5; zero columns change neither q′kᵀ nor the logsumexp, the padded
 columns of out, dq, dk and dv are zero, and the wrappers slice them off
@@ -56,6 +59,7 @@ version; a fake implementation for the shapes): an exported program
 """
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -69,6 +73,7 @@ launches = _build.LaunchCounts("flash_attn_fwd", "flash_attn_bwd_dkv",
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)   # what the kernels run in one piece
 COLUMN_CHUNK = 128                     # above that: multiples of this, one chunk a block
+BACKWARD_CHUNK = 256                   # the bf16 backward's chunk (the last may be 128)
 MAX_GRID_YZ = 65535                    # blocks along grid y (B·H) and z (column chunks)
 MAX_HEAD_DIM = COLUMN_CHUNK * MAX_GRID_YZ
 
@@ -121,14 +126,20 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
     Dh + 4 and (64, 68) P (and, in dkv, dU) tiles.
 
-    Dh a multiple of 128 above 128: ``chunks`` = Dh/128 blocks per tile
-    (grid z), each owning 128 output columns; 64 rows or keys a block in
-    both types. bfloat16: two stages of 128-column pieces, pitch 136 —
-    forward 64 rows of q′ and 64 keys of K a stage, plus V's chunk; dkv 64
-    keys of K and V and 32 rows of q′ and dO a stage; dq 64 rows of q′ and
-    dO and 32 keys of K and V a stage. float32: the Dh = 128 kernels' tiles
-    (pitch 132), the forward holding one piece of q′ and of K (V's chunk
-    goes into K's tile) beside P.
+    Dh a multiple of 128 above 128: ``chunks`` blocks per tile (grid z),
+    64 rows or keys a block in both types. The forward and float32: Dh/128
+    chunks of 128 output columns. bfloat16 forward: two stages of
+    128-column pieces, pitch 136, 64 rows of q′ and 64 keys of K a stage,
+    plus V's chunk (4 warps). bfloat16 dkv and dq: ⌈Dh/256⌉ chunks of
+    ``BACKWARD_CHUNK`` columns (at Dh 384 the last is 128 wide), 8 warps
+    (two warpgroups of 128 columns); the block's own 64 rows of the chunk
+    (K and V, or q′ and dO: 64 KB), a ring of two 64 KB slots of the other
+    side's 64-row tiles (or of 128-column pieces of both sides outside the
+    chunk), the P and dU (dkv: 32 KB; dq: dU, 16 KB) bf16 hi and lo tiles,
+    in dkv two slots of lse and Δ (1 KB), and 1 KB to align the 128-byte
+    swizzle: one block an SM. float32: the Dh = 128 kernels' tiles (pitch
+    132), the forward holding one piece of q′ and of K (V's chunk goes into
+    K's tile) beside P.
     """
     if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         raise ValueError(f"no launch plan for {kernel!r}")
@@ -175,10 +186,17 @@ def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
                   "flash_attn_bwd_dkv": 4 * 64 * (width + 4) + 2 * 64 * 68,
                   "flash_attn_bwd_dq": 4 * 64 * (width + 4) + 64 * 68}[kernel]
         shared = 4 * floats
-    elif dtype == torch.bfloat16:
+    elif dtype == torch.bfloat16 and kernel == "flash_attn_fwd":
         warps = 4
-        rows = 5 * 64 if kernel == "flash_attn_fwd" else 2 * (2 * 64 + 2 * 32)
-        shared = 2 * rows * (width + 8)
+        shared = 2 * 5 * 64 * (width + 8)
+    elif dtype == torch.bfloat16:
+        # csrc/flash_attention_bwd.cu, namespace wide: 64-row blocks of 64
+        # columns (8 KB); own rows and each slot 8 blocks, P and dU tiles
+        chunks = -(-d // BACKWARD_CHUNK)
+        warps = 8
+        block = 64 * 64 * 2
+        tiles = 4 * block + 2 * 2 * 64 * 4 if kernel == "flash_attn_bwd_dkv" else 2 * block
+        shared = 1024 + 8 * block + 2 * 8 * block + tiles
     else:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
     return LaunchPlan(64, warps, b * h * -(-n // 64) * chunks, shared, chunks)
@@ -312,20 +330,20 @@ def flash_attention_backward_reference(
     return flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block), dk, dv
 
 
-def _piecewise_logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _piecewise_logits(a: torch.Tensor, b: torch.Tensor,
+                      width: int = COLUMN_CHUNK) -> torch.Tensor:
     """(B, H, N, M) fp32 logits a·bᵀ of fp32 (B, N, H, D) and (B, M, H, D),
-    summed over pieces of ``COLUMN_CHUNK`` columns in order, as the
-    column-chunk kernels sum them."""
+    summed over pieces of ``width`` columns in order, as the column-chunk
+    kernels sum them."""
     s = None
-    for c0 in range(0, a.shape[-1], COLUMN_CHUNK):
-        cols = slice(c0, c0 + COLUMN_CHUNK)
+    for cols in _column_chunks(a.shape[-1], width):
         part = torch.einsum("bnhd,bmhd->bhnm", a[..., cols], b[..., cols])
         s = part if s is None else s + part
     return s
 
 
-def _column_chunks(d: int):
-    return [slice(c0, c0 + COLUMN_CHUNK) for c0 in range(0, d, COLUMN_CHUNK)]
+def _column_chunks(d: int, width: int = COLUMN_CHUNK):
+    return [slice(c0, c0 + width) for c0 in range(0, d, width)]
 
 
 def flash_attention_column_chunks_reference(
@@ -360,16 +378,19 @@ def flash_attention_column_chunks_reference(
 def flash_attn_bwd_dkv_column_chunks_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+    width: int = BACKWARD_CHUNK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The column-chunk ``flash_attn_bwd_dkv`` in plain PyTorch: for each
-    chunk of ``COLUMN_CHUNK`` columns, p and dU over all of Dh (logits summed
-    piece by piece), then dV and dK of that chunk's columns only."""
+    chunk of ``width`` columns (the last may be narrower), p and dU over all
+    of Dh (logits summed piece by piece), then dV and dK of that chunk's
+    columns only."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
-    for cols in _column_chunks(q.shape[-1]):
+    logits = functools.partial(_piecewise_logits, width=width)
+    for cols in _column_chunks(q.shape[-1], width):
         for _, qs, do, p, du in _p_and_du_blocks(q, k, v, dout, lse, delta, None, scale,
-                                                 logits=_piecewise_logits):
+                                                 logits=logits):
             dv[..., cols] += torch.einsum("bhnm,bnhd->bmhd", p, do[..., cols])
             dk[..., cols] += torch.einsum("bhnm,bnhd->bmhd", du, qs[..., cols])
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -378,16 +399,19 @@ def flash_attn_bwd_dkv_column_chunks_reference(
 def flash_attn_bwd_dq_column_chunks_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: Optional[float] = None,
+    width: int = BACKWARD_CHUNK,
 ) -> torch.Tensor:
     """The column-chunk ``flash_attn_bwd_dq`` in plain PyTorch: for each
-    chunk, dU over all of Dh, then dQ′ = dU·K of that chunk's columns, rounded
-    to the input dtype, times ``scale`` and rounded again."""
+    chunk of ``width`` columns, dU over all of Dh, then dQ′ = dU·K of that
+    chunk's columns, rounded to the input dtype, times ``scale`` and rounded
+    again."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kf = k.float()
-    for cols in _column_chunks(q.shape[-1]):
+    logits = functools.partial(_piecewise_logits, width=width)
+    for cols in _column_chunks(q.shape[-1], width):
         for rows, _, _, _, du in _p_and_du_blocks(q, k, v, dout, lse, delta, None, scale,
-                                                  logits=_piecewise_logits):
+                                                  logits=logits):
             dq_prime = torch.einsum("bhnm,bmhd->bnhd", du, kf[..., cols])
             dq[:, rows, :, cols] = (dq_prime.to(q.dtype).float() * scale).to(q.dtype)
     return dq

@@ -10,11 +10,14 @@ are built into its own ``mrijax_torch/_build/``. To compare a change with its
 parent, unpack the parent into a git-ignored directory and run the script on
 the two trees alternately (parent, change, change, parent, …), one process
 each. Times: CUDA events around single calls after a spin kernel, 3 warm-up
-calls, the median of 25 calls (7 at N = 51 200), at the flagship's shapes
-(8, 800, 4, 128) and (2, 800, 4, 128), at N = 51 200 with Dh 32 and at
-(1, 1000, 2, 32). It prints the card's name and power limit, then one JSON
-line: per shape, the ms of ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
-``flash_attn_bwd_dq``.
+calls, the median of 25 calls (7 at N = 51 200 and at (8, 6400, 1, 256)), at
+the flagship's shapes (8, 800, 4, 128) and (2, 800, 4, 128), at N = 51 200
+with Dh 32 and at (1, 1000, 2, 32), and at the head dims above 128 of the
+flagship with 1 or 2 heads: (8, 6400, 1, 256) (level 1 at 1 head),
+(8, 800, 2, 256), (8, 800, 1, 512) and its sequence-parallel half, q of 400
+rows against 800 keys. It prints the card's name and power limit, then one
+JSON line: per shape (q shape, then "of" the key count where it differs), the
+ms of ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq``.
 """
 
 import argparse
@@ -28,8 +31,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SHAPES = (((1, 51200, 4, 32), 7), ((8, 800, 4, 128), 25), ((2, 800, 4, 128), 25),
-          ((1, 1000, 2, 32), 25))
+# (B, N, H, Dh), repeats, query rows (None: N)
+SHAPES = (((1, 51200, 4, 32), 7, None), ((8, 800, 4, 128), 25, None),
+          ((2, 800, 4, 128), 25, None), ((1, 1000, 2, 32), 25, None),
+          ((8, 6400, 1, 256), 7, None), ((8, 800, 2, 256), 25, None),
+          ((8, 800, 1, 512), 25, None), ((8, 800, 1, 512), 25, 400))
 
 
 def time_ms(fn, repeats):
@@ -62,15 +68,16 @@ def main() -> int:
                          check=True, capture_output=True, text=True).stdout.strip())
     rng = np.random.default_rng(0)
     row = {"tree": args.label or str(args.tree), "module": fa.__file__}
-    for shape, repeats in SHAPES:
+    for shape, repeats, nq in SHAPES:
         b, n, h, d = shape
         qkv = torch.from_numpy(rng.standard_normal((b, n, 3, h, d), dtype=np.float32))
         qkv = qkv.cuda().bfloat16()
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = qkv[:, :nq, 0], qkv[:, :, 1], qkv[:, :, 2]
         out, lse = fa.flash_attention_forward(q, k, v)
-        dout = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16()
+        dout = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).cuda().bfloat16()
         delta = fa.flash_attention_delta(out, dout)
-        row[str(shape)] = [
+        key = str(tuple(q.shape)) + ("" if nq is None else f" of {n}")
+        row[key] = [
             time_ms(lambda: fa.flash_attention_forward(q, k, v), repeats),
             time_ms(lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta), repeats),
             time_ms(lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta), repeats)]

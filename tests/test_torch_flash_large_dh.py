@@ -1,11 +1,13 @@
 """The flash-attention kernels at head dims above 128, and GroupNorm+SiLU above
 3840 channels.
 
-Above 128 the CUDA kernels take Dh in column chunks of 128: a block owns 128
-output columns, computes the logits over all of Dh from 128-column pieces and
-accumulates its own columns only; the wrappers zero-pad any other Dh to the
-next multiple of 128 (``kernel_head_dim``). Here the plain versions of that
-decomposition (``*_column_chunks_reference``) go through the wrappers' own
+Above 128 the CUDA kernels take Dh in column chunks: a block owns a chunk of
+output columns (128 in the forward and in float32, 256 in the bf16 backward),
+computes the logits over all of Dh and accumulates its own columns only; the
+wrappers zero-pad any other Dh to the next multiple of 128
+(``kernel_head_dim``). Here the plain versions of that decomposition
+(``*_column_chunks_reference``, the backward at chunk widths 128 and 256) go
+through the wrappers' own
 pad, scale and cut (``at_kernel_head_dim``) on CPU tensors, and are held
 against the JAX package's attention — the plain ``multi_head_self_attention``,
 the chunked ``_chunked_attention_xla`` and the Pallas kernel in TPU interpret
@@ -53,18 +55,19 @@ def _close(got, want, name=""):
     np.testing.assert_allclose(np.asarray(got), want, atol=bar, rtol=bar, err_msg=name)
 
 
-def _chunked_backward(q, k, v, dout):
+def _chunked_backward(q, k, v, dout, width=fa.BACKWARD_CHUNK):
     """(out, lse, dq, dk, dv) through the wrappers' pad, scale and cut, with
-    the plain column-chunk versions where the card launches the kernels."""
+    the plain column-chunk versions where the card launches the kernels; the
+    backward in chunks of ``width`` columns."""
     out, lse = fa.at_kernel_head_dim(fa.flash_attention_column_chunks_reference, q, k, v)
     delta = fa.flash_attention_delta(out, dout)
     dk, dv = fa.at_kernel_head_dim(
         lambda *t: fa.flash_attn_bwd_dkv_column_chunks_reference(*t[:4], lse, delta,
-                                                                 scale=t[4]),
+                                                                 scale=t[4], width=width),
         q, k, v, dout)
     dq = fa.at_kernel_head_dim(
         lambda *t: fa.flash_attn_bwd_dq_column_chunks_reference(*t[:4], lse, delta,
-                                                                scale=t[4]),
+                                                                scale=t[4], width=width),
         q, k, v, dout)
     return out, lse, dq, dk, dv
 
@@ -80,12 +83,20 @@ def _jax_attentions():
             "pallas": _pallas}
 
 
-@pytest.mark.parametrize("d", LARGE_DH)
-def test_column_chunks_match_jax_attention_and_pallas(d):
+# the bf16 backward's chunk of 256 (ids as before), and the 128 of the
+# forward and of float32
+CHUNK_CASES = ([pytest.param(d, fa.BACKWARD_CHUNK, id=str(d)) for d in LARGE_DH]
+               + [pytest.param(d, 128, id=f"{d}-width128") for d in LARGE_DH])
+
+
+@pytest.mark.parametrize("d,width", CHUNK_CASES)
+def test_column_chunks_match_jax_attention_and_pallas(d, width):
     """out, lse and the VJP (dq, dk, dv) of the wrappers' route with the
-    column-chunk plain versions, against each JAX attention's output and VJP."""
+    column-chunk plain versions (the backward in chunks of ``width``), against
+    each JAX attention's output and VJP."""
     q, k, v, dout = _arrays(SHAPE, d, seed=d)
-    out, lse, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)))
+    out, lse, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)),
+                                             width=width)
     assert tuple(lse.shape) == (SHAPE[0] * SHAPE[2], SHAPE[1])
     # the logsumexp of the padded, chunked launch is that of the true head dim
     s = np.einsum("bnhd,bmhd->bhnm", q.astype(np.float64), k) * d ** -0.5
@@ -102,36 +113,57 @@ def test_column_chunks_match_jax_attention_and_pallas(d):
 
 def test_column_chunks_at_nq_ne_nk_match_jax():
     """A block of 24 query rows against 40 keys at Dh 320 (zero-padded to
-    384, three chunks): the sequence-parallel chunk. The JAX reference is its
+    384: three forward chunks of 128; backward chunks of 256 and 128, and
+    three of 128): the sequence-parallel chunk. The JAX reference is its
     plain attention on the same rows, whose logits and softmax do not need
     Nq = Nk."""
     d, nk, nq = 320, 40, 24
     q, k, v, dout = _arrays((1, nk, 2), d, seed=7)
     q, dout = q[:, :nq], dout[:, :nq]
-    out, _, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)))
     jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, dout))
     want, vjp = jax.vjp(multi_head_self_attention, jq, jk, jv)
-    _close(out.numpy(), want, "out")
-    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), vjp(jdo)):
-        _close(got.numpy(), w, name)
+    wants = vjp(jdo)
+    for width in (fa.BACKWARD_CHUNK, 128):
+        out, _, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)),
+                                               width=width)
+        _close(out.numpy(), want, "out")
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), wants):
+            _close(got.numpy(), w, f"{name} width {width}")
+
+
+# csrc/flash_attention_bwd.cu, namespace wide: 1 KB of alignment, own rows
+# and two slots of 8 blocks of 64 x 64 bf16, P and dU hi and lo tiles (dq:
+# dU), and in dkv two slots of lse and delta
+BWD_WIDE_SHARED = {"flash_attn_bwd_dkv": 1024 + 3 * 65536 + 4 * 8192 + 1024,
+                   "flash_attn_bwd_dq": 1024 + 3 * 65536 + 2 * 8192}
 
 
 @pytest.mark.parametrize("d,kernel_d,chunks", [(129, 256, 2), (256, 256, 2), (320, 384, 3),
-                                               (512, 512, 4), (1024, 1024, 8)])
+                                               (512, 512, 4), (1024, 1024, 8), (384, 384, 3),
+                                               (640, 640, 5)])
 def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
-    """``kernel_head_dim`` rounds up to a multiple of 128; every kernel's plan
-    has ``chunks`` blocks along the column axis, 64 rows or keys a block, and
-    shared memory within what a block may ask for, the same at any Dh."""
+    """``kernel_head_dim`` rounds up to a multiple of 128. The forward and the
+    float32 backward have ``chunks`` = Dh/128 blocks along the column axis;
+    the bf16 backward ⌈Dh/256⌉ (the last 128 wide at an odd multiple of 128)
+    with 8 warps, one block an SM. 64 rows or keys a block, and shared
+    memory within what a block may ask for, the same at any Dh."""
     assert fa.kernel_head_dim(d) == kernel_d and fa.runs_in_chunks(kernel_d)
+    wide_chunks = -(-kernel_d // fa.BACKWARD_CHUNK)
+    assert wide_chunks * fa.BACKWARD_CHUNK - kernel_d == (128 if chunks % 2 else 0)
     for kernel in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         for dtype, warps in ((torch.bfloat16, 4), (torch.float32, 8)):
             plan = fa.launch_plan(kernel, 8, 800, 1, kernel_d, dtype)
-            assert (plan.tile, plan.warps, plan.chunks) == (64, warps, chunks)
-            assert plan.blocks == 8 * 13 * chunks
+            want = (64, warps, chunks)
+            if dtype == torch.bfloat16 and kernel != "flash_attn_fwd":
+                want = (64, 8, wide_chunks)
+                assert plan.shared_bytes == BWD_WIDE_SHARED[kernel]
+                assert 2 * plan.shared_bytes > fa.MAX_SHARED_BYTES
+            assert (plan.tile, plan.warps, plan.chunks) == want
+            assert plan.blocks == 8 * 13 * plan.chunks
             assert plan.shared_bytes <= fa.MAX_SHARED_BYTES
             assert plan.shared_bytes == fa.launch_plan(kernel, 8, 800, 1, 256, dtype).shared_bytes
-    # the bf16 kernels keep two blocks an SM
-    assert 2 * fa.launch_plan("flash_attn_bwd_dkv", 8, 800, 1, kernel_d,
+    # the bf16 forward keeps two blocks an SM
+    assert 2 * fa.launch_plan("flash_attn_fwd", 8, 800, 1, kernel_d,
                               torch.bfloat16).shared_bytes <= fa.MAX_SHARED_BYTES
 
 

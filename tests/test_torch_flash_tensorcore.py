@@ -241,6 +241,133 @@ def test_two_term_dq_emulation_bf16_matches_pallas_dq_interpret():
                                rtol=2e-2, atol=2e-3)
 
 
+# ------------------------------------------- the bf16 backward above Dh 128
+
+
+def _wide_logit_order(d, c0, width, piece=128):
+    """Column slices in the order the wide backward sums its logits for the
+    chunk [c0, c0 + width): the pieces of ``piece`` columns outside it,
+    ascending, then the chunk itself; each taken in k16 steps in order."""
+    outside = [slice(c, c + piece) for c in range(0, d, piece) if not c0 <= c < c0 + width]
+    return [slice(c, c + 16) for part in outside + [slice(c0, c0 + width)]
+            for c in range(part.start, part.stop, 16)]
+
+
+def _k16_sum(eq, a, b, steps, along):
+    """fp32 sum over ``steps`` (slices of axis ``along`` of both operands) of
+    einsum(eq) on each step, in order: the warpgroup products' k16 steps."""
+    s = None
+    for st in steps:
+        index = (slice(None),) * along + (st,)
+        part = torch.einsum(eq, a[index], b[index])
+        s = part if s is None else s + part
+    return s
+
+
+def _wide_chunks(d, width=fa.BACKWARD_CHUNK):
+    return [(c0, min(width, d - c0)) for c0 in range(0, d, width)]
+
+
+def _wide_dkv_emulation(q, k, v, dout, lse, delta, tile=64):
+    """``flash_bwd_dkv_wide_tc_kernel``'s arithmetic for bf16 inputs at Dh =
+    128·P: per chunk of 256 output columns and tile of 64 query rows, Sᵀ =
+    k·q′ᵀ and dPᵀ = v·dOᵀ summed in fp32 over k16 steps in the kernel's
+    column order; Pᵀ = 2^(Sᵀ·log2e − lse·log2e), dUᵀ = Pᵀ∘(dPᵀ − Δ); dV and
+    dK of the chunk's columns summed over k16 steps of the tile's rows, the
+    hi term then the lo term of each; dk and dv rounded once."""
+    b, n, h, d = q.shape
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32)
+    dv = torch.zeros(k.shape, dtype=torch.float32)
+    lse2 = (lse * LOG2E).reshape(b, h, n)
+    delta = delta.reshape(b, h, n)
+    for c0, width in _wide_chunks(d):
+        cols = slice(c0, c0 + width)
+        order = _wide_logit_order(d, c0, width)
+        for start in range(0, n, tile):
+            rows = slice(start, min(start + tile, n))
+            q_prime = (q[:, rows].float() * scale).to(q.dtype).float()
+            do = dout[:, rows].float()
+            s_t = _k16_sum("bmhd,bnhd->bhmn", kf, q_prime, order, 3)
+            dp_t = _k16_sum("bmhd,bnhd->bhmn", vf, do, order, 3)
+            p_t = torch.exp2(s_t * LOG2E - lse2[:, :, None, rows])
+            du_t = p_t * (dp_t - delta[:, :, None, rows])
+            steps = [slice(r, r + 16) for r in range(0, rows.stop - rows.start, 16)]
+            for part_of, acc, b_op in ((p_t, dv, do), (du_t, dk, q_prime)):
+                hi, lo = _bf16_terms(part_of, 2)
+                for st in steps:
+                    for term in (hi, lo):
+                        acc[..., cols] += torch.einsum("bhmn,bnhd->bmhd", term[..., st],
+                                                       b_op[:, st, :, cols])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _wide_dq_emulation(q, k, v, dout, lse, delta, tile=64):
+    """``flash_bwd_dq_wide_tc_kernel``'s arithmetic: per chunk and tile of 64
+    keys, S = q′·kᵀ and dP = dO·vᵀ over k16 steps in the kernel's column
+    order, dU = P∘(dP − Δ), dQ′ of the chunk's columns over k16 steps of the
+    tile's keys, hi then lo; dQ′ rounded, times Dh^-1/2, rounded."""
+    b, n, h, d = q.shape
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    q_prime = (q.float() * scale).to(q.dtype).float()
+    do = dout.float()
+    lse2 = (lse * LOG2E).reshape(b, h, n, 1)
+    delta = delta.reshape(b, h, n, 1)
+    dq_prime = torch.zeros(q.shape, dtype=torch.float32)
+    nk = k.shape[1]
+    for c0, width in _wide_chunks(d):
+        cols = slice(c0, c0 + width)
+        order = _wide_logit_order(d, c0, width)
+        for start in range(0, nk, tile):
+            keys = slice(start, min(start + tile, nk))
+            kf, vf = k[:, keys].float(), v[:, keys].float()
+            s = _k16_sum("bnhd,bmhd->bhnm", q_prime, kf, order, 3)
+            dp = _k16_sum("bnhd,bmhd->bhnm", do, vf, order, 3)
+            du = torch.exp2(s * LOG2E - lse2) * (dp - delta)
+            hi, lo = _bf16_terms(du, 2)
+            for r in range(0, keys.stop - keys.start, 16):
+                st = slice(r, r + 16)
+                for term in (hi, lo):
+                    dq_prime[..., cols] += torch.einsum("bhnm,bmhd->bnhd", term[..., st],
+                                                        kf[:, st, :, cols])
+    return (dq_prime.to(q.dtype).float() * scale).to(q.dtype)
+
+
+WIDE_SHAPES = [(1, 130, 2, 256), (1, 70, 1, 384), (1, 100, 1, 512)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_backward_order_holds_dk_dv_to_one_ulp_and_dq_to_two(shape):
+    """The wide backward's order of sums — logits over k16 steps with the
+    columns outside the block's chunk first, dV, dK and dQ′ over k16 steps of
+    64-row tiles, hi then lo — keeps bf16 dk and dv within one ulp of the
+    plain version and dq within two, the bars the card holds it to, at Dh
+    256, 384 (chunks of 256 and 128) and 512, with a ragged last tile."""
+    q, k, v, dout, _, lse, delta = _operands(shape, torch.bfloat16, seed=25)
+    want_dk, want_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta)
+    got_dk, got_dv = _wide_dkv_emulation(q, k, v, dout, lse, delta)
+    assert _outside(got_dk, want_dk, **ONE_BF16_ULP) == 0
+    assert _outside(got_dv, want_dv, **ONE_BF16_ULP) == 0
+    want_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
+    got_dq = _wide_dq_emulation(q, k, v, dout, lse, delta)
+    assert got_dq.dtype == torch.bfloat16 and got_dq.shape == want_dq.shape
+    assert _outside(got_dq, want_dq, **TWO_BF16_ULPS) == 0
+
+
+def test_wide_emulation_in_float32_is_the_column_chunk_reference():
+    """With float32 inputs the wide emulations differ from the plain
+    column-chunk versions by the split's 2^-17 alone, at Dh 384, where the
+    last chunk is 128 wide."""
+    q, k, v, dout, _, lse, delta = _operands((1, 70, 1, 384), torch.float32, seed=26)
+    want = fa.flash_attn_bwd_dkv_column_chunks_reference(q, k, v, dout, lse, delta)
+    for g, w in zip(_wide_dkv_emulation(q, k, v, dout, lse, delta), want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(_wide_dq_emulation(q, k, v, dout, lse, delta),
+                               fa.flash_attn_bwd_dq_column_chunks_reference(
+                                   q, k, v, dout, lse, delta), atol=1e-5, rtol=1e-5)
+
+
 def _forward_emulation(q, k, v, k_tile=64):
     """The forward kernel's arithmetic: online softmax over tiles of 64 keys,
     exponentials as 2^(s·log2e − m·log2e), the row sum from the unrounded P,
