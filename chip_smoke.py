@@ -10,8 +10,9 @@ What it does, in order:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, builds every kernel of ``mrijax_torch/csrc`` with ``nvcc``, and
    prints what ``ptxas`` says of the tensor-core kernels and how many ``HMMA``
-   instructions ``cuobjdump -sass`` finds in the two flash-attention libraries
-   and in each tensor-core kernel (none is a failure);
+   (``mma.sync``) and ``HGMMA`` (``wgmma``) instructions ``cuobjdump -sass``
+   finds in the two flash-attention libraries and in each tensor-core kernel
+   (none is a failure, and so is a warpgroup kernel without ``HGMMA``);
 2. calls each kernel's wrapper on CUDA tensors at the shapes the main path
    gives it (fp32 and bf16, plus ragged sizes) and holds the result against
    the kernel's plain PyTorch version on the same inputs;
@@ -151,14 +152,14 @@ What it does, in order:
 Phases 2 and 3 also hold the three flash kernels at head dims above 128
 (``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
 256 and 384; ``FLASH_LARGE_DH_CHUNK``: Nq ≠ Nk at Dh 512), which they take
-in column chunks (128 in the forward and in float32, 256 in the bf16
-backward's warpgroup kernels), against their plain versions at the bars of
-Dh 128, one launch a wrapper call, two launches of each backward kernel
-bitwise equal, and time them beside the plain versions,
-``F.scaled_dot_product_attention`` and the bound at the true head dim, with
-the registers and spills ``ptxas`` gave each bf16 backward kernel
-(``flash_large_dh_times``); and GroupNorm+SiLU at 4096 and 8192 channels
-(``GN_WIDE_CHANNELS``), compared and timed (``groupnorm_times_wide_channels``).
+in column chunks (128 in float32, 256 in the three bf16 warpgroup kernels),
+against their plain versions at the bars of Dh 128, one launch a wrapper
+call, two launches of each kernel bitwise equal, and time them beside the
+plain versions, ``F.scaled_dot_product_attention`` and the bound at the true
+head dim, with the registers and spills ``ptxas`` gave each bf16 kernel and
+the bytes each copies from L2 into shared memory (``flash_large_dh_times``);
+and GroupNorm+SiLU at 4096 and 8192 channels (``GN_WIDE_CHANNELS``), compared
+and timed (``groupnorm_times_wide_channels``).
 
 Phases 2 and 3 also hold the three flash kernels at head dims they are not
 compiled for (``FLASH_SMALL_DH``: Dh 4, 8 and 16, zero-padded to 32 by the
@@ -364,13 +365,14 @@ FLASH_SMALL_DH = [(2, 64, 4, 4), (1, 64, 4, 4), (1, 64, 2, 8), (2, 130, 2, 16),
 # the dry run's bottleneck split over a model axis of 2: q of 32 rows against 64 keys
 FLASH_SMALL_DH_CHUNK = ((1, 32, 2, 8), (1, 64, 2, 8))
 
-# head dims above 128, which the kernels take in column chunks of 128: the
+# head dims above 128, which the kernels take in column chunks: the
 # flagship's bottleneck (512 channels, 800 tokens) with 2 heads at the
 # generation and the training batch, with 1 head, its level-1 attention
-# (256 channels, 6400 tokens) with 1 head, 1024 columns, and two head dims
-# the wrappers zero-pad (192 -> 256 at a ragged N, 320 -> 384)
+# (256 channels, 6400 tokens) with 1 head at the training and the
+# generation batch, 1024 columns, and two head dims the wrappers zero-pad
+# (192 -> 256 at a ragged N, 320 -> 384)
 FLASH_LARGE_DH = [(2, 800, 2, 256), (8, 800, 2, 256), (8, 800, 1, 512), (8, 6400, 1, 256),
-                  (2, 800, 1, 1024), (2, 130, 1, 192), (1, 64, 1, 320)]
+                  (2, 6400, 1, 256), (2, 800, 1, 1024), (2, 130, 1, 192), (1, 64, 1, 320)]
 # the 1-head bottleneck split over a model axis of 2
 FLASH_LARGE_DH_CHUNK = ((8, 400, 1, 512), (8, 800, 1, 512))
 # GroupNorm+SiLU above the 3840 channels of the stats kernel's default shared
@@ -906,14 +908,14 @@ def time_flash_chunks(rng):
 def compare_flash_head_dims(rng, cases, label):
     """The three flash kernels at head dims they do not take in one piece —
     ``cases`` of (q shape, kv shape): below 32 the wrappers zero-pad to 32,
-    above 128 the kernels take Dh in column chunks of 128 (192 and 320
-    zero-padded to 256 and 384 first) — against their plain versions at the
+    above 128 the kernels take Dh in column chunks (192 and 320 zero-padded
+    to 256 and 384 first) — against their plain versions at the
     TRUE head dim, both dtypes, at phases 2–3's bars: out and lse (float32
     1e-4; bf16 out 2e-3 + 1e-2 relative, lse 1e-4), dk and dv (float32 1e-4,
     bf16 one ulp), dq (float32 1e-4, bf16 two ulps), and, where Nq = Nk, the
     gradients of ``flash_attention`` through autograd (the ``_FlashAttention``
     path of training). Each wrapper call must be one launch of its kernel, and
-    a second launch of each backward kernel must give the same bits."""
+    a second launch of each kernel must give the same bits."""
     worst = {name: {"float32": 0.0, "bfloat16": 0.0}
              for name in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     for q_shape, kv_shape in cases:
@@ -947,10 +949,11 @@ def compare_flash_head_dims(rng, cases, label):
             counts = all_launch_counts()
             if any(counts[name] != 1 for name in worst):
                 raise AssertionError(f"{tag}: launches {counts}, expected one of each")
-            again = (*fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+            again = (*fa.flash_attention_forward(q, k, v),
+                     *fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
                      fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta))
-            if not all(torch.equal(a, b) for a, b in zip(again, (dk, dv, dq))):
-                raise AssertionError(f"{tag}: two launches of the backward differ")
+            if not all(torch.equal(a, b) for a, b in zip(again, (out, lse, dk, dv, dq))):
+                raise AssertionError(f"{tag}: two launches of a kernel differ")
             del again
             if q_shape == kv_shape:
                 qkv = torch.stack([q, k, v], dim=2).requires_grad_()
@@ -1043,13 +1046,14 @@ def time_flash_large_dh(rng):
     TRUE head dim: operations 4·B·H·Nq·Nk·Dh (forward), 8· (dkv), 6· (dq)
     over the rate of the input type, or the bytes of the operands and outputs
     read and written once. ``plan``: the launch (``chunks`` blocks along the
-    grid's column axis). bf16 rows also carry, for ``dkv`` and ``dq``: the
-    registers and spill bytes of the wide backward kernels (``*_ptxas``), the
-    time of the operations with P and dU entering as two bf16 terms, 1.5 and
-    4/3 times the operations (``*_split_floor_ms``), and the bytes
-    the kernel copies from L2 into shared memory (``*_l2_bytes``)."""
+    grid's column axis). bf16 rows also carry the registers and spill bytes
+    of the wide kernel that ran (``*_ptxas``; the forward's instance of its
+    block's warpgroups) and the bytes it copies from L2 into shared memory
+    (``*_l2_bytes``), and for ``dkv`` and ``dq`` the time of the operations
+    with P and dU entering as two bf16 terms, 1.5 and 4/3 times the
+    operations (``*_split_floor_ms``)."""
     rows = []
-    ptxas = wide_backward_ptxas()
+    ptxas = wide_ptxas()
     cases = [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK]
     for q_shape, kv_shape in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1103,6 +1107,9 @@ def time_flash_large_dh(rng):
                 if lib is not None:
                     row[f"{name}_library_ms"] = lib
             if dtype == torch.bfloat16:
+                tile = fa.launch_plan("flash_attn_fwd", b, nq, h, kd, dtype).tile
+                row["fwd_ptxas"] = ptxas.get(f"flash_fwd_wide_tc_kernel<{tile // 64}>")
+                row["fwd_l2_bytes"] = wide_forward_copy_bytes(b, nq, nk, h, kd, tile)
                 for name, kernel, products, split in (("dkv", "flash_attn_bwd_dkv", 4, 1.5),
                                                       ("dq", "flash_attn_bwd_dq", 3, 4 / 3)):
                     row[f"{name}_ptxas"] = ptxas.get(f"flash_bwd_{name}_wide_tc_kernel")
@@ -4459,13 +4466,36 @@ def wide_backward_copy_bytes(kernel, b, nq, nk, h, d):
     return total
 
 
-def wide_backward_ptxas():
-    """Registers and spill bytes of the two bf16 backward kernels above Dh
-    128, by kernel name."""
-    return {kernel: {"registers": regs, "spill_bytes": spilled}
-            for entry, regs, spilled in ptxas_rows("flash_attention_bwd")
-            for kernel in ("flash_bwd_dkv_wide_tc_kernel", "flash_bwd_dq_wide_tc_kernel")
-            if kernel in entry}
+def wide_forward_copy_bytes(b, nq, nk, h, d, tile):
+    """Bytes the bf16 forward kernel above Dh 128 copies from L2 into shared
+    memory in one launch (the loads of ``csrc/flash_attention_fwd.cu``,
+    namespace ``wide``): per chunk of 256 columns (the last may be 128) and
+    block of ``tile`` query rows, the rows' q of the chunk once, then for
+    every tile of 64 keys the chunk's columns of K and V and the other
+    columns of K and of the rows' q."""
+    total = 0
+    for c0 in range(0, d, fa.BACKWARD_CHUNK):
+        width = min(fa.BACKWARD_CHUNK, d - c0)
+        per_tile = 2 * 64 * width * 2 + (64 + tile) * (d - width) * 2
+        total += b * h * -(-nq // tile) * (tile * width * 2 + -(-nk // 64) * per_tile)
+    return total
+
+
+def wide_ptxas():
+    """Registers and spill bytes of the three bf16 kernels above Dh 128, by
+    kernel name (the forward's by its warpgroups a block, ``<1>`` and
+    ``<2>``)."""
+    names = {}
+    for entry, regs, spilled in (ptxas_rows("flash_attention_fwd")
+                                 + ptxas_rows("flash_attention_bwd")):
+        if m := re.search(r"flash_fwd_wide_tc_kernelILi(\d)E", entry):
+            name = f"flash_fwd_wide_tc_kernel<{m.group(1)}>"
+        elif m := re.search(r"flash_bwd_d(?:kv|q)_wide_tc_kernel", entry):
+            name = m.group(0)
+        else:
+            continue
+        names[name] = {"registers": regs, "spill_bytes": spilled}
+    return names
 
 
 def report_ptxas(name):
@@ -4481,37 +4511,49 @@ def report_ptxas(name):
             params = ", ".join(f"{label}={value}" for label, value in
                                zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
             print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
-        elif m := re.search(r"(flash_\w*?wide\w*?_kernel)", entry):
-            chunks = ("256-column chunks, wgmma" if "bwd" in m.group(1) and "tc" in m.group(1)
-                      else "128-column chunks")
+        elif m := re.search(r"\d(flash_[a-z_]*wide[a-z_]*_kernel)", entry):
+            chunks = "256-column chunks, wgmma" if "tc" in m.group(1) else "128-column chunks"
+            if wgs := re.search(r"wide_tc_kernelILi(\d)E", entry):
+                chunks += f", {wgs.group(1)} warpgroup(s) of 64 rows"
             print(f"    {m.group(1)}{'<float>' if 'If' in entry else ''} (Dh > 128, "
                   f"{chunks}): {regs} registers, {spilled} bytes spilled")
 
 
-TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel",
-                       "flash_fwd_wide_tc_kernel", "flash_bwd_dkv_wide_tc_kernel",
-                       "flash_bwd_dq_wide_tc_kernel")
+WGMMA_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_bwd_dkv_wide_tc_kernel",
+                 "flash_bwd_dq_wide_tc_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                       "flash_bwd_dq_tc_kernel") + WGMMA_KERNELS
 
 
 def tensor_core_proof(libs):
-    """Count the ``HMMA``/``HGMMA`` instructions in the machine code of the two
-    flash-attention libraries and of each tensor-core kernel in them (all its
-    instantiations together); a library or kernel without any did not get its
-    tensor-core code."""
+    """Count the ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``)
+    instructions in the machine code of the two flash-attention libraries
+    and of each tensor-core kernel in them (all its instantiations
+    together); a library or kernel without any did not get its tensor-core
+    code, and a warpgroup kernel (``WGMMA_KERNELS``) without ``HGMMA`` not
+    its warpgroup products."""
     cuobjdump = _build.cuda_tool("cuobjdump")
-    counts = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd") + TENSOR_CORE_KERNELS, 0)
+    counts = {name: {"HMMA": 0, "HGMMA": 0}
+              for name in ("flash_attention_fwd", "flash_attention_bwd") + TENSOR_CORE_KERNELS}
+
+    def add(name, sass):
+        for op in ("HMMA", "HGMMA"):
+            counts[name][op] += len(re.findall(rf"\b{op}\.", sass))
+
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
                               capture_output=True, text=True, timeout=300).stdout
-        counts[name] = len(re.findall(r"\bHG?MMA\.", sass))
+        add(name, sass)
         for function in re.split(r"\n\s*Function : ", sass)[1:]:
             kernel = next((k for k in TENSOR_CORE_KERNELS if k in function.split("\n", 1)[0]), None)
             if kernel:
-                counts[kernel] += len(re.findall(r"\bHG?MMA\.", function))
+                add(kernel, function)
     print("tensor_core_instructions " + json.dumps(counts))
-    if min(counts.values()) == 0:
+    if min(sum(c.values()) for c in counts.values()) == 0:
         raise AssertionError(f"a flash-attention library or kernel holds no HMMA/HGMMA "
                              f"instruction: {counts}")
+    if min(counts[k]["HGMMA"] for k in WGMMA_KERNELS) == 0:
+        raise AssertionError(f"a warpgroup kernel holds no HGMMA instruction: {counts}")
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,

@@ -71,6 +71,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -591,17 +592,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------------------- Dh above 128
 //
 // The wrapper zero-pads a head dim above 128 to a multiple of WIDE = 128.
-// A block owns a tile of 64 query rows and ONE chunk of WIDE output columns
-// (grid z): a warp's 16 rows x 128 columns of fp32 accumulator are 64
-// registers a thread at any Dh, where all of a row would take Dh / 2. The
-// block computes the logits over all of Dh, streaming q and K through shared
-// memory in pieces of WIDE columns and summing each piece's product into the
-// same fp32 logits, and then P V for its own chunk of V only. Every chunk
-// recomputes the logits (Dh / 128 times the q'k^T work of one pass): that
-// is the price of the register file, paid in operations. All chunks compute
-// the same lse; chunk 0 writes it.
+// Both types take Dh in column chunks: a block owns a tile of query rows and
+// ONE chunk of output columns (grid z), so its fp32 accumulator fits the
+// register file at any Dh; it computes the logits over all of Dh and P V for
+// its own chunk of V only. Every chunk computes the same logits and lse;
+// chunk 0 writes lse. float32: chunks of WIDE, below; bfloat16: chunks of
+// 256 on warpgroup products, flash_fwd_wide_tc_kernel further down.
 
-constexpr int WIDE = 128;                  // columns of a piece and of a chunk
+constexpr int WIDE = 128;                  // columns of a piece and of a chunk (fp32)
 
 // float32: 256 threads as in flash_attn_fwd_kernel; one piece of q' and of
 // K at a time (plain loads, two barriers a piece), then the chunk of V into
@@ -705,151 +703,294 @@ flash_attn_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// bfloat16: 4 warps of 16 query rows (64 a block) as flash_fwd_tc_kernel at
-// MT = 1. Shared memory: two stages of (a piece of q', a piece of K), each
-// 64 rows of WIDE + 8, and the chunk of V: 87 KB, two blocks an SM. The
-// pieces of all KV tiles form one stream, i = tile * pieces + piece; piece
-// i + 1 is copied while piece i is multiplied (one barrier a piece), and
-// the chunk of V of a tile is copied behind its first piece, so it has the
-// products of the others to land (pieces >= 2). A thread scales the q
-// chunks its own copies brought, as dkv does, before the barrier.
-constexpr int WIDE_LD = WIDE + mma::PAD;
-constexpr int WIDE_TILE = 64 * WIDE_LD;    // elements of one 64-row piece
+// bfloat16: flash_fwd_wide_tc_kernel, the TPU's _flash_kernel for Dh =
+// 128 P, P >= 2, on Hopper's warpgroup products (wgmma.mma_async, see
+// wgmma.cuh).
+//
+// Bound: operations, 4 B H Nq Nk Dh flops over the 989 TFLOP/s of bf16.
+//
+// A block owns 64 WG query rows of one (batch, head), WG = 1 or 2
+// warpgroups of 64 rows, and one chunk of CHUNK = 256 output columns (grid
+// z; at an odd multiple of 128 the last chunk is 128 wide). The wrapper's
+// launch plan takes 64 rows where those blocks fit the card in one wave,
+// else 128: a block of 128 rows measured 1.2-1.3 times the time of one of
+// 64 on an H100. A warpgroup holds its 64 rows x 256 columns of fp32
+// accumulator: 128 registers a thread. What the design does about what
+// held the earlier kernel (128-column chunks on mma.sync, q' streamed with
+// K) back:
+// * The logits once a chunk. S = q' K^T over all of Dh is computed once per
+//   tile by each warpgroup for its rows: at Dh 256 once in all, where
+//   128-column chunks computed it twice (four times at Dh 512).
+// * q' staged once. The block's rows of the chunk's columns are copied once,
+//   scaled and rounded in place by the threads that copied them, and stay
+//   resident for every KV tile (WG x 32 KB). K and V stream through a ring
+//   of two 64 KB slots of 64-key tiles of the chunk's columns: the copies
+//   (cp.async) of slot u + 1 are issued while the logits of slot u run, one
+//   block barrier a slot. Above Dh 256 the logits also need the columns
+//   outside the chunk: those come as pieces of 128 columns, K's and the
+//   block's q's together in a slot (q re-read from L2 and scaled each
+//   time), before the slot that holds the tile's chunk of K and V.
+//   L2 -> shared bytes a launch at (8, 6400, 1, 256): 400 blocks of 128
+//   rows x (64 KB + 100 tiles x 64 KB) = 2.65 GB, against 13.1 GB for the
+//   128-column chunks.
+// * Products on wgmma. S is m64n64k16, q' and K both K-major from shared
+//   memory, fp32, its first k16 step with scale-d 0; P, rounded to bf16 in
+//   registers, is the register A operand of O += P V (m64n256k16, V read
+//   MN-major with the transpose flag from the slot the logits read K
+//   from). Two warpgroups share each K and V tile: the 128-row block pulls
+//   half the L2 bytes per flop of the 64-row one.
+// The softmax (wide::softmax) does the arithmetic of the Dh <= 128
+// kernel's tc_softmax: running max and sum per row (the 4 lanes of a row
+// reduce with two shuffles), exponentials as ex2.approx with log2 e folded
+// into an fma, the row sum of the unrounded fp32 P, the accumulator
+// rescaled in registers between two batches of products. Shared memory: q' WG x 32 KB, two 64 KB slots and 1 KB to align
+// the swizzle: 161 KB (64 rows) or 193 KB (128 rows), one block an SM. Rows
+// beyond Nq are zero-filled, computed and not stored; keys beyond Nk are
+// zero-filled and get -1e30 before the max. No atomics.
+namespace wide {
 
-constexpr size_t flash_wide_tc_smem_bytes() {
-    return sizeof(bf16) * 5 * WIDE_TILE;
+constexpr int KEYS = 64;                  // keys of a tile; rows of a warpgroup
+constexpr int CHUNK = 256;                // output columns of a block
+constexpr int PIECE = 128;                // columns of a piece outside the chunk
+constexpr uint32_t BB = wgmma::BLOCK_BYTES;
+constexpr uint32_t SLOT_BYTES = 8 * BB;   // K and V of a tile, or a piece of K and q
+constexpr uint32_t ALIGN = 1024;          // the swizzle repeats every 1024 bytes
+constexpr int STAGE_LD = CHUNK + mma::PAD;   // pitch of the output staging rows
+
+template <int WG>
+constexpr size_t smem_bytes() {
+    return ALIGN + WG * 4 * BB + 2 * SLOT_BYTES;
 }
 
-__global__ void __launch_bounds__(128)
+// A block's chunk, and the pieces of the other columns in the order they
+// are streamed (ascending, the chunk skipped); a KV tile is `units` slots:
+// the pieces, then the chunk.
+struct Chunk {
+    int c0, width, nb, pieces, units;
+    __device__ Chunk(int chunk, int DH)
+        : c0(chunk * CHUNK), width(min(CHUNK, DH - chunk * CHUNK)),
+          nb(width / wgmma::BLOCK_COLS), pieces((DH - width) / PIECE),
+          units(pieces + 1) {}
+    __device__ int piece_col(int p) const { return p * PIECE < c0 ? p * PIECE : p * PIECE + width; }
+};
+
+// Issues s = A B^T over nb 64-column blocks (K-major): A the warpgroup's 64
+// rows of q', B 64 keys. With `first` the sum starts from zero (scale-d, no
+// register writes). Commits; the caller waits.
+__device__ __forceinline__ void issue_logits(float (&s)[8][4], uint32_t a, uint32_t b,
+                                             int nb, bool first) {
+    wgmma::fence_operand(s);
+    wgmma::fence();
+#pragma unroll 1
+    for (int i = 0; i < nb; ++i)
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+            const uint32_t off = i * BB + st * 32;
+            const int keep = !first || i > 0 || st > 0;
+            wgmma::m64n64k16(s, wgmma::desc_k(a + off), wgmma::desc_k(b + off), keep);
+        }
+    wgmma::commit();
+}
+
+// The online softmax of one tile for the fragment's rows (index 0: r0,
+// 1: r0 + 8), reading the logits without writing them (the products'
+// accumulator is written by products alone; writing it in place makes
+// ptxas serialize them): keys beyond NK count as -1e30, m and this lane's
+// share l of the row sum advance, o is rescaled, and P = 2^(S log2 e -
+// m log2 e), rounded to bf16, leaves as the A fragments pa[kk] of keys
+// 16 kk .. 16 kk + 15; the sum is of the unrounded P.
+__device__ __forceinline__ void softmax(const float (&s)[8][4], int k0, int NK, int t,
+                                        float (&m)[2], float (&l)[2], float (&o)[32][4],
+                                        uint32_t (&pa)[4][4]) {
+    float x[8][4];
+    const bool ragged = k0 + KEYS > NK;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            x[jn][e] = ragged && k0 + 8 * jn + 2 * t + (e & 1) >= NK ? NEG_INF : s[jn][e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float mc = NEG_INF;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) mc = fmaxf(mc, fmaxf(x[jn][2 * r], x[jn][2 * r + 1]));
+        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+        const float mn = fmaxf(m[r], mc);
+        const float alpha = mma::fast_exp2((m[r] - mn) * mma::LOG2E);
+        const float mn2 = mn * mma::LOG2E;
+        float rs = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+            x[jn][2 * r] = mma::fast_exp2(fmaf(x[jn][2 * r], mma::LOG2E, -mn2));
+            x[jn][2 * r + 1] = mma::fast_exp2(fmaf(x[jn][2 * r + 1], mma::LOG2E, -mn2));
+            rs += x[jn][2 * r] + x[jn][2 * r + 1];
+        }
+        l[r] = alpha * l[r] + rs;
+        m[r] = mn;
+#pragma unroll
+        for (int nd = 0; nd < 32; ++nd) {
+            o[nd][2 * r] *= alpha;
+            o[nd][2 * r + 1] *= alpha;
+        }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = mma::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+        pa[kk][1] = mma::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+        pa[kk][2] = mma::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+        pa[kk][3] = mma::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    }
+}
+
+}  // namespace wide
+
+template <int WG>
+__global__ void __launch_bounds__(128 * WG, 1)
 flash_fwd_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
                          float* __restrict__ lse, int NQ, int NK, int H, int DH,
                          Strides qs, Strides ks, Strides vs, float scale) {
-    constexpr int NT = 128;
-    constexpr int BM = 64;
-    constexpr int LD = WIDE_LD;
-    constexpr int KD = WIDE / 16;       // k-steps over a piece
-    constexpr int ND = WIDE / 8;        // 8-column fragments of the chunk
-    constexpr int CPR = WIDE / 8;       // 16-byte chunks per row
-
+    using namespace wide;
+    constexpr int T = 128 * WG;          // threads
+    constexpr int BM = KEYS * WG;        // query rows of the block
+    // own: q' of warpgroup w's rows, blocks 4 w .. 4 w + 3; a slot: the
+    // tile's K 0-3 and V 4-7, or a piece's K 0-1 and q of warpgroup w's rows
+    // 2 + 2 w .. 3 + 2 w
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [2][BM][LD]
-    bf16* Ks = Qs + 2 * WIDE_TILE;                 // [2][TC_BN][LD]
-    bf16* Vs = Ks + 2 * WIDE_TILE;                 // [TC_BN][LD]
+    const uint32_t raw = mma::smem_addr(smem_raw);
+    const uint32_t pad = ((raw + ALIGN - 1) & ~(ALIGN - 1)) - raw;
+    unsigned char* base = smem_raw + pad;
+    const uint32_t own = raw + pad, slots = own + WG * 4 * BB;
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
+    const int wg = tid >> 7;
+    const int r0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);  // fragment row
+    const int t = tid & 3;
     const int bh = blockIdx.y;
     const int b = bh / H;
     const int h = bh % H;
     const int q0 = blockIdx.x * BM;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
+    const Chunk ch(blockIdx.z, DH);
 
     const bf16* qb = q + b * qs.b + h * qs.h;
     const bf16* kb = k + b * ks.b + h * ks.h;
-    const bf16* vb = v + b * vs.b + h * vs.h + chunk * WIDE;
+    const bf16* vb = v + b * vs.b + h * vs.h;
 
-    const uint32_t q_tiles = mma::smem_addr(Qs);
-    const uint32_t k_tiles = mma::smem_addr(Ks);
-    const int ntiles = (NK + TC_BN - 1) / TC_BN;
-    const int total = ntiles * pieces;
-    auto load_piece = [&](int i) {
-        const int stage = i & 1, col = (i % pieces) * WIDE;
-        mma::load_tile_async<BM, WIDE, NT>(q_tiles + stage * WIDE_TILE * 2,
-                                           qb + col, qs.n, q0, NQ, tid);
-        mma::load_tile_async<TC_BN, WIDE, NT>(k_tiles + stage * WIDE_TILE * 2,
-                                              kb + col, ks.n,
-                                              (i / pieces) * TC_BN, NK, tid);
+    const int ntiles = (NK + KEYS - 1) / KEYS;
+    const int total = ntiles * ch.units;
+    auto load_unit = [&](int u) {
+        const int j = u / ch.units, p = u % ch.units;
+        const uint32_t slot = slots + (u & 1) * SLOT_BYTES;
+        if (p < ch.pieces) {
+            const int col = ch.piece_col(p);
+            wgmma::load_blocks<T>(slot, kb, ks.n, j * KEYS, NK, col, 2, tid);
+            for (int w = 0; w < WG; ++w)
+                wgmma::load_blocks<T>(slot + (2 + 2 * w) * BB, qb, qs.n, q0 + KEYS * w, NQ,
+                                      col, 2, tid);
+            return;
+        }
+        wgmma::load_blocks<T>(slot, kb, ks.n, j * KEYS, NK, ch.c0, ch.nb, tid);
+        wgmma::load_blocks<T>(slot + 4 * BB, vb, vs.n, j * KEYS, NK, ch.c0, ch.nb, tid);
     };
-    load_piece(0);
+    for (int w = 0; w < WG; ++w)
+        wgmma::load_blocks<T>(own + 4 * w * BB, qb, qs.n, q0 + KEYS * w, NQ, ch.c0, ch.nb, tid);
+    load_unit(0);
     mma::cp_async_commit();
 
-    float m[1][2] = {{NEG_INF, NEG_INF}}, l[1][2] = {{0.f, 0.f}};
-    float o[1][ND][4];
+    // rows r0 (index 0) and r0 + 8 (index 1) of the warpgroup; l: this
+    // lane's share of the row sum; pa: P of the tile as the A operand of
+    // P V, one k16 step of keys a row
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[32][4], s[8][4];
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int i = 0; i < 32; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[0][nd][e] = 0.f;
+        for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
 
-    const uint32_t q_lane = mma::smem_addr(Qs + warp * 16 * LD) + mma::a_offset(lane, LD);
-    const uint32_t k_lane = k_tiles + mma::b_offset(lane, LD);
-    const uint32_t v_lane = mma::smem_addr(Vs) + mma::a_offset(lane, LD);
-
-    for (int j = 0; j < ntiles; ++j) {
-        const int k0 = j * TC_BN;
-        float s[1][8][4];
-#pragma unroll
-        for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[0][jn][e] = 0.f;
-
-        for (int c = 0; c < pieces; ++c) {
-            const int i = j * pieces + c;
-            const int stage = i & 1;
-            // piece i (and, at c == 1, this tile's V) has landed; the
-            // barrier publishes it and frees the other stage (piece i - 1)
-            // and, at c == 0, the V of the last tile
-            mma::cp_async_wait<0>();
-            mma::scale_own_chunks<BM, WIDE, NT>(Qs + stage * WIDE_TILE, scale, tid);
-            __syncthreads();
-            if (i + 1 < total) load_piece(i + 1);
-            if (c == 0)
-                mma::load_tile_async<TC_BN, WIDE, NT>(mma::smem_addr(Vs), vb, vs.n,
-                                                      k0, NK, tid);
+    const uint32_t own_q = own + 4 * wg * BB;
+    // Both loops run at least once (NK >= 1; a tile ends with its chunk):
+    // a path around one would carry the accumulator, or its zeros, past a
+    // wait on P V without a product, and ptxas would serialize the products.
+    int u = 0;  // slot of the stream: tile j, piece p
+    int j = 0;
+    do {
+        uint32_t slot;
+        int p = 0;
+        do {
+            const bool chunk_slot = p == ch.pieces;
+            slot = slots + (u & 1) * SLOT_BYTES;
+            mma::cp_async_wait<0>();  // slot u (and on the first pass q') landed
+            if (u == 0)
+                for (int w = 0; w < WG; ++w)
+                    wgmma::scale_blocks<T>(base + 4 * w * BB, ch.nb, scale, tid);
+            if (!chunk_slot)
+                for (int w = 0; w < WG; ++w)
+                    wgmma::scale_blocks<T>(base + (slot - own) + (2 + 2 * w) * BB, 2, scale,
+                                           tid);
+            wgmma::wait<0>();  // the last tile's P V, which reads slot u - 1
+            wgmma::fence_operand(o);
+            wgmma::fence_operand(pa);
+            wgmma::fence_proxy_async();
+            __syncthreads();  // ... for all; slot u - 1's readers are done
+            // S (+)= q' K^T over the chunk's columns (own q', the tile's K)
+            // or a piece's (both from the slot); slot u + 1 is copied into
+            // slot u - 1 while the products run
+            issue_logits(s, chunk_slot ? own_q : slot + (2 + 2 * wg) * BB, slot,
+                         chunk_slot ? ch.nb : 2, p == 0);
+            if (u + 1 < total) load_unit(u + 1);
             mma::cp_async_commit();
+            wgmma::wait<0>();
+            wgmma::fence_operand(s);
+            ++u;
+        } while (p++ < ch.pieces);
 
-            const uint32_t q_addr = q_lane + stage * WIDE_TILE * 2;
-            const uint32_t k_addr = k_lane + stage * WIDE_TILE * 2;
+        softmax(s, j * KEYS, NK, t, m, l, o, pa);
+        // O += P V over the chunk's columns (at a chunk 128 wide the upper
+        // half reads stale blocks of the slot into columns never stored)
+        wgmma::fence_operand(o);
+        wgmma::fence_operand(pa);
+        wgmma::fence();
 #pragma unroll
-            for (int kk = 0; kk < KD; ++kk) {
-                uint32_t qa[4];
-                mma::ldmatrix_x4(qa, q_addr + kk * 32);
-#pragma unroll
-                for (int nb = 0; nb < 4; ++nb) {
-                    uint32_t kf[4];
-                    mma::ldmatrix_x4(kf, k_addr + (nb * 16 * LD + kk * 16) * 2);
-                    mma::mma_bf16(s[0][2 * nb], qa, kf[0], kf[1]);
-                    mma::mma_bf16(s[0][2 * nb + 1], qa, kf[2], kf[3]);
-                }
-            }
-        }
+        for (int kk = 0; kk < 4; ++kk)
+            wgmma::m64n256k16_rs_mn(o, pa[kk],
+                                    wgmma::desc_mn(slot + 4 * BB + kk * 16 * 128));
+        wgmma::commit();  // waited for at the next slot, while its copies land
+    } while (++j < ntiles);
+    wgmma::wait<0>();
+    wgmma::fence_operand(o);
 
-        tc_softmax<1, ND>(s, k0, NK, t, m, l, o);
-        // the chunk's columns of V landed before the barrier of piece 1
-        tc_pv<1, KD, LD>(s, v_lane, o);
-    }
-
-    // out = acc / l, staged through the warp's own rows of q' stage 0 (only
-    // this warp reads them; every copy has landed), then 16-byte pieces of
-    // the chunk's columns
-    bf16* Qw = Qs + warp * 16 * LD;
-    const int row0 = q0 + warp * 16;
+    // out = o / l (one division a row, then products), staged through the
+    // slots (every product and copy is done), then 16-byte pieces of the
+    // chunk's columns; every valid row has seen a valid key, so l >= 1
+    __syncthreads();
+    bf16* st = reinterpret_cast<bf16*>(base + WG * 4 * BB);
+    const int row = KEYS * wg + r0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        float sum = l[0][r];
+        float sum = l[r];
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        bf16* orow = Qw + (g + 8 * r) * LD + 2 * t;
+        const float inv = 1.f / sum;
+        bf16* srow = st + (row + 8 * r) * STAGE_LD + 2 * t;
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd)
-            *reinterpret_cast<uint32_t*>(orow + nd * 8) =
-                mma::pack_bf16(o[0][nd][2 * r] / sum, o[0][nd][2 * r + 1] / sum);
-        const int n = row0 + g + 8 * r;
-        if (chunk == 0 && t == 0 && n < NQ)
-            lse[(long long)bh * NQ + n] = m[0][r] + logf(sum);
+        for (int jn = 0; jn < 32; ++jn)
+            *reinterpret_cast<uint32_t*>(srow + jn * 8) =
+                mma::pack_bf16(o[jn][2 * r] * inv, o[jn][2 * r + 1] * inv);
+        const int n = q0 + row + 8 * r;
+        if (ch.c0 == 0 && t == 0 && n < NQ)
+            lse[(long long)bh * NQ + n] = m[r] + logf(sum);
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * CPR; e += 32) {
-        const int r = e / CPR, c = e % CPR;
-        const int n = row0 + r;
+    __syncthreads();
+    const int cpr = ch.width / 8;
+    for (int e = tid; e < BM * cpr; e += T) {
+        const int r = e / cpr, c = e % cpr;
+        const int n = q0 + r;
         if (n < NQ)
-            *reinterpret_cast<uint4*>(out + (((long long)b * NQ + n) * H + h) * DH +
-                                      chunk * WIDE + c * 8) =
-                *reinterpret_cast<const uint4*>(&Qw[r * LD + c * 8]);
+            *reinterpret_cast<uint4*>(out + (((long long)b * NQ + n) * H + h) * DH + ch.c0 +
+                                      c * 8) =
+                *reinterpret_cast<const uint4*>(&st[r * STAGE_LD + c * 8]);
     }
 }
 
@@ -898,16 +1039,25 @@ int launch_tc(const Args& a) {
 }
 
 // Above 128 (a multiple of WIDE): a block per (tile of query rows, (batch,
-// head), chunk of WIDE output columns).
+// head), chunk of `chunk` output columns).
 template <typename Kernel, typename... KArgs>
-int launch_wide(Kernel kernel, size_t smem, int rows, int threads, const Args& a,
+int launch_wide(Kernel kernel, size_t smem, int rows, int threads, int chunk, const Args& a,
                 int Dh, KArgs... kargs) {
     if (int err = raise_smem_limit(kernel, smem)) return err;
     const dim3 grid((unsigned)((a.NQ + rows - 1) / rows), (unsigned)(a.B * a.H),
-                    (unsigned)(Dh / WIDE));
+                    (unsigned)((Dh + chunk - 1) / chunk));
     kernel<<<grid, threads, smem, a.stream>>>(kargs..., a.NQ, a.NK, a.H, Dh, a.qs,
                                               a.ks, a.vs, a.scale);
     return (int)cudaGetLastError();
+}
+
+// bfloat16 above 128: WG warpgroups of 64 query rows a block.
+template <int WG>
+int launch_wide_tc(const Args& a, int Dh) {
+    return launch_wide(flash_fwd_wide_tc_kernel<WG>, wide::smem_bytes<WG>(), 64 * WG,
+                       128 * WG, wide::CHUNK, a, Dh, static_cast<const bf16*>(a.q),
+                       static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+                       static_cast<bf16*>(a.out), a.lse);
 }
 
 bool wide_head_dim(int Dh) { return Dh > WIDE && Dh % WIDE == 0; }
@@ -922,7 +1072,7 @@ int dispatch_fma(int Dh, int tile, const Args& a) {
     }
     if (wide_head_dim(Dh))
         return launch_wide(flash_attn_fwd_wide_kernel<float>, flash_wide_smem_bytes(),
-                           BQ, NT, a, Dh, static_cast<const float*>(a.q),
+                           BQ, NT, WIDE, a, Dh, static_cast<const float*>(a.q),
                            static_cast<const float*>(a.k),
                            static_cast<const float*>(a.v),
                            static_cast<float*>(a.out), a.lse);
@@ -940,20 +1090,20 @@ int dispatch_tc_tile(int tile, const Args& a) {
     return (int)cudaErrorInvalidValue;
 }
 
-// bfloat16: the tensor-core kernel, `tile` query rows per block (64 above
-// Dh = 128).
+// bfloat16: the tensor-core kernel, `tile` query rows per block (64 or 128,
+// also above Dh = 128).
 int dispatch_tc(int Dh, int tile, const Args& a) {
     switch (Dh) {
         case 32: return dispatch_tc_tile<32>(tile, a);
         case 64: return dispatch_tc_tile<64>(tile, a);
         case 128: return dispatch_tc_tile<128>(tile, a);
     }
-    if (wide_head_dim(Dh) && tile == 64)
-        return launch_wide(flash_fwd_wide_tc_kernel, flash_wide_tc_smem_bytes(), 64,
-                           128, a, Dh, static_cast<const bf16*>(a.q),
-                           static_cast<const bf16*>(a.k),
-                           static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
-                           a.lse);
+    if (wide_head_dim(Dh)) {
+        switch (tile) {
+            case 64: return launch_wide_tc<1>(a, Dh);
+            case 128: return launch_wide_tc<2>(a, Dh);
+        }
+    }
     return (int)cudaErrorInvalidValue;
 }
 
@@ -964,9 +1114,9 @@ int dispatch_tc(int Dh, int tile, const Args& a) {
 // head) strides given in elements, last dimension contiguous; for bfloat16
 // every row start must be 16-byte aligned. out: contiguous (B, N, H, Dh) of
 // the input type. lse: contiguous fp32 (B*H, N). `tile` is the number of query
-// rows per block from the wrapper's launch plan: 64 or 128 for bfloat16, 64
-// for float32 and for any Dh above 128. Dh: 32, 64, 128 or a multiple of 128
-// (the wrapper zero-pads the others).
+// rows per block from the wrapper's launch plan: 64 or 128 for bfloat16 (at
+// any Dh), 64 for float32. Dh: 32, 64, 128 or a multiple of 128 (the wrapper
+// zero-pads the others).
 // The kernel is chosen by dtype, here: float32 runs the FMA kernel, bfloat16
 // the tensor-core kernel; neither stands in for the other. Returns the
 // cudaError_t of the launch (0 on success); launches on `stream`, does not

@@ -17,7 +17,7 @@
 //
 // Shared-memory tiles are rows of DH bf16 with a pitch of DH + 8 elements
 // (16 bytes of padding). The pitch in 16-byte chunks is then odd (5, 9, 17
-// for DH = 32, 64, 128 and for the 128-column pieces of a larger Dh), so the 8 rows that one ldmatrix phase reads fall
+// for DH = 32, 64, 128), so the 8 rows that one ldmatrix phase reads fall
 // into 8 distinct groups of 4 banks: no bank conflicts, for plain and for
 // transposed loads, without a swizzle.
 #pragma once

@@ -32,9 +32,12 @@ any multiple of ``COLUMN_CHUNK`` = 128 above that in column chunks: a block
 owns one chunk of output columns (a grid axis), computes the logits over
 all of Dh and accumulates P·V (dK, dV; dQ′) for its own columns only, so
 its accumulators fit the register file at any Dh; every chunk recomputes
-the logits. The forward and the float32 backward take chunks of 128; the
-bfloat16 backward chunks of ``BACKWARD_CHUNK`` = 256 (the last one 128 wide
-where Dh is an odd multiple of 128), two warpgroups of 128 columns a block.
+the logits. The float32 kernels take chunks of 128; the three bfloat16
+kernels chunks of ``BACKWARD_CHUNK`` = 256 (the last one 128 wide where Dh
+is an odd multiple of 128) on Hopper's warpgroup products: the forward a
+warpgroup of 64 query rows a chunk (one or two a block, ``launch_plan``),
+with q′ staged once and K and V streamed past it; the backward two
+warpgroups of 128 columns a block.
 ``flash_attention_column_chunks_reference`` and its two backward
 counterparts (``width``: the chunk) are that decomposition in plain
 PyTorch. Any other Dh is zero-padded up to the next size the kernels take
@@ -73,13 +76,13 @@ launches = _build.LaunchCounts("flash_attn_fwd", "flash_attn_bwd_dkv",
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)   # what the kernels run in one piece
 COLUMN_CHUNK = 128                     # above that: multiples of this, one chunk a block
-BACKWARD_CHUNK = 256                   # the bf16 backward's chunk (the last may be 128)
+BACKWARD_CHUNK = 256                   # the chunk of the three bf16 kernels (the last may be 128)
 MAX_GRID_YZ = 65535                    # blocks along grid y (B·H) and z (column chunks)
 MAX_HEAD_DIM = COLUMN_CHUNK * MAX_GRID_YZ
 
 SM_COUNT = 132                     # streaming multiprocessors of an H100
 MAX_SHARED_BYTES = 232448          # dynamic shared memory a block may ask for
-FORWARD_TILES = (128, 64)          # query rows per block of the bf16 forward: 4 warps of 32 or 16
+FORWARD_TILES = (128, 64)          # query rows per block of the bf16 forward
 DKV_TILE = 64                      # keys per block of the bf16 dkv: 4 warps of 16
 DQ_TILE = 64                       # query rows per block of the bf16 dq: 4 warps of 16
 INNER_TILE = 64                    # keys (forward, dq) or query rows (dkv) per inner step
@@ -92,7 +95,7 @@ class LaunchPlan(NamedTuple):
     warps: int         # warps per block
     blocks: int        # B·H·⌈N/tile⌉·chunks
     shared_bytes: int  # dynamic shared memory per block, as the source computes it
-    chunks: int = 1    # column chunks of COLUMN_CHUNK output columns (grid z), Dh > 128
+    chunks: int = 1    # column chunks of output columns (grid z), Dh > 128
 
 
 def runs_in_chunks(d: int) -> bool:
@@ -126,20 +129,27 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
     Dh + 4 and (64, 68) P (and, in dkv, dU) tiles.
 
-    Dh a multiple of 128 above 128: ``chunks`` blocks per tile (grid z),
-    64 rows or keys a block in both types. The forward and float32: Dh/128
-    chunks of 128 output columns. bfloat16 forward: two stages of
-    128-column pieces, pitch 136, 64 rows of q′ and 64 keys of K a stage,
-    plus V's chunk (4 warps). bfloat16 dkv and dq: ⌈Dh/256⌉ chunks of
-    ``BACKWARD_CHUNK`` columns (at Dh 384 the last is 128 wide), 8 warps
-    (two warpgroups of 128 columns); the block's own 64 rows of the chunk
-    (K and V, or q′ and dO: 64 KB), a ring of two 64 KB slots of the other
-    side's 64-row tiles (or of 128-column pieces of both sides outside the
-    chunk), the P and dU (dkv: 32 KB; dq: dU, 16 KB) bf16 hi and lo tiles,
-    in dkv two slots of lse and Δ (1 KB), and 1 KB to align the 128-byte
-    swizzle: one block an SM. float32: the Dh = 128 kernels' tiles (pitch
-    132), the forward holding one piece of q′ and of K (V's chunk goes into
-    K's tile) beside P.
+    Dh a multiple of 128 above 128: ``chunks`` blocks per tile (grid z).
+    float32: Dh/128 chunks of 128 output columns, 64 rows or keys a block,
+    the Dh = 128 kernels' tiles (pitch 132), the forward holding one piece
+    of q′ and of K (V's chunk goes into K's tile) beside P. bfloat16:
+    ⌈Dh/256⌉ chunks of ``BACKWARD_CHUNK`` columns (at Dh 384 the last is 128
+    wide) in 64-row blocks of 64 columns in the 128-byte swizzle, one block
+    an SM.
+    Forward: a warpgroup (4 warps) of 64 query rows a chunk; 64 rows a
+    block where those blocks (chunks counted) fit the card in one wave, else
+    128 (two warpgroups sharing each K and V tile): a block of 128 rows
+    took 1.2–1.3× the time of one of 64 on an H100, so at (2, 6400, 1, 256)
+    100 blocks of 128 beat 200 of 64 by 1.5×
+    (``scripts/probe_torch_flash_tiles.py``). Shared memory: the rows' q′
+    of the chunk (32 KB a warpgroup), a ring of two 64 KB slots of 64-key K
+    and V tiles (or of 128-column pieces of K and q outside the chunk), 1 KB
+    to align the swizzle. dkv and dq: 64 keys or query rows a block, 8
+    warps (two warpgroups of 128 columns); the block's own 64 rows of the
+    chunk (K and V, or q′ and dO: 64 KB), a ring of two 64 KB slots of the
+    other side's 64-row tiles (or of 128-column pieces of both sides outside
+    the chunk), the P and dU (dkv: 32 KB; dq: dU, 16 KB) bf16 hi and lo
+    tiles, in dkv two slots of lse and Δ (1 KB), and the 1 KB of alignment.
     """
     if kernel not in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         raise ValueError(f"no launch plan for {kernel!r}")
@@ -178,28 +188,30 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
 def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
                   dtype: torch.dtype) -> LaunchPlan:
     """``launch_plan`` of the column-chunk kernels (Dh a multiple of 128)."""
-    chunks = d // COLUMN_CHUNK
-    width = COLUMN_CHUNK
+    tile = 64
     if dtype == torch.float32:
-        warps = 8
-        floats = {"flash_attn_fwd": 2 * 64 * (width + 4) + 64 * 68,
-                  "flash_attn_bwd_dkv": 4 * 64 * (width + 4) + 2 * 64 * 68,
-                  "flash_attn_bwd_dq": 4 * 64 * (width + 4) + 64 * 68}[kernel]
+        chunks, warps = d // COLUMN_CHUNK, 8
+        floats = {"flash_attn_fwd": 2 * 64 * (COLUMN_CHUNK + 4) + 64 * 68,
+                  "flash_attn_bwd_dkv": 4 * 64 * (COLUMN_CHUNK + 4) + 2 * 64 * 68,
+                  "flash_attn_bwd_dq": 4 * 64 * (COLUMN_CHUNK + 4) + 64 * 68}[kernel]
         shared = 4 * floats
-    elif dtype == torch.bfloat16 and kernel == "flash_attn_fwd":
-        warps = 4
-        shared = 2 * 5 * 64 * (width + 8)
     elif dtype == torch.bfloat16:
-        # csrc/flash_attention_bwd.cu, namespace wide: 64-row blocks of 64
-        # columns (8 KB); own rows and each slot 8 blocks, P and dU tiles
+        # csrc/flash_attention_{fwd,bwd}.cu, namespace wide: 64-row blocks of
+        # 64 columns (8 KB); a slot and the backward's own rows 8 blocks
         chunks = -(-d // BACKWARD_CHUNK)
-        warps = 8
         block = 64 * 64 * 2
-        tiles = 4 * block + 2 * 2 * 64 * 4 if kernel == "flash_attn_bwd_dkv" else 2 * block
-        shared = 1024 + 8 * block + 2 * 8 * block + tiles
+        if kernel == "flash_attn_fwd":
+            big, small = FORWARD_TILES
+            tile = small if b * h * -(-n // small) * chunks <= SM_COUNT else big
+            warps = tile // 16
+            shared = 1024 + tile // 64 * 4 * block + 2 * 8 * block
+        else:
+            warps = 8
+            tiles = 4 * block + 2 * 2 * 64 * 4 if kernel == "flash_attn_bwd_dkv" else 2 * block
+            shared = 1024 + 8 * block + 2 * 8 * block + tiles
     else:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
-    return LaunchPlan(64, warps, b * h * -(-n // 64) * chunks, shared, chunks)
+    return LaunchPlan(tile, warps, b * h * -(-n // tile) * chunks, shared, chunks)
 
 
 def _misalignment(t: torch.Tensor) -> Optional[str]:
@@ -348,22 +360,24 @@ def _column_chunks(d: int, width: int = COLUMN_CHUNK):
 
 def flash_attention_column_chunks_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    width: int = BACKWARD_CHUNK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The column-chunk forward in plain PyTorch: ``(out, lse)``.
 
-    For each chunk of ``COLUMN_CHUNK`` output columns, as a block of the
-    kernel does: the logits over all of Dh, summed piece by piece; max, the
-    probabilities (rounded to the input dtype for the product, the row sum
-    unrounded) and P·V over that chunk's columns of V only; lse from the
-    first chunk. Rounds where ``flash_attention_reference`` rounds.
+    For each chunk of ``width`` output columns (the last may be narrower),
+    as a block of the kernel does: the logits over all of Dh, summed piece
+    by piece; max, the probabilities (rounded to the input dtype for the
+    product, the row sum unrounded) and P·V over that chunk's columns of V
+    only; lse from the first chunk. Rounds where
+    ``flash_attention_reference`` rounds.
     """
     b, n, h, d = q.shape
     scale = d ** -0.5 if scale is None else scale
     qs = (q.float() * scale).to(q.dtype).float()
     kf, vf = k.float(), v.float()
     outs, lse = [], None
-    for cols in _column_chunks(d):
-        s = _piecewise_logits(qs, kf)
+    for cols in _column_chunks(d, width):
+        s = _piecewise_logits(qs, kf, width)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)

@@ -12,10 +12,13 @@ the two trees alternately (parent, change, change, parent, …), one process
 each. Times: CUDA events around single calls after a spin kernel, 3 warm-up
 calls, the median of 25 calls (7 at N = 51 200 and at (8, 6400, 1, 256)), at
 the flagship's shapes (8, 800, 4, 128) and (2, 800, 4, 128), at N = 51 200
-with Dh 32 and at (1, 1000, 2, 32), and at the head dims above 128 of the
-flagship with 1 or 2 heads: (8, 6400, 1, 256) (level 1 at 1 head),
-(8, 800, 2, 256), (8, 800, 1, 512) and its sequence-parallel half, q of 400
-rows against 800 keys. It prints the card's name and power limit, then one
+with Dh 32 and at (1, 1000, 2, 32), and at every head dim above 128 of
+``chip_smoke.py``'s ``FLASH_LARGE_DH`` and ``FLASH_LARGE_DH_CHUNK``: the
+flagship with 1 or 2 heads, (8, 6400, 1, 256) and (2, 6400, 1, 256) (level 1
+at 1 head, training and generating), (8, 800, 2, 256), (2, 800, 2, 256),
+(8, 800, 1, 512) and its sequence-parallel half (q of 400 rows against 800
+keys), 1024 columns, and Dh 192 and 320 (zero-padded to 256 and 384 by the
+wrappers). It prints the card's name and power limit, then one
 JSON line: per shape (q shape, then "of" the key count where it differs), the
 ms of ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq``.
 """
@@ -34,8 +37,11 @@ import torch
 # (B, N, H, Dh), repeats, query rows (None: N)
 SHAPES = (((1, 51200, 4, 32), 7, None), ((8, 800, 4, 128), 25, None),
           ((2, 800, 4, 128), 25, None), ((1, 1000, 2, 32), 25, None),
-          ((8, 6400, 1, 256), 7, None), ((8, 800, 2, 256), 25, None),
-          ((8, 800, 1, 512), 25, None), ((8, 800, 1, 512), 25, 400))
+          ((8, 6400, 1, 256), 7, None), ((2, 6400, 1, 256), 25, None),
+          ((8, 800, 2, 256), 25, None), ((2, 800, 2, 256), 25, None),
+          ((8, 800, 1, 512), 25, None), ((8, 800, 1, 512), 25, 400),
+          ((2, 800, 1, 1024), 25, None), ((2, 130, 1, 192), 25, None),
+          ((1, 64, 1, 320), 25, None))
 
 
 def time_ms(fn, repeats):

@@ -66,17 +66,18 @@ def variant_source(text, cuts):
     return text
 
 
-def build(name, text):
-    """Compile one variant beside copies of the headers; returns its path and log."""
-    d = OUT / name
+def build(name, text, source="flash_attention_bwd", out=OUT):
+    """Compile one variant of ``csrc/<source>.cu`` into ``out/name`` beside
+    copies of the headers; returns the library's path and the nvcc process."""
+    d = out / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     for header in _build.CSRC_DIR.glob("*.cuh"):
         shutil.copy(header, d)
-    (d / "flash_attention_bwd.cu").write_text(text)
-    lib = d / "libflash_attention_bwd.so"
+    (d / f"{source}.cu").write_text(text)
+    lib = d / f"lib{source}.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib),
-           str(d / "flash_attention_bwd.cu")]
+           str(d / f"{source}.cu")]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

@@ -2,12 +2,11 @@
 3840 channels.
 
 Above 128 the CUDA kernels take Dh in column chunks: a block owns a chunk of
-output columns (128 in the forward and in float32, 256 in the bf16 backward),
-computes the logits over all of Dh and accumulates its own columns only; the
-wrappers zero-pad any other Dh to the next multiple of 128
-(``kernel_head_dim``). Here the plain versions of that decomposition
-(``*_column_chunks_reference``, the backward at chunk widths 128 and 256) go
-through the wrappers' own
+output columns (128 in float32, 256 in the three bf16 kernels), computes the
+logits over all of Dh and accumulates its own columns only; the wrappers
+zero-pad any other Dh to the next multiple of 128 (``kernel_head_dim``). Here
+the plain versions of that decomposition (``*_column_chunks_reference`` at
+chunk widths 128 and 256) go through the wrappers' own
 pad, scale and cut (``at_kernel_head_dim``) on CPU tensors, and are held
 against the JAX package's attention — the plain ``multi_head_self_attention``,
 the chunked ``_chunked_attention_xla`` and the Pallas kernel in TPU interpret
@@ -16,6 +15,8 @@ head of 256 is held against the JAX UNet3D on the same carried weights. The
 kernels themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -57,9 +58,10 @@ def _close(got, want, name=""):
 
 def _chunked_backward(q, k, v, dout, width=fa.BACKWARD_CHUNK):
     """(out, lse, dq, dk, dv) through the wrappers' pad, scale and cut, with
-    the plain column-chunk versions where the card launches the kernels; the
-    backward in chunks of ``width`` columns."""
-    out, lse = fa.at_kernel_head_dim(fa.flash_attention_column_chunks_reference, q, k, v)
+    the plain column-chunk versions where the card launches the kernels, in
+    chunks of ``width`` columns."""
+    out, lse = fa.at_kernel_head_dim(
+        functools.partial(fa.flash_attention_column_chunks_reference, width=width), q, k, v)
     delta = fa.flash_attention_delta(out, dout)
     dk, dv = fa.at_kernel_head_dim(
         lambda *t: fa.flash_attn_bwd_dkv_column_chunks_reference(*t[:4], lse, delta,
@@ -83,8 +85,7 @@ def _jax_attentions():
             "pallas": _pallas}
 
 
-# the bf16 backward's chunk of 256 (ids as before), and the 128 of the
-# forward and of float32
+# the bf16 kernels' chunk of 256 (ids as before), and the 128 of float32
 CHUNK_CASES = ([pytest.param(d, fa.BACKWARD_CHUNK, id=str(d)) for d in LARGE_DH]
                + [pytest.param(d, 128, id=f"{d}-width128") for d in LARGE_DH])
 
@@ -92,8 +93,8 @@ CHUNK_CASES = ([pytest.param(d, fa.BACKWARD_CHUNK, id=str(d)) for d in LARGE_DH]
 @pytest.mark.parametrize("d,width", CHUNK_CASES)
 def test_column_chunks_match_jax_attention_and_pallas(d, width):
     """out, lse and the VJP (dq, dk, dv) of the wrappers' route with the
-    column-chunk plain versions (the backward in chunks of ``width``), against
-    each JAX attention's output and VJP."""
+    column-chunk plain versions in chunks of ``width``, against each JAX
+    attention's output and VJP."""
     q, k, v, dout = _arrays(SHAPE, d, seed=d)
     out, lse, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)),
                                              width=width)
@@ -113,8 +114,8 @@ def test_column_chunks_match_jax_attention_and_pallas(d, width):
 
 def test_column_chunks_at_nq_ne_nk_match_jax():
     """A block of 24 query rows against 40 keys at Dh 320 (zero-padded to
-    384: three forward chunks of 128; backward chunks of 256 and 128, and
-    three of 128): the sequence-parallel chunk. The JAX reference is its
+    384: chunks of 256 and 128, and three of 128): the sequence-parallel
+    chunk. The JAX reference is its
     plain attention on the same rows, whose logits and softmax do not need
     Nq = Nk."""
     d, nk, nq = 320, 40, 24
@@ -126,7 +127,7 @@ def test_column_chunks_at_nq_ne_nk_match_jax():
     for width in (fa.BACKWARD_CHUNK, 128):
         out, _, dq, dk, dv = _chunked_backward(*(torch.from_numpy(a) for a in (q, k, v, dout)),
                                                width=width)
-        _close(out.numpy(), want, "out")
+        _close(out.numpy(), want, f"out width {width}")
         for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), wants):
             _close(got.numpy(), w, f"{name} width {width}")
 
@@ -136,17 +137,24 @@ def test_column_chunks_at_nq_ne_nk_match_jax():
 # dU), and in dkv two slots of lse and delta
 BWD_WIDE_SHARED = {"flash_attn_bwd_dkv": 1024 + 3 * 65536 + 4 * 8192 + 1024,
                    "flash_attn_bwd_dq": 1024 + 3 * 65536 + 2 * 8192}
+# csrc/flash_attention_fwd.cu, namespace wide, by query rows a block: 1 KB of
+# alignment, q' of the chunk (32 KB a warpgroup of 64 rows), two 64 KB slots
+FWD_WIDE_SHARED = {64: 1024 + 32768 + 2 * 65536, 128: 1024 + 2 * 32768 + 2 * 65536}
 
 
 @pytest.mark.parametrize("d,kernel_d,chunks", [(129, 256, 2), (256, 256, 2), (320, 384, 3),
                                                (512, 512, 4), (1024, 1024, 8), (384, 384, 3),
                                                (640, 640, 5)])
 def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
-    """``kernel_head_dim`` rounds up to a multiple of 128. The forward and the
-    float32 backward have ``chunks`` = Dh/128 blocks along the column axis;
-    the bf16 backward ⌈Dh/256⌉ (the last 128 wide at an odd multiple of 128)
-    with 8 warps, one block an SM. 64 rows or keys a block, and shared
-    memory within what a block may ask for, the same at any Dh."""
+    """``kernel_head_dim`` rounds up to a multiple of 128. The float32
+    kernels have ``chunks`` = Dh/128 blocks along the column axis, 64 rows or
+    keys and 8 warps a block; the three bf16 kernels ⌈Dh/256⌉ (the last 128
+    wide at an odd multiple of 128), one block an SM: the backward 64 keys
+    or rows and 8 warps, the forward a warpgroup of 4 warps for every 64
+    query rows, 64 rows where the (8, 800, 1) launch then fits the card in
+    one wave (one chunk: Dh 256), else 128. Shared memory within what a
+    block may ask for, and the same at any Dh for a given kernel, type and
+    tile."""
     assert fa.kernel_head_dim(d) == kernel_d and fa.runs_in_chunks(kernel_d)
     wide_chunks = -(-kernel_d // fa.BACKWARD_CHUNK)
     assert wide_chunks * fa.BACKWARD_CHUNK - kernel_d == (128 if chunks % 2 else 0)
@@ -157,14 +165,41 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
             if dtype == torch.bfloat16 and kernel != "flash_attn_fwd":
                 want = (64, 8, wide_chunks)
                 assert plan.shared_bytes == BWD_WIDE_SHARED[kernel]
+            elif dtype == torch.bfloat16:
+                tile = 64 if 8 * -(-800 // 64) * wide_chunks <= fa.SM_COUNT else 128
+                assert tile == (64 if kernel_d == 256 else 128)
+                want = (tile, tile // 16, wide_chunks)
+                assert plan.shared_bytes == FWD_WIDE_SHARED[tile]
+            if dtype == torch.bfloat16:
                 assert 2 * plan.shared_bytes > fa.MAX_SHARED_BYTES
             assert (plan.tile, plan.warps, plan.chunks) == want
-            assert plan.blocks == 8 * 13 * plan.chunks
+            assert plan.blocks == 8 * -(-800 // plan.tile) * plan.chunks
             assert plan.shared_bytes <= fa.MAX_SHARED_BYTES
-            assert plan.shared_bytes == fa.launch_plan(kernel, 8, 800, 1, 256, dtype).shared_bytes
-    # the bf16 forward keeps two blocks an SM
-    assert 2 * fa.launch_plan("flash_attn_fwd", 8, 800, 1, kernel_d,
-                              torch.bfloat16).shared_bytes <= fa.MAX_SHARED_BYTES
+            if plan.tile == 64:
+                assert plan.shared_bytes == fa.launch_plan(kernel, 8, 800, 1, 256,
+                                                           dtype).shared_bytes
+
+
+@pytest.mark.parametrize("shape,tile,blocks", [
+    ((8, 6400, 1, 256), 128, 400),   # the 1-head flagship's level 1, training
+    ((2, 6400, 1, 256), 128, 100),   # the same, generating: 200 blocks of 64
+    ((8, 800, 2, 256), 128, 112),    # 208 of 64
+    ((8, 800, 1, 512), 128, 112),    # the bottleneck at 1 head, two chunks
+    ((2, 800, 1, 1024), 64, 104),    # one wave of 64-row blocks
+    ((2, 800, 2, 256), 64, 52),
+    ((32, 800, 1, 512), 128, 448),
+])
+def test_wide_forward_launch_plan_takes_64_rows_only_where_they_fit_one_wave(shape, tile,
+                                                                             blocks):
+    """The bf16 forward above Dh 128: a block of 128 query rows (two
+    warpgroups sharing each K and V tile) took about 1.1 times as long as
+    one of 64 on the card, so 64 rows only where B·H·⌈N/64⌉·chunks ≤ 132
+    blocks fill the card in one wave, else 128."""
+    b, n, h, d = shape
+    plan = fa.launch_plan("flash_attn_fwd", b, n, h, d, torch.bfloat16)
+    assert (plan.tile, plan.warps, plan.blocks) == (tile, tile // 16, blocks)
+    assert plan.chunks == -(-d // fa.BACKWARD_CHUNK)
+    assert plan.shared_bytes == FWD_WIDE_SHARED[tile]
 
 
 # ------------------------------------------------------------ UNet3D at 1 head

@@ -368,6 +368,71 @@ def test_wide_emulation_in_float32_is_the_column_chunk_reference():
                                    q, k, v, dout, lse, delta), atol=1e-5, rtol=1e-5)
 
 
+def _wide_forward_emulation(q, k, v, k_tile=64):
+    """``flash_fwd_wide_tc_kernel``'s arithmetic at Dh = 128·P: per chunk of
+    256 output columns (the last may be 128) and tile of 64 keys, S = q′·kᵀ
+    summed in fp32 over k16 steps in the kernel's column order (the pieces
+    outside the chunk, then the chunk); the online softmax in base 2, P =
+    2^(S·log2e − m·log2e) with the row sum of the unrounded P; the
+    accumulator rescaled, then P rounded to the input dtype times the
+    chunk's columns of V added over the tile's k16 steps of keys; out =
+    acc / l, lse = m + log l from the first chunk."""
+    b, n, h, d = q.shape
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    q_prime = (q.float() * scale).to(q.dtype).float()
+    nk = k.shape[1]
+    outs, lse = [], None
+    for c0, width in _wide_chunks(d):
+        cols = slice(c0, c0 + width)
+        order = _wide_logit_order(d, c0, width)
+        m = torch.full((b, h, n, 1), -1e30)
+        l = torch.zeros(b, h, n, 1)
+        acc = torch.zeros(b, h, n, width)
+        for start in range(0, nk, k_tile):
+            keys = slice(start, min(start + k_tile, nk))
+            kf, vf = k[:, keys].float(), v[:, keys, :, cols].float()
+            s = _k16_sum("bnhd,bmhd->bhnm", q_prime, kf, order, 3)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * LOG2E)
+            p = torch.exp2(s * LOG2E - m_new * LOG2E)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            p = p.to(q.dtype).float()
+            acc = alpha * acc
+            for r in range(0, keys.stop - keys.start, 16):
+                acc = acc + torch.einsum("bhnm,bmhd->bhnd", p[..., r:r + 16], vf[:, r:r + 16])
+            m = m_new
+        outs.append(acc / l)
+        if lse is None:
+            lse = (m + torch.log(l)).reshape(b * h, n)
+    return torch.cat(outs, dim=-1).permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_forward_order_holds_out_and_lse_to_the_forward_bars(shape):
+    """The wide forward's order of sums — logits over k16 steps with the
+    columns outside the block's chunk first, P·V of the chunk over k16 steps
+    of 64-key tiles — keeps bf16 out within 2e-3 + 1e-2 relative and lse
+    within 1e-4 of the plain version, the card's bars, at Dh 256, 384
+    (chunks of 256 and 128) and 512, with a ragged last tile."""
+    q, k, v, *_ = _operands(shape, torch.bfloat16, seed=27)
+    out, lse = _wide_forward_emulation(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == ref_out.shape
+    torch.testing.assert_close(out, ref_out, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_forward_emulation_in_float32_is_the_column_chunk_reference(shape):
+    """With float32 inputs nothing is rounded: the emulation and the plain
+    column-chunk forward (chunks of 256) differ only in the order of their
+    fp32 sums."""
+    q, k, v, *_ = _operands(shape, torch.float32, seed=28)
+    want = fa.flash_attention_column_chunks_reference(q, k, v)
+    for g, w in zip(_wide_forward_emulation(q, k, v), want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
 def _forward_emulation(q, k, v, k_tile=64):
     """The forward kernel's arithmetic: online softmax over tiles of 64 keys,
     exponentials as 2^(s·log2e − m·log2e), the row sum from the unrounded P,
