@@ -12,7 +12,9 @@ What it does, in order:
    prints what ``ptxas`` says of the tensor-core kernels and how many ``HMMA``
    (``mma.sync``) and ``HGMMA`` (``wgmma``) instructions ``cuobjdump -sass``
    finds in the two flash-attention libraries and in each tensor-core kernel
-   (none is a failure, and so is a warpgroup kernel without ``HGMMA``);
+   (none is a failure, and so is a warpgroup kernel without ``HGMMA``; the
+   float32 backward kernel runs three TF32 passes on ``wgmma`` and is one),
+   with every warning ``ptxas`` gave (a serialized ``wgmma`` among them);
 2. calls each kernel's wrapper on CUDA tensors at the shapes the main path
    gives it (fp32 and bf16, plus ragged sizes) and holds the result against
    the kernel's plain PyTorch version on the same inputs;
@@ -20,7 +22,9 @@ What it does, in order:
    it — the one PyTorch call that computes the same function, with CUDA
    events (warm-up, then the median of ``REPEATS`` single calls, device time
    only), beside the least time the card could take (bytes / 3.35 TB/s or
-   flops / peak rate), and the host's time to issue one wrapper call; the
+   flops / peak rate; for the float32 backward kernels also at the 165
+   TFLOP/s of three TF32 passes on the tensor cores, ``*_bound_tc_ms``), and
+   the host's time to issue one wrapper call; the
    flash kernels also at N = 51 200 (4 heads of 32), with the rate of the
    exponentials beside the operations bound; GroupNorm+SiLU also weighted by
    its calls in one generate call; with ``--profile``, checks under
@@ -35,7 +39,8 @@ What it does, in order:
    launch counts set to 0 just before and read just after;
 6. checks 3 cached-latent training steps of a narrow float32 UNet on the card
    (kernels, forward and backward) against the same steps on the CPU (plain
-   versions);
+   versions), its launches counted in the ``kernels`` line
+   (``train_fp32_small``: the float32 backward kernels' training path);
 7. drives the training path at full width: the flagship ``UNet3D`` with
    float32 parameters and bf16 compute, min-SNR loss, Adam lr 1e-4, EMA 0.999,
    batch 8 of seeded latents (8, 32, 40, 40, 16) through
@@ -142,7 +147,9 @@ What it does, in order:
 17. drives the flash kernels' column-chunk route at full width
    (``large_head_path``): a small float32 UNet3D with 1 head and attention
    at level 1 (Dh 144 and 288) on the card against the CPU, generating and
-   training; then the flagship UNet3D at 1 head with ``attention_levels=(1,)``
+   training (those training launches in the ``kernels`` line as
+   ``large_head_train_fp32_small``); then the flagship UNet3D at 1 head with
+   ``attention_levels=(1,)``
    (Dh 512 at the bottleneck, N = 800; Dh 256 at level 1, N = 6400) through
    ``generate_3d_volumes`` (2 volumes, 20 DDIM steps, VAE3D decode) and 2 +
    5 cached-latent train steps at batch 8, launches exact; one forward of
@@ -152,7 +159,8 @@ What it does, in order:
 Phases 2 and 3 also hold the three flash kernels at head dims above 128
 (``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
 256 and 384; ``FLASH_LARGE_DH_CHUNK``: Nq ≠ Nk at Dh 512), which they take
-in column chunks (128 in float32, 256 in the three bf16 warpgroup kernels),
+in column chunks (128 in the float32 forward, 256 in the float32 backward
+and the three bf16 warpgroup kernels, 128 at an odd multiple of 128),
 against their plain versions at the bars of Dh 128, one launch a wrapper
 call, two launches of each kernel bitwise equal, and time them beside the
 plain versions, ``F.scaled_dot_product_attention`` and the bound at the true
@@ -317,6 +325,9 @@ SPIN_CYCLES = 2_000_000   # ~1 ms of spinning: longer than the host needs to iss
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 outside tensor cores
+# fp32-grade products on the tensor cores: three TF32 passes (hi.hi + hi.lo +
+# lo.hi) at the 495 TFLOP/s of one: the float32 backward kernels' arithmetic
+TF32X3_FLOPS = 495e12 / 3
 EXP_PER_S = 132 * 16 * 1.98e9   # special-function units: 16 ex2 a clock on each of 132 SMs at the 1.98 GHz boost clock
 LONG_REPEATS = 5                # timed calls at N = 51 200
 
@@ -678,7 +689,8 @@ def compare_flash_backward(rng):
     land up to two ulps apart (a CPU emulation of the kernel's arithmetic,
     ``tests/test_torch_flash_tensorcore.py``, shows it with dU exact to 24
     bits); a single bf16 rounding of dU is outside even that. The elements of
-    bf16 dq between the two bars are counted and printed.
+    bf16 dq between the two bars are counted and printed. At every shape a
+    second launch of each kernel must give the same bits.
     """
 
     worst = {name: {"float32": 0.0, "bfloat16": 0.0}
@@ -708,6 +720,10 @@ def compare_flash_backward(rng):
             ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta)
             e = check_dq(f"flash bwd {key} {shape} dq", dq, ref_dq, dtype)
             worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
+            again = (*fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+                     fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta))
+            if not all(torch.equal(a, b) for a, b in zip(again, (dk, dv, dq))):
+                raise AssertionError(f"flash bwd {key} {shape}: two launches of a kernel differ")
             # the differentiable front end to end: same kernels behind autograd
             qkv = torch.stack([q, k, v], dim=2).requires_grad_()
             got, = torch.autograd.grad(
@@ -728,7 +744,11 @@ def compare_flash_backward(rng):
         worst["flash_attn_bwd_dkv"][key] = max(worst["flash_attn_bwd_dkv"][key], e)
         e = check_dq(f"flash bwd {key} {FLASH_LONG} dq", dq, ref_dq, dtype)
         worst["flash_attn_bwd_dq"][key] = max(worst["flash_attn_bwd_dq"][key], e)
-        del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq
+        again = (*fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+                 fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta))
+        if not all(torch.equal(a, b) for a, b in zip(again, (dk, dv, dq))):
+            raise AssertionError(f"flash bwd {key} {FLASH_LONG}: two launches of a kernel differ")
+        del q, k, v, out, lse, dout, delta, dk, dv, dq, ref_dk, ref_dv, ref_dq, again
     # a reference of another build: autograd through the materialised
     # attention, which shares no code with the plain backward (float32, 1e-4)
     qkv = torch.stack(flash_inputs(rng, FLASH_MAIN, torch.float32), dim=2).requires_grad_()
@@ -739,7 +759,8 @@ def compare_flash_backward(rng):
     independent = check_close(f"flash autograd vs materialised attention {FLASH_MAIN}",
                               got, want, atol=1e-4)
     torch.cuda.synchronize()
-    print(f"compare flash backward: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok, "
+    print(f"compare flash backward: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok "
+          f"and bitwise from launch to launch, "
           f"max abs err {json.dumps(worst)}; against autograd through the materialised "
           f"attention {independent:.3e}")
     print("flash_dq_bf16_beyond_one_ulp " + json.dumps(beyond_one_ulp))
@@ -1029,7 +1050,9 @@ def time_flash_small_dh(rng):
                             f"{name}_padded_kernel_ms": time_ms(padded),
                             f"{name}_plain_ms": time_ms(ref),
                             f"{name}_bound_ms": max(t_flops, t_mem),
-                            f"{name}_bound_by": "operations" if t_flops >= t_mem else "bytes"})
+                            f"{name}_bound_by": "operations" if t_flops >= t_mem else "bytes",
+                            **tensor_core_bound(name, products * 2 * b * h * n * n * d, t_mem,
+                                                key)})
                 if lib is not None:
                     row[f"{name}_library_ms"] = lib
             rows.append(row)
@@ -1051,7 +1074,10 @@ def time_flash_large_dh(rng):
     block's warpgroups) and the bytes it copies from L2 into shared memory
     (``*_l2_bytes``), and for ``dkv`` and ``dq`` the time of the operations
     with P and dU entering as two bf16 terms, 1.5 and 4/3 times the
-    operations (``*_split_floor_ms``)."""
+    operations (``*_split_floor_ms``). float32 ``dkv`` and ``dq`` rows carry
+    the bound of fp32-grade products on the tensor cores as well
+    (``*_bound_tc_ms``) and the registers and spills of the instance that ran
+    (``*_ptxas``)."""
     rows = []
     ptxas = wide_ptxas()
     cases = [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK]
@@ -1103,9 +1129,14 @@ def time_flash_large_dh(rng):
                             f"{name}_plain_ms": time_ms(ref, repeats),
                             f"{name}_bound_ms": max(t_flops, t_bytes),
                             f"{name}_bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                            f"{name}_plan": flash_plan_note(kernel, (b, rows_of, h, kd), dtype)})
+                            f"{name}_plan": flash_plan_note(kernel, (b, rows_of, h, kd), dtype),
+                            **tensor_core_bound(name, products * 2 * b * h * nq * nk * d,
+                                                t_bytes, key)})
                 if lib is not None:
                     row[f"{name}_library_ms"] = lib
+            if dtype == torch.float32:
+                for name, dkv in (("dkv", True), ("dq", False)):
+                    row[f"{name}_ptxas"] = ptxas.get(f32_instance(dkv, kd))
             if dtype == torch.bfloat16:
                 tile = fa.launch_plan("flash_attn_fwd", b, nq, h, kd, dtype).tile
                 row["fwd_ptxas"] = ptxas.get(f"flash_fwd_wide_tc_kernel<{tile // 64}>")
@@ -1308,6 +1339,16 @@ def time_groupnorm_backward(rng):
     return rows
 
 
+def tensor_core_bound(name, flops, t_bytes, key):
+    """``{name}_bound_tc_ms`` of a float32 backward kernel: the larger of its
+    flops over the rate of fp32-grade products on the tensor cores
+    (``TF32X3_FLOPS``) and ``t_bytes`` ms, beside the CUDA-core bound that
+    ``PEAK_FLOPS`` gives; nothing for bf16 or the forward."""
+    if key != "float32" or name not in ("dkv", "dq"):
+        return {}
+    return {f"{name}_bound_tc_ms": max(flops / TF32X3_FLOPS * 1e3, t_bytes)}
+
+
 def flash_plan_note(kernel, shape, dtype):
     plan = fa.launch_plan(kernel, *shape, dtype)
     return {"tile": plan.tile, "warps": plan.warps, "blocks": plan.blocks,
@@ -1362,8 +1403,11 @@ def time_flash_backward(rng):
     three of dkv's four products and two of dq's three take float32 operands
     in the reference (p and dU are not rounded), so the bf16 rate is a bound
     that this arithmetic cannot reach: the tensor-core dkv issues 6 products'
-    worth of ``mma`` for those 4. At N = 51 200 the plain versions are not
-    timed and fewer calls are."""
+    worth of ``mma`` for those 4. float32: ``*_bound_ms`` at the 67 TFLOP/s of
+    the CUDA cores, ``*_bound_tc_ms`` at the 165 TFLOP/s of fp32-grade
+    products on the tensor cores (three TF32 passes, ``TF32X3_FLOPS``), the
+    kernels' arithmetic. At N = 51 200 the plain versions are not timed and
+    fewer calls are."""
 
     rows = []
     for shape, dtype, repeats in (
@@ -1401,6 +1445,7 @@ def time_flash_backward(rng):
                                      time_ms(lambda: ref(q, k, v, dout, lse, delta))),
                 f"{name}_bound_ms": max(t_flops, t_bytes),
                 f"{name}_bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                **tensor_core_bound(name, products * 2 * b * h * n * n * d, t_bytes, key),
                 f"{name}_host_issue_us": host_issue_us(
                     lambda: fn(q, k, v, dout, lse, delta), calls=3 if long else 200),
             })
@@ -1609,7 +1654,8 @@ def small_training_check():
     """3 cached-latent Adam steps of a narrow float32 UNet3D with attention
     and level-0 rematerialisation: on the card (forward and backward kernels)
     and on the CPU (plain versions), from the same weights, latents, timesteps
-    and noise. Tolerances: losses 1e-4 absolute (float32 sums in another
+    and noise. Returns the card run's launch counts (the float32 backward
+    kernels' training path). Tolerances: losses 1e-4 absolute (float32 sums in another
     order); final parameters 1e-3 relative L2 over all of them — Adam divides
     each gradient by its own running magnitude, so where a gradient is tiny a
     difference in its last digits becomes a difference of order lr."""
@@ -1639,6 +1685,8 @@ def small_training_check():
         counts = all_launch_counts()
         if device == "cuda" and min(counts.values()) == 0:
             raise AssertionError(f"small training run skipped a kernel: {counts}")
+        if device == "cuda":
+            card_counts = counts
         runs[device] = (torch.stack(losses).cpu(),
                         torch.cat([p.detach().flatten().cpu() for p in unet.parameters()]),
                         torch.cat([e.flatten().cpu() for e in state.ema_params.values()]))
@@ -1649,7 +1697,9 @@ def small_training_check():
     if not max(rel, rel_ema) < 1e-3:
         raise AssertionError(f"small training: parameters differ by {rel:.3e}, EMA by {rel_ema:.3e}")
     print(f"small training (fp32, 3 steps, card kernels vs CPU plain): max loss err "
-          f"{loss_err:.3e}, parameter rel-L2 {rel:.3e}, EMA rel-L2 {rel_ema:.3e} ok")
+          f"{loss_err:.3e}, parameter rel-L2 {rel:.3e}, EMA rel-L2 {rel_ema:.3e} ok, "
+          f"launches {json.dumps(card_counts)}")
+    return card_counts
 
 
 def build_flagship_trainer(remat_levels, mesh=None, sp_mesh=None, num_heads=4,
@@ -4297,6 +4347,8 @@ def small_large_head_check():
         if device == "cuda" and any(counts[k] != len(batches) * FLASH_PER_LARGE_HEAD_UNET
                                     for k in flash):
             raise AssertionError(f"small large-head training: launches {counts}")
+        if device == "cuda":
+            train_counts = counts
         runs[device] = (torch.stack(losses).cpu(),
                         torch.cat([p.detach().flatten().cpu() for p in model.parameters()]))
     (loss_g, par_g), (loss_c, par_c) = runs["cuda"], runs["cpu"]
@@ -4306,7 +4358,7 @@ def small_large_head_check():
     if not rel < 1e-3:
         raise AssertionError(f"small large-head training: parameters differ by {rel:.3e}")
     return {"generate_max_abs_err": gen_err, "train_loss_max_abs_err": loss_err,
-            "train_parameter_rel_l2": rel}
+            "train_parameter_rel_l2": rel, "train_launches": train_counts}
 
 
 def large_head_path(four_heads_generate, four_heads_train):
@@ -4430,7 +4482,8 @@ def large_head_path(four_heads_generate, four_heads_train):
     }
     print("large_head_path " + json.dumps(result))
     return {"large_head_generate": gen_counts, "large_head_two_heads_forward": two_counts,
-            "large_head_train": train_counts}
+            "large_head_train": train_counts,
+            "large_head_train_fp32_small": small["train_launches"]}
 
 
 def ptxas_rows(name):
@@ -4484,7 +4537,8 @@ def wide_forward_copy_bytes(b, nq, nk, h, d, tile):
 def wide_ptxas():
     """Registers and spill bytes of the three bf16 kernels above Dh 128, by
     kernel name (the forward's by its warpgroups a block, ``<1>`` and
-    ``<2>``)."""
+    ``<2>``), and of every instance of the float32 backward kernel
+    (``f32_instance``)."""
     names = {}
     for entry, regs, spilled in (ptxas_rows("flash_attention_fwd")
                                  + ptxas_rows("flash_attention_bwd")):
@@ -4492,16 +4546,38 @@ def wide_ptxas():
             name = f"flash_fwd_wide_tc_kernel<{m.group(1)}>"
         elif m := re.search(r"flash_bwd_d(?:kv|q)_wide_tc_kernel", entry):
             name = m.group(0)
+        elif m := F32_ENTRY.search(entry):
+            name = f32_name(*m.groups())
         else:
             continue
         names[name] = {"registers": regs, "spill_bytes": spilled}
     return names
 
 
+# flash_bwd_f32_kernel<DKV, DH, CW> in a mangled entry name
+F32_ENTRY = re.compile(r"flash_bwd_f32_kernelILb(\d)ELi(\d+)ELi(\d+)E")
+
+
+def f32_name(dkv, dh, cw):
+    dh = ">= 384" if dh == "0" else dh
+    return f"flash_bwd_f32_kernel<{'dkv' if dkv == '1' else 'dq'}, Dh {dh}, chunk {cw}>"
+
+
+def f32_instance(dkv, kd):
+    """The float32 backward instance that runs at kernel head dim ``kd``
+    (``csrc/flash_attention_bwd.cu::dispatch_f32``)."""
+    dh, cw = (kd, kd) if kd <= 256 else (0, 256 if kd % 256 == 0 else 128)
+    return f32_name("1" if dkv else "0", str(dh), str(cw))
+
+
 def report_ptxas(name):
     """Registers and spills of one library's kernels as ``ptxas -v`` printed
-    them: the worst over all, and a line for every tensor-core kernel."""
+    them: the worst over all, a line for every tensor-core kernel, and every
+    warning (a serialized ``wgmma`` among them)."""
     rows = ptxas_rows(name)
+    for line in _build.build_log(name).splitlines():
+        if "warning" in line.lower():
+            print(f"  {name}: {line.strip()}")
     print(f"  ptxas {name}: {len(rows)} kernels, at most "
           f"{max((r[1] for r in rows), default=0)} registers, at most "
           f"{max((r[2] for r in rows), default=0)} bytes spilled")
@@ -4511,6 +4587,9 @@ def report_ptxas(name):
             params = ", ".join(f"{label}={value}" for label, value in
                                zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
             print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
+        elif m := F32_ENTRY.search(entry):
+            print(f"    {f32_name(*m.groups())} (three TF32 passes, wgmma): {regs} registers, "
+                  f"{spilled} bytes spilled")
         elif m := re.search(r"\d(flash_[a-z_]*wide[a-z_]*_kernel)", entry):
             chunks = "256-column chunks, wgmma" if "tc" in m.group(1) else "128-column chunks"
             if wgs := re.search(r"wide_tc_kernelILi(\d)E", entry):
@@ -4520,7 +4599,7 @@ def report_ptxas(name):
 
 
 WGMMA_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_bwd_dkv_wide_tc_kernel",
-                 "flash_bwd_dq_wide_tc_kernel")
+                 "flash_bwd_dq_wide_tc_kernel", "flash_bwd_f32_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                        "flash_bwd_dq_tc_kernel") + WGMMA_KERNELS
 
@@ -4568,13 +4647,16 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     not compiled for (``small_head_dims``: padded to ``kernel_head_dim``,
     max abs error by dtype and the times of ``time_flash_small_dh``) and the
     head dims above 128 (``large_head_dims``: run in column chunks, max abs
-    error by dtype and the times of ``time_flash_large_dh``);
+    error by dtype and the times of ``time_flash_large_dh``); the two backward
+    kernels their float32 times at the training batch (``float32``, with the
+    tensor-core bound of three TF32 passes beside the CUDA-core one);
     ``gn_silu_stats`` and ``gn_silu_apply`` their times at 4096 and 8192
     channels (``wide_channels``)."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
     bw = bwd_rows[0]
+    bw32 = next(r for r in bwd_rows if r["dtype"] == "float32")
     src_gn = "mrijax_torch/csrc/groupnorm_silu.cu"
     src_bwd = "mrijax_torch/csrc/flash_attention_bwd.cu"
 
@@ -4609,8 +4691,18 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
                        "kernel_head_dim": r["kernel_head_dim"], "ms": r[f"{prefix}_ms"],
                        "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"],
                        "bound_by": r[f"{prefix}_bound_by"],
+                       "bound_tc_ms": r.get(f"{prefix}_bound_tc_ms"),
                        "library_ms": r.get(f"{prefix}_library_ms", r["library_backward_ms"])}
                       for r in large_rows]}}
+
+    def float32(prefix):
+        # the float32 kernel at the training batch: bound_ms at the CUDA
+        # cores' rate, bound_tc_ms at that of three TF32 passes
+        return {"float32": {
+            "shape": bw32["shape"], "ms": bw32[f"{prefix}_ms"],
+            "plain_ms": bw32[f"{prefix}_plain_ms"], "library_ms": bw32["library_ms"],
+            "bound_ms": bw32[f"{prefix}_bound_ms"], "bound_tc_ms": bw32[f"{prefix}_bound_tc_ms"],
+            "bound_by": bw32[f"{prefix}_bound_by"]}}
 
     def wide(prefix, library):
         return {"wide_channels": [
@@ -4655,7 +4747,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "ms": bw["dkv_ms"], "plain_ms": bw["dkv_plain_ms"], "bound_ms": bw["dkv_bound_ms"],
          "bound_by": bw["dkv_bound_by"], "library_ms": bw["library_ms"],
          **chunks("flash_attn_bwd_dkv", "dkv"), **small("flash_attn_bwd_dkv", "dkv"),
-         **large("flash_attn_bwd_dkv", "dkv")},
+         **large("flash_attn_bwd_dkv", "dkv"), **float32("dkv")},
         {"name": "flash_attn_bwd_dq", "route": "cuda", "source": src_bwd,
          "replaces": "mrijax/kernels/flash_attention_pallas.py:358",
          **launches("flash_attn_bwd_dq"), "shape": bw["shape"], "dtype": bw["dtype"],
@@ -4664,7 +4756,7 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "ms": bw["dq_ms"], "plain_ms": bw["dq_plain_ms"], "bound_ms": bw["dq_bound_ms"],
          "bound_by": bw["dq_bound_by"], "library_ms": bw["library_ms"],
          **chunks("flash_attn_bwd_dq", "dq"), **small("flash_attn_bwd_dq", "dq"),
-         **large("flash_attn_bwd_dq", "dq")},
+         **large("flash_attn_bwd_dq", "dq"), **float32("dq")},
     ]
 
 
@@ -4732,7 +4824,7 @@ def main() -> int:
     del unet, vae
     torch.cuda.empty_cache()
 
-    small_training_check()
+    counts_fp32_train = small_training_check()
     train_counts, train_result = train_path()
     trainer_counts = trainer_path(train_result["no_remat"]["seconds_per_step"])
     if args.profile:
@@ -4758,7 +4850,8 @@ def main() -> int:
                       "train_no_remat": train_counts["no_remat"],
                       "train_remat_level0": train_counts["remat_level0"],
                       **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
-                      **counts_driver, **counts_entry, **counts_large_head}
+                      **counts_driver, **counts_entry, **counts_large_head,
+                      "train_fp32_small": counts_fp32_train}
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
         chunk_worst, chunk_rows, small_worst, small_rows, large_worst, large_rows,

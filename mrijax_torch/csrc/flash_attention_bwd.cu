@@ -13,9 +13,10 @@
 // No atomics anywhere: every output element is summed by one thread in a
 // fixed order, so results are identical from run to run.
 //
-// The notes below are of the kernels for Dh = 32, 64 and 128. Above 128 each
-// type has column-chunk kernels of its own: see "float32, Dh above 128" and
-// "bfloat16, Dh above 128" (warpgroup products, wgmma.cuh) further down.
+// The bfloat16 notes below are of the kernels for Dh = 32, 64 and 128; above
+// 128 bf16 has column-chunk kernels of its own ("bfloat16, Dh above 128",
+// warpgroup products, wgmma.cuh, further down). The float32 kernel (notes
+// after the bf16 ones) takes every head dim.
 //
 // flash_attn_bwd_dkv, bfloat16 -> flash_bwd_dkv_tc_kernel, on the tensor
 // cores (mma.sync.aligned.m16n8k16 fed by ldmatrix; see flash_attention_fwd.cu
@@ -78,25 +79,69 @@
 // * Shared memory q', dO and 2 stages of K and V, bf16 with pitch Dh + 8:
 //   104 KB at Dh = 128, two blocks per SM.
 //
-// flash_attn_bwd_dkv and flash_attn_bwd_dq, float32 -> fp32 FMAs from shared
-// memory (the TPU kernels run fp32 at Precision.HIGHEST):
-// * In dkv one block owns one (batch*head, tile of BK keys) and walks over
-//   the Q tiles, holding the dK and dV tiles in registers; in dq one block
-//   owns one (batch*head, tile of BQ queries) and walks over the KV tiles.
-// * Both share one device function for the (BQ, BK) piece of
-//   P = exp(q'k^T - lse) and dU = P o (dO v^T - delta): 256 threads as a
-//   16 x 16 grid, thread (ty, tx) owns rows ty + 16 i and keys tx + 16 j.
-// * P and dU stay fp32 for the products that consume them. The dQ epilogue
-//   rounds dQ' to the input type, multiplies by Dh^-1/2 in fp32 and rounds
-//   again, which is what the TPU wrapper's two casts do.
-// * For the two products whose summed index is the query row (dV, dK), P and
-//   dU are written to shared memory transposed, so that the inner loop reads
-//   four rows' worth with one float4.
-// * Tiles are fp32 in shared memory with row pitch Dh + 4 (float4 reads of 8
-//   neighbouring rows fall into distinct banks). At Dh = 128 dkv needs 166 KB
-//   and dq 149 KB of dynamic shared memory: one block per SM.
-// * All operands are read through (batch, token, head) strides; the ragged
-//   last tile is masked in the kernel (rows and keys beyond N give P = 0).
+// flash_attn_bwd_dkv and flash_attn_bwd_dq, float32 -> flash_bwd_f32_kernel
+// (namespace f32), one kernel for both, on Hopper's warpgroup products:
+// * What bounds it: operations. The TPU kernels run fp32 at
+//   Precision.HIGHEST (six bf16 passes on the matrix unit); here every
+//   product is three TF32 passes on wgmma (k = 8): x = hi + lo with hi = x
+//   truncated to TF32 (13 low mantissa bits cleared) and lo = x - hi, of
+//   which the tensor cores read the TF32 part (x to 2^-20), and A B = hi_a
+//   hi_b + hi_a lo_b + lo_a hi_b, the lo lo term (2^-20 relative) dropped.
+//   That is fp32-grade work at 495 / 3 = 165 TFLOP/s, against 67 on the CUDA
+//   cores. One TF32 pass (2^-10 relative) misses the 1e-4 bar dk, dv and dq
+//   are held to (tests/test_torch_flash_f32_tensorcore.py emulates both).
+//   On the card the integer and float work around the products (splitting
+//   fragments, their addresses, P and dU) weighs as much as the products:
+//   rounding hi and lo with cvt.rna.tf32 instead of a bit mask made both
+//   kernels about 20 % slower.
+// * For 32-bit types wgmma reads no operand transposed from shared memory:
+//   both must be K-major (the summed index along the row). So every product
+//   takes its A operand from registers, where a fragment can be read in any
+//   order, and its B operand from tiles written K-major by the threads that
+//   make them. The block owns OWN = 32 rows (keys in dkv, query rows in dq)
+//   and streams the other side in tiles of 64 rows (query rows, keys):
+//     logits  S = X1 O1^T, dP = X2 O2^T   (M: the tile's 64 rows, N: own 32)
+//     dkv     dV^T += dO^T P, dK^T += q'^T dU   (M: 64 columns of Dh)
+//     dq      dQ'^T += K^T dU^T               (M: 64 columns of Dh)
+//   with X1, X2 = q', dO (dkv) or K, V (dq) and O1, O2 = K, V or q', dO.
+//   The tile's rows come raw (cp.async, 4 bytes an element) and are split
+//   into tf32 terms in registers as each A fragment is read, rows for the
+//   logits, columns for the transposed products; the own rows are split once
+//   into hi and lo tiles (B of the logits), P and dU into hi and lo tiles
+//   [own][tile row] (B of the other products). Outputs are accumulated
+//   transposed (rows: columns of Dh) and written 8 bytes a thread.
+// * Two warpgroups: the first computes S, the second dP; they trade halves
+//   through shared memory and each makes P and dU of 16 own columns; then
+//   both accumulate, each its 64 columns of dV and dK or dQ' (at Dh 64 and
+//   32 one takes dV, the other dK). A tile slot is copied while the one
+//   before it is multiplied (a ring of two).
+// * Inside a group of 8 the summed index of a B tile is stored evens first
+//   (2i at i, 2i + 1 at 4 + i), the order in which the A fragment (k = t,
+//   t + 4) takes it, so a thread reads each A pair with one 8-byte load; the
+//   transposed fragments take columns 2g, 2g + 1 as rows g, g + 8 of the
+//   warp, so the results' columns are paired too. Shared tiles are rows of
+//   128 bytes (32 floats) in the 128-byte swizzle: no bank conflicts beyond
+//   two wavefronts a warp.
+// * Dh 32, 64, 128 in one piece: the own rows' terms (64 KB at 128) stay for
+//   the whole block, a slot holds the tile's two tensors (64 KB), the P and
+//   dU terms 32 KB (dq: dU's, 16 KB), dkv's lse and delta of two tiles 1 KB:
+//   226 KB (dq 209 KB), one block an SM. Above 128 (a multiple of 128) a
+//   tile comes in Dh / 64 units of 64 logit columns, then in units of the
+//   block's output columns for the transposed products. At Dh 256 the own
+//   rows' terms stay for the block (128 KB) and a unit carries the tile
+//   alone (32 KB: dkv's accumulating units 64 columns of both tensors, dq's
+//   128 of K). Above that the own rows' terms do not fit: a block owns a
+//   chunk of 256 output columns (grid z; 128 where Dh is an odd multiple of
+//   128), a logit unit carries the own rows' 64 columns too, split anew
+//   into one of two buffers, an accumulating unit 128 columns, and every
+//   chunk recomputes the logits (twice at Dh 512). Cutting each phase out
+//   in turn (scripts/probe_torch_flash_f32_bwd.py) shows them adding up:
+//   copies, logits, P and dU, products, none hidden behind another.
+// * P = 2^(S log2 e - lse log2 e) on the special-function unit (2^-22
+//   relative); rows or keys beyond N give P = 0. dq: dQ' times Dh^-1/2 in
+//   fp32 (the TPU wrapper's two casts are identities in
+//   fp32). No atomics: every output element is summed by one thread in a
+//   fixed order, so launches agree bit for bit.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -104,604 +149,9 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 256;   // threads per block
-constexpr int LDP = 64 + 4;  // pitch of the (64, 64) P / dU tiles
-
 struct Strides {
     long long b, n, h;  // in elements; the last dimension has stride 1
 };
-
-template <int DH>
-constexpr size_t dkv_smem_bytes() {
-    return sizeof(float) * (2 * BK * (DH + 4) + 2 * BQ * (DH + 4) + 2 * BK * LDP);
-}
-
-template <int DH>
-constexpr size_t dq_smem_bytes() {
-    return sizeof(float) * (2 * BK * (DH + 4) + 2 * BQ * (DH + 4) + BQ * LDP);
-}
-
-// 64 rows x DH of a (B, N, H, Dh) tensor, starting at token row0, into shared
-// memory as fp32 with pitch DH + 4; rows beyond N become zero. With SCALED the
-// values are multiplied by `scale` and rounded to T (the q' of the forward).
-template <typename T, int DH, bool SCALED>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          long long stride_n, int row0, int N,
-                                          float scale, int tid) {
-    constexpr int LD = DH + 4;
-    for (int e = tid; e < 64 * DH; e += NT) {
-        const int r = e / DH, d = e % DH;
-        const int n = row0 + r;
-        float x = 0.f;
-        if (n < N) {
-            x = to_float<T>(base[n * stride_n + d]);
-            if (SCALED) x = round_to<T>(x * scale);
-        }
-        dst[r * LD + d] = x;
-    }
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two tiles of
-// pitch DH + 4.
-template <int DH>
-__device__ __forceinline__ void tile_dot_add(const float* A, const float* B,
-                                             int tx, int ty,
-                                             float (&acc)[4][4]) {
-    constexpr int LD = DH + 4;
-#pragma unroll 2
-    for (int d = 0; d < DH; d += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + d]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            b[j] = *reinterpret_cast<const float4*>(&B[(tx + 16 * j) * LD + d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-                acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-                acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-                acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-            }
-    }
-}
-
-// The same from acc = 0.
-template <int DH>
-__device__ __forceinline__ void tile_dot_rows(const float* A, const float* B,
-                                              int tx, int ty,
-                                              float (&acc)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    tile_dot_add<DH>(A, B, tx, ty, acc);
-}
-
-// P = exp(S - lse) and dU = P o (dP - delta) in place, from the thread's
-// 4 x 4 pieces of S (in p) and dP (in du): query rows q0 + ty + 16 i, keys
-// k0 + tx + 16 j. Rows and keys beyond N give 0.
-__device__ __forceinline__ void finish_p_and_du(const float (&lse_r)[4],
-                                                const float (&delta_r)[4],
-                                                int q0, int k0, int NQ, int NK,
-                                                int tx, int ty, float (&p)[4][4],
-                                                float (&du)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const bool row_ok = q0 + ty + 16 * i < NQ;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const bool ok = row_ok && (k0 + tx + 16 * j < NK);
-            const float pv = ok ? expf(p[i][j] - lse_r[i]) : 0.f;
-            p[i][j] = pv;
-            du[i][j] = pv * (du[i][j] - delta_r[i]);
-        }
-    }
-}
-
-// The thread's 4 x 4 piece of P = exp(q'k^T - lse) and dU = P o (dO v^T -
-// delta): query rows q0 + ty + 16 i, keys k0 + tx + 16 j. Rows and keys
-// beyond N give 0.
-template <int DH>
-__device__ __forceinline__ void p_and_du(const float* Qs, const float* Ks,
-                                         const float* Vs, const float* dOs,
-                                         const float (&lse_r)[4],
-                                         const float (&delta_r)[4], int q0,
-                                         int k0, int NQ, int NK, int tx, int ty,
-                                         float (&p)[4][4], float (&du)[4][4]) {
-    tile_dot_rows<DH>(Qs, Ks, tx, ty, p);    // S
-    tile_dot_rows<DH>(dOs, Vs, tx, ty, du);  // dP
-    finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
-}
-
-// lse and delta of the thread's four query rows (0 beyond N).
-__device__ __forceinline__ void load_row_stats(const float* lse,
-                                               const float* delta,
-                                               long long row_base, int q0,
-                                               int N, int ty,
-                                               float (&lse_r)[4],
-                                               float (&delta_r)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = q0 + ty + 16 * i;
-        lse_r[i] = n < N ? lse[row_base + n] : 0.f;
-        delta_r[i] = n < N ? delta[row_base + n] : 0.f;
-    }
-}
-
-// CW consecutive floats from shared memory (CW is 4 or 2).
-template <int CW>
-__device__ __forceinline__ void load_cols(const float* src, float (&dst)[CW]) {
-    if constexpr (CW == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(src);
-        dst[0] = t.x;
-        dst[1] = t.y;
-        dst[2] = t.z;
-        dst[3] = t.w;
-    } else {
-        const float2 t = *reinterpret_cast<const float2*>(src);
-        dst[0] = t.x;
-        dst[1] = t.y;
-    }
-}
-
-// dV[key][d] += sum_row P[row][key] dO[row][d] and dK[key][d] += sum_row
-// dU[row][key] q'[row][d] for keys ty + 16 i, columns tx*CW + 16*CW*jj + w,
-// from the transposed P and dU tiles and q', dO tiles of pitch LD.
-template <int LD, int CW, int NJ>
-__device__ __forceinline__ void fma_dkv(const float* PT, const float* dUT,
-                                        const float* dOs, const float* Qs,
-                                        int tx, int ty,
-                                        float (&acc_dk)[4][NJ * CW],
-                                        float (&acc_dv)[4][NJ * CW]) {
-#pragma unroll 1
-    for (int rr = 0; rr < BQ; rr += 4) {
-        float pa[4][4], ua[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            load_cols<4>(&PT[(ty + 16 * i) * LDP + rr], pa[i]);
-            load_cols<4>(&dUT[(ty + 16 * i) * LDP + rr], ua[i]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int jj = 0; jj < NJ; ++jj) {
-                const int col = tx * CW + 16 * CW * jj;
-                float gv[CW], qv[CW];
-                load_cols<CW>(&dOs[(rr + u) * LD + col], gv);
-                load_cols<CW>(&Qs[(rr + u) * LD + col], qv);
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int w = 0; w < CW; ++w) {
-                        acc_dv[i][jj * CW + w] =
-                            fmaf(pa[i][u], gv[w], acc_dv[i][jj * CW + w]);
-                        acc_dk[i][jj * CW + w] =
-                            fmaf(ua[i][u], qv[w], acc_dk[i][jj * CW + w]);
-                    }
-            }
-        }
-    }
-}
-
-// dQ'[row][d] += sum_key dU[row][key] k[key][d] for rows ty + 16 i, columns
-// tx*CW + 16*CW*jj + w, from the dU tile and a K tile of pitch LD.
-template <int LD, int CW, int NJ>
-__device__ __forceinline__ void fma_dq(const float* dUs, const float* Ks, int tx,
-                                       int ty, float (&acc)[4][NJ * CW]) {
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-        float ua[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            load_cols<4>(&dUs[(ty + 16 * i) * LDP + kk], ua[i]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int jj = 0; jj < NJ; ++jj) {
-                float kv[CW];
-                load_cols<CW>(&Ks[(kk + u) * LD + tx * CW + 16 * CW * jj], kv);
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int w = 0; w < CW; ++w)
-                        acc[i][jj * CW + w] =
-                            fmaf(ua[i][u], kv[w], acc[i][jj * CW + w]);
-            }
-        }
-    }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, int NQ, int NK, int H, Strides qs,
-                          Strides ks, Strides vs, Strides gs, float scale) {
-    constexpr int LD = DH + 4;
-    // columns of Dh owned by a thread in the dK / dV tiles: NJ pieces of CW
-    constexpr int CW = DH >= 64 ? 4 : DH / 16;
-    constexpr int NJ = DH / (16 * CW);
-    constexpr int NC = NJ * CW;
-    static_assert(CW == 4 || CW == 2,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_bwd_dkv_wide_kernel)");
-    static_assert(NC * 16 == DH,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_bwd_dkv_wide_kernel)");
-
-    extern __shared__ __align__(16) float smem[];
-    float* Ks = smem;             // [BK][LD]
-    float* Vs = Ks + BK * LD;     // [BK][LD]
-    float* Qs = Vs + BK * LD;     // [BQ][LD]  q', fp32
-    float* dOs = Qs + BQ * LD;    // [BQ][LD]
-    float* PT = dOs + BQ * LD;    // [BK][LDP] P transposed: PT[key][row]
-    float* dUT = PT + BK * LDP;   // [BK][LDP] dU transposed
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int k0 = blockIdx.x * BK;
-    const long long row_base = (long long)bh * NQ;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h;
-    const T* gb = dout + b * gs.b + h * gs.h;
-
-    load_tile<T, DH, false>(Ks, kb, ks.n, k0, NK, 1.f, tid);
-    load_tile<T, DH, false>(Vs, vb, vs.n, k0, NK, 1.f, tid);
-
-    // the thread's piece of the dK and dV tiles: keys ty + 16 i, columns
-    // tx*CW + 16*CW*jj + w
-    float acc_dk[4][NC], acc_dv[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            acc_dk[i][c] = 0.f;
-            acc_dv[i][c] = 0.f;
-        }
-
-    for (int q0 = 0; q0 < NQ; q0 += BQ) {
-        // the previous tile's readers of Qs, dOs, PT and dUT are done
-        __syncthreads();
-        load_tile<T, DH, true>(Qs, qb, qs.n, q0, NQ, scale, tid);
-        load_tile<T, DH, false>(dOs, gb, gs.n, q0, NQ, 1.f, tid);
-        float lse_r[4], delta_r[4];
-        load_row_stats(lse, delta, row_base, q0, NQ, ty, lse_r, delta_r);
-        __syncthreads();
-
-        float p[4][4], du[4][4];
-        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                PT[(tx + 16 * j) * LDP + ty + 16 * i] = p[i][j];
-                dUT[(tx + 16 * j) * LDP + ty + 16 * i] = du[i][j];
-            }
-        __syncthreads();
-
-        fma_dkv<LD, CW, NJ>(PT, dUT, dOs, Qs, tx, ty, acc_dk, acc_dv);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = k0 + ty + 16 * i;
-        if (n >= NK) continue;
-        const long long row = (((long long)b * NK + n) * H + h) * DH;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                dk[row + col] = from_float<T>(acc_dk[i][jj * CW + w]);
-                dv[row + col] = from_float<T>(acc_dv[i][jj * CW + w]);
-            }
-    }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq,
-                         int NQ, int NK, int H, Strides qs, Strides ks, Strides vs,
-                         Strides gs, float scale) {
-    constexpr int LD = DH + 4;
-    constexpr int CW = DH >= 64 ? 4 : DH / 16;
-    constexpr int NJ = DH / (16 * CW);
-    constexpr int NC = NJ * CW;
-    static_assert(CW == 4 || CW == 2,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_bwd_dq_wide_kernel)");
-    static_assert(NC * 16 == DH,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_bwd_dq_wide_kernel)");
-
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;             // [BQ][LD]  q', fp32
-    float* dOs = Qs + BQ * LD;    // [BQ][LD]
-    float* Ks = dOs + BQ * LD;    // [BK][LD]
-    float* Vs = Ks + BK * LD;     // [BK][LD]
-    float* dUs = Vs + BK * LD;    // [BQ][LDP] dU[row][key]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int q0 = blockIdx.x * BQ;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h;
-    const T* gb = dout + b * gs.b + h * gs.h;
-
-    load_tile<T, DH, true>(Qs, qb, qs.n, q0, NQ, scale, tid);
-    load_tile<T, DH, false>(dOs, gb, gs.n, q0, NQ, 1.f, tid);
-    float lse_r[4], delta_r[4];
-    load_row_stats(lse, delta, (long long)bh * NQ, q0, NQ, ty, lse_r, delta_r);
-
-    // the thread's piece of the dQ' tile: rows ty + 16 i, columns
-    // tx*CW + 16*CW*jj + w
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-    for (int k0 = 0; k0 < NK; k0 += BK) {
-        // the previous tile's readers are done (first pass: nothing to wait for)
-        __syncthreads();
-        load_tile<T, DH, false>(Ks, kb, ks.n, k0, NK, 1.f, tid);
-        load_tile<T, DH, false>(Vs, vb, vs.n, k0, NK, 1.f, tid);
-        __syncthreads();
-
-        float p[4][4], du[4][4];
-        p_and_du<DH>(Qs, Ks, Vs, dOs, lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                dUs[(ty + 16 * i) * LDP + tx + 16 * j] = du[i][j];
-        __syncthreads();
-
-        fma_dq<LD, CW, NJ>(dUs, Ks, tx, ty, acc);
-    }
-
-    // dQ = Dh^-1/2 * dQ': dQ' is rounded to the input type, scaled in fp32 and
-    // rounded again, as the TPU wrapper's two casts do.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = q0 + ty + 16 * i;
-        if (n >= NQ) continue;
-        const long long row = (((long long)b * NQ + n) * H + h) * DH;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                dq[row + col] =
-                    from_float<T>(round_to<T>(acc[i][jj * CW + w]) * scale);
-            }
-    }
-}
-
-// ------------------------------------------------ float32, Dh above 128
-//
-// As in flash_attention_fwd.cu, a head dim above 128 is zero-padded by the
-// wrapper to a multiple of WIDE = 128 and a block owns ONE chunk of WIDE
-// output columns (grid z): dK and dV (or dQ') of 64 keys (rows) x 128
-// columns keep the 16 x 16 thread grid's 2 x 32 (32) registers at any Dh.
-// S and dP are summed over all of Dh, a piece of WIDE columns of each of
-// q', K, dO and V at a time through the four tiles of the Dh = 128 layout;
-// the pieces are taken in the order chunk + 1, ..., chunk (mod pieces), so
-// that the block's own columns of q' and dO (dkv) or of K (dq) are in
-// shared memory when the products that need them run. Every chunk
-// recomputes P and dU: Dh / 128 times the S and dP work of one pass.
-
-constexpr int WIDE = 128;   // columns of a piece and of a chunk
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_attn_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               T* __restrict__ dk, T* __restrict__ dv, int NQ,
-                               int NK, int H, int DH, Strides qs, Strides ks,
-                               Strides vs, Strides gs, float scale) {
-    constexpr int LD = WIDE + 4;
-    constexpr int CW = 4;
-    constexpr int NJ = WIDE / (16 * CW);
-    constexpr int NC = NJ * CW;
-
-    extern __shared__ __align__(16) float smem[];
-    float* Ks = smem;             // [BK][LD]  pieces of K, V, q', dO
-    float* Vs = Ks + BK * LD;     // [BK][LD]
-    float* Qs = Vs + BK * LD;     // [BQ][LD]
-    float* dOs = Qs + BQ * LD;    // [BQ][LD]
-    float* PT = dOs + BQ * LD;    // [BK][LDP] P transposed: PT[key][row]
-    float* dUT = PT + BK * LDP;   // [BK][LDP] dU transposed
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int k0 = blockIdx.x * BK;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
-    const long long row_base = (long long)bh * NQ;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h;
-    const T* gb = dout + b * gs.b + h * gs.h;
-
-    float acc_dk[4][NC], acc_dv[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            acc_dk[i][c] = 0.f;
-            acc_dv[i][c] = 0.f;
-        }
-
-    for (int q0 = 0; q0 < NQ; q0 += BQ) {
-        float p[4][4], du[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) p[i][j] = du[i][j] = 0.f;
-        for (int c = 1; c <= pieces; ++c) {
-            const int col = (chunk + c) % pieces * WIDE;
-            // the readers of the last piece (and of PT, dUT) are done
-            __syncthreads();
-            load_tile<T, WIDE, false>(Ks, kb + col, ks.n, k0, NK, 1.f, tid);
-            load_tile<T, WIDE, false>(Vs, vb + col, vs.n, k0, NK, 1.f, tid);
-            load_tile<T, WIDE, true>(Qs, qb + col, qs.n, q0, NQ, scale, tid);
-            load_tile<T, WIDE, false>(dOs, gb + col, gs.n, q0, NQ, 1.f, tid);
-            __syncthreads();
-            tile_dot_add<WIDE>(Qs, Ks, tx, ty, p);    // S
-            tile_dot_add<WIDE>(dOs, Vs, tx, ty, du);  // dP
-        }
-        float lse_r[4], delta_r[4];
-        load_row_stats(lse, delta, row_base, q0, NQ, ty, lse_r, delta_r);
-        finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                PT[(tx + 16 * j) * LDP + ty + 16 * i] = p[i][j];
-                dUT[(tx + 16 * j) * LDP + ty + 16 * i] = du[i][j];
-            }
-        __syncthreads();
-
-        // the chunk's columns: Qs and dOs hold its piece (the last one)
-        fma_dkv<LD, CW, NJ>(PT, dUT, dOs, Qs, tx, ty, acc_dk, acc_dv);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = k0 + ty + 16 * i;
-        if (n >= NK) continue;
-        const long long row = (((long long)b * NK + n) * H + h) * DH + chunk * WIDE;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                dk[row + col] = from_float<T>(acc_dk[i][jj * CW + w]);
-                dv[row + col] = from_float<T>(acc_dv[i][jj * CW + w]);
-            }
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_attn_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta, T* __restrict__ dq,
-                              int NQ, int NK, int H, int DH, Strides qs,
-                              Strides ks, Strides vs, Strides gs, float scale) {
-    constexpr int LD = WIDE + 4;
-    constexpr int CW = 4;
-    constexpr int NJ = WIDE / (16 * CW);
-    constexpr int NC = NJ * CW;
-
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;             // [BQ][LD]  pieces of q', dO, K, V
-    float* dOs = Qs + BQ * LD;    // [BQ][LD]
-    float* Ks = dOs + BQ * LD;    // [BK][LD]
-    float* Vs = Ks + BK * LD;     // [BK][LD]
-    float* dUs = Vs + BK * LD;    // [BQ][LDP] dU[row][key]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int q0 = blockIdx.x * BQ;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h;
-    const T* gb = dout + b * gs.b + h * gs.h;
-
-    float lse_r[4], delta_r[4];
-    load_row_stats(lse, delta, (long long)bh * NQ, q0, NQ, ty, lse_r, delta_r);
-
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-    for (int k0 = 0; k0 < NK; k0 += BK) {
-        float p[4][4], du[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) p[i][j] = du[i][j] = 0.f;
-        for (int c = 1; c <= pieces; ++c) {
-            const int col = (chunk + c) % pieces * WIDE;
-            __syncthreads();  // the readers of the last piece (and of dUs) are done
-            load_tile<T, WIDE, true>(Qs, qb + col, qs.n, q0, NQ, scale, tid);
-            load_tile<T, WIDE, false>(dOs, gb + col, gs.n, q0, NQ, 1.f, tid);
-            load_tile<T, WIDE, false>(Ks, kb + col, ks.n, k0, NK, 1.f, tid);
-            load_tile<T, WIDE, false>(Vs, vb + col, vs.n, k0, NK, 1.f, tid);
-            __syncthreads();
-            tile_dot_add<WIDE>(Qs, Ks, tx, ty, p);    // S
-            tile_dot_add<WIDE>(dOs, Vs, tx, ty, du);  // dP
-        }
-        finish_p_and_du(lse_r, delta_r, q0, k0, NQ, NK, tx, ty, p, du);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                dUs[(ty + 16 * i) * LDP + tx + 16 * j] = du[i][j];
-        __syncthreads();
-
-        // the chunk's columns: Ks holds its piece (the last one)
-        fma_dq<LD, CW, NJ>(dUs, Ks, tx, ty, acc);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = q0 + ty + 16 * i;
-        if (n >= NQ) continue;
-        const long long row = (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                dq[row + col] =
-                    from_float<T>(round_to<T>(acc[i][jj * CW + w]) * scale);
-            }
-    }
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -1628,6 +1078,532 @@ flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     write_rows(dq, st_q, b, h, H, NQ, DH, q0, ch.c0, ch.width, tid);
 }
 
+// ---------------------------------------------------------------- float32
+//
+// flash_bwd_f32_kernel: the design notes at the top of the file.
+namespace f32 {
+
+constexpr int OWN = 32;          // own rows of a block: keys (dkv), query rows (dq)
+constexpr int TILE = 64;         // rows of a tile of the other side
+constexpr int THREADS = 256;     // two warpgroups
+constexpr int PIECE = 64;        // logit columns of a unit above Dh 128
+constexpr int CHUNK = 128;       // output columns of an accumulating unit above Dh 128
+constexpr uint32_t ROW = 128;    // bytes of a tile row: 32 floats
+constexpr uint32_t TERM = OWN * TILE * 4;   // a P or dU term, [own][tile row]
+
+// Shared memory of one instance (DH = 0: above 128, but 256), in bytes from
+// a 1024-byte boundary: the own rows' terms (DH = 0: two buffers of a
+// piece's), the P and dU terms, two slots, dkv's lse and delta of two tiles.
+template <bool DKV, int DH>
+struct Layout {
+    static constexpr int W = DH && DH <= 128 ? DH : PIECE;   // logit columns of a unit
+    static constexpr uint32_t own_t = OWN * (DH ? DH : PIECE) * 4;   // one own term
+    static constexpr uint32_t x_t = TILE * W * 4;      // one tensor of a tile's unit
+    static constexpr uint32_t slot = DH ? 2 * x_t : 2 * TILE * CHUNK * 4;
+    static constexpr uint32_t own = 0, tiles = 4 * own_t * (DH ? 1 : 2);
+    static constexpr uint32_t slots = tiles + (DKV ? 4 : 2) * TERM;
+    static constexpr uint32_t stat = slots + 2 * slot;
+    static constexpr size_t bytes = 1024 + stat + (DKV ? 2 * 2 * TILE * 4 : 0);
+};
+
+// Byte offset of (row r, column c) in a tile of `rows` rows kept as blocks
+// of 32 columns, [rows][128 bytes] each, in the 128-byte swizzle.
+__device__ __forceinline__ uint32_t at(int rows, int r, int c) {
+    return (c >> 5) * rows * ROW + r * ROW + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+// Where a B tile keeps index x of the summed dimension: in each group of 8
+// the even ones first (2i at i, 2i + 1 at 4 + i), as the A fragments take them.
+__device__ __forceinline__ int kpos(int x) {
+    return (x & ~7) | ((x & 1) << 2) | ((x & 7) >> 1);
+}
+
+// x = hi + lo as the TF32 products read them: hi = x with its 13 low
+// mantissa bits cleared (a TF32 value, used as it is), lo = x - hi (exact in
+// fp32), of which the tensor cores use the TF32 part, within 2^-10 of lo:
+// hi + lo is x to 2^-20.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xFFFFE000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// An A fragment of m64nNk8 tf32 (rows g, g + 8 of the warp's 16; k t, t + 4)
+// as hi and lo terms.
+struct Frag {
+    uint32_t hi[4], lo[4];
+};
+
+// d = A B + (scale_d ? d : 0): A (64 x 8) from registers, B (8 x 32) K-major
+// at descriptor b.
+__device__ __forceinline__ void m64n32k8(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d += A B in three TF32 passes, B's hi and lo terms at shared bhi, blo.
+__device__ __forceinline__ void mma3(float (&d)[4][4], const Frag& a, uint32_t bhi,
+                                     uint32_t blo, int keep) {
+    const uint64_t h = wgmma::desc_k(bhi), l = wgmma::desc_k(blo);
+    m64n32k8(d, a.hi, h, keep);
+    m64n32k8(d, a.hi, l, 1);
+    m64n32k8(d, a.lo, h, 1);
+}
+
+__device__ __forceinline__ float2 ld2(const unsigned char* p) {
+    return *reinterpret_cast<const float2*>(p);
+}
+
+// The fragment of k-step kk over a tile's columns (times mul), for tile rows
+// r and r + 8: columns 8 kk + 2t and + 1 as k t and t + 4.
+__device__ __forceinline__ void frag_rows(Frag& f, const unsigned char* x, int r, int kk, int t,
+                                          float mul) {
+    const int c = kk * 8 + 2 * t;
+    const float2 u = ld2(x + at(TILE, r, c)), w = ld2(x + at(TILE, r + 8, c));
+    split(u.x * mul, f.hi[0], f.lo[0]);
+    split(w.x * mul, f.hi[1], f.lo[1]);
+    split(u.y * mul, f.hi[2], f.lo[2]);
+    split(w.y * mul, f.hi[3], f.lo[3]);
+}
+
+// The fragment of k-step kk over a tile's rows of the transposed tile (times
+// mul): columns d and d + 1 as rows g and g + 8, rows 8 kk + 2t and + 1 as k
+// t and t + 4.
+__device__ __forceinline__ void frag_cols(Frag& f, const unsigned char* x, int d, int kk, int t,
+                                          float mul) {
+    const int r = kk * 8 + 2 * t;
+    const float2 u = ld2(x + at(TILE, r, d)), w = ld2(x + at(TILE, r + 1, d));
+    split(u.x * mul, f.hi[0], f.lo[0]);
+    split(u.y * mul, f.hi[1], f.lo[1]);
+    split(w.x * mul, f.hi[2], f.lo[2]);
+    split(w.y * mul, f.hi[3], f.lo[3]);
+}
+
+// c = (first ? 0 : c) + (x times mul) O^T over W columns: x the tile's rows
+// r, r + 8 (raw), O's hi and lo terms (OWN rows, blocks of 32 columns) at
+// bhi, blo. BATCH k-steps a batch, the next batch's fragments made while the
+// last one's products run.
+template <int W, int BATCH>
+__device__ __forceinline__ void logits(float (&c)[4][4], const unsigned char* x, float mul,
+                                       uint32_t bhi, uint32_t blo, int r, int t, bool first) {
+    constexpr int BATCHES = W / 8 / BATCH;
+    Frag f[2][BATCH];
+    wgmma::fence_operand(c);
+#pragma unroll
+    for (int bt = 0; bt < BATCHES; ++bt) {
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) frag_rows(f[bt & 1][s], x, r, bt * BATCH + s, t, mul);
+        wgmma::fence();
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) {
+            const int kk = bt * BATCH + s;
+            const uint32_t off = (kk >> 2) * (OWN * ROW) + (kk & 3) * 32;
+            mma3(c, f[bt & 1][s], bhi + off, blo + off, !first || kk > 0);
+        }
+        wgmma::commit();
+        wgmma::wait<1>();
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(c);
+}
+
+// One transposed product of a warpgroup: A from the tile at x (times mul,
+// columns d, d + 1), B the P or dU terms at hi, lo.
+struct Item {
+    const unsigned char* x;
+    float mul;
+    int d;
+    uint32_t hi, lo;
+};
+
+// acc[i] += (item i's tile)^T (its terms) over the tile's 64 rows, BATCH
+// k-steps a batch.
+template <int NI, int BATCH>
+__device__ __forceinline__ void accumulate_t(float (&acc)[NI][4][4], const Item (&it)[NI], int t) {
+    constexpr int BATCHES = TILE / 8 / BATCH;
+    Frag f[2][BATCH][NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) wgmma::fence_operand(acc[i]);
+#pragma unroll
+    for (int bt = 0; bt < BATCHES; ++bt) {
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s)
+#pragma unroll
+            for (int i = 0; i < NI; ++i)
+                frag_cols(f[bt & 1][s][i], it[i].x, it[i].d, bt * BATCH + s, t, it[i].mul);
+        wgmma::fence();
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) {
+            const int kk = bt * BATCH + s;
+            const uint32_t off = (kk >> 2) * (OWN * ROW) + (kk & 3) * 32;
+#pragma unroll
+            for (int i = 0; i < NI; ++i)
+                mma3(acc[i], f[bt & 1][s][i], it[i].hi + off, it[i].lo + off, 1);
+        }
+        wgmma::commit();
+        wgmma::wait<1>();
+    }
+    wgmma::wait<0>();
+#pragma unroll
+    for (int i = 0; i < NI; ++i) wgmma::fence_operand(acc[i]);
+}
+
+// ROWS rows x WC columns of a (B, N, H, Dh) operand from column col0 of row
+// row0 on, into a tile at shared address dst, 16-byte cp.async; rows beyond
+// N are zero-filled and not read.
+template <int ROWS, int WC>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* base, long long stride_n,
+                                          int row0, int N, int col0, int tid) {
+    constexpr int CPR = WC / 4, EACH = ROWS * CPR / THREADS;
+    static_assert(EACH * THREADS == ROWS * CPR, "the threads must share the chunks evenly");
+#pragma unroll
+    for (int i = 0; i < EACH; ++i) {
+        const int e = tid + i * THREADS, r = e / CPR, c = e % CPR * 4;
+        const bool ok = row0 + r < N;
+        const float* src = ok ? base + (long long)(row0 + r) * stride_n + col0 + c : base;
+        mma::cp_async_16_zfill(dst + at(ROWS, r, c), src, ok);
+    }
+}
+
+// After its own copies of copy_rows<OWN, WC>(raw) landed, a thread writes
+// the chunks it brought, times mul, as hi and lo terms at their kpos columns.
+template <int WC>
+__device__ __forceinline__ void split_own(unsigned char* hi, unsigned char* lo,
+                                          const unsigned char* raw, float mul, int tid) {
+    constexpr int CPR = WC / 4, EACH = OWN * CPR / THREADS;
+#pragma unroll
+    for (int i = 0; i < EACH; ++i) {
+        const int e = tid + i * THREADS, r = e / CPR, c = e % CPR * 4;
+        const float4 x = *reinterpret_cast<const float4*>(raw + at(OWN, r, c));
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            uint32_t h, l;
+            split(xs[j] * mul, h, l);
+            const uint32_t o = at(OWN, r, kpos(c + j));
+            *reinterpret_cast<uint32_t*>(hi + o) = h;
+            *reinterpret_cast<uint32_t*>(lo + o) = l;
+        }
+    }
+}
+
+}  // namespace f32
+
+// DKV: dK and dV (out0, out1), else dQ (out0). DH: 32, 64 or 128 (CW =
+// DH); 256 (CW = 256: the own rows' terms stay, the tile comes in pieces);
+// or 0 for another multiple of 128 above it (Dh): a block then owns a chunk
+// of CW = 128 or 256 output columns, one or two accumulating units a tile.
+template <bool DKV, int DH, int CW>
+__global__ void __launch_bounds__(f32::THREADS, 1)
+flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ out0, float* __restrict__ out1, int NQ, int NK, int H,
+                     int Dh, Strides qs, Strides ks, Strides vs, Strides gs, float scale) {
+    using namespace f32;
+    constexpr bool RES = DH == 256;               // own terms resident, the tile in pieces
+    constexpr bool WIDE = DH == 0 || RES;         // the tile in units of 64 logit columns
+    constexpr int W = WIDE ? PIECE : DH;          // logit columns of a unit
+    // output columns of an accumulating unit (at Dh 256 dkv's units carry
+    // 64 columns of both tensors, dq's 128 of one)
+    constexpr int CU = !WIDE ? DH : RES && DKV ? PIECE : CHUNK;
+    constexpr int A = WIDE ? CW / CU : 1;         // accumulating units a tile
+    constexpr int NI = DKV && CU == 128 ? 2 : 1;  // transposed products a warpgroup a unit
+    // k-steps a batch: with several units' accumulators, two in the logits
+    // and one in the transposed products (four and two spilled registers)
+    constexpr int LB = A > 1 ? 2 : 4, AB = A > 1 ? 1 : 2;
+    static_assert(WIDE ? CW == 128 || CW == 256 : CW == DH, "a chunk of 128 or 256 columns");
+    using LY = Layout<DKV, DH>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const wide::Smem sm = wide::aligned_smem(smem_raw);
+    const uint32_t slots = sm.addr + LY::slots;
+    unsigned char* const own_p = sm.ptr + LY::own;
+    unsigned char* const tp = sm.ptr + LY::tiles;   // dkv: P hi, P lo, dU hi, dU lo; dq: dU hi, lo
+    const uint32_t terms = sm.addr + LY::tiles;
+    const float* const stats = reinterpret_cast<const float*>(sm.ptr + LY::stat);
+
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    const int wq = (tid & 127) >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int r = 16 * wq + g;   // the fragments' tile row (and r + 8)
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int own0 = blockIdx.x * OWN;
+    const int c0 = WIDE ? blockIdx.z * CW : 0;
+    const int DHT = WIDE ? Dh : DH;
+    const int n_own = DKV ? NK : NQ, n_oth = DKV ? NQ : NK;
+
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* kb = k + b * ks.b + h * ks.h;
+    const float* vb = v + b * vs.b + h * vs.h;
+    const float* gb = dout + b * gs.b + h * gs.h;
+    // own rows O1 (for S), O2 (for dP); the other side's tiles X1, X2
+    const float* o1 = DKV ? kb : qb;
+    const float* o2 = DKV ? vb : gb;
+    const float* x1 = DKV ? qb : kb;
+    const float* x2 = DKV ? gb : vb;
+    const long long o1n = DKV ? ks.n : qs.n, o2n = DKV ? vs.n : gs.n;
+    const long long x1n = DKV ? qs.n : ks.n, x2n = DKV ? gs.n : vs.n;
+    const float o1mul = DKV ? 1.f : scale, x1mul = DKV ? scale : 1.f;
+    const float* lse_row = lse + (long long)bh * NQ;
+    const float* delta_row = delta + (long long)bh * NQ;
+
+    // dkv: lse and delta of tile j's rows into stats slot j & 1
+    auto load_stats = [&](int j) {
+        if (DKV && tid < 2 * TILE) {
+            const int n = j * TILE + (tid & (TILE - 1));
+            const bool ok = n < NQ;
+            const float* src = (tid < TILE ? lse_row : delta_row) + (ok ? n : 0);
+            mma::cp_async_4_zfill(sm.addr + LY::stat + (j & 1) * 2 * TILE * 4 + tid * 4, src, ok);
+        }
+    };
+    // dq: lse * log2(e) and delta of the fragments' own columns 8 jn + 2t (+1)
+    float lse2_own[4][2], dl_own[4][2];
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int n = own0 + 8 * jn + 2 * t + e;
+            const bool ok = !DKV && n < NQ;
+            lse2_own[jn][e] = ok ? lse_row[n] * mma::LOG2E : 0.f;
+            dl_own[jn][e] = ok ? delta_row[n] : 0.f;
+        }
+
+    // the transposed products of this warpgroup (dkv: dV from X2 and P, dK
+    // from X1 and dU; dq: dQ' from X1 and dU) on the tile at xt (X1, then
+    // X2 x_acc bytes on): rows dcol, dcol + 1 of the unit's columns. Where
+    // dcol >= CU (Dh 32; dq's second warpgroup at Dh 64 and 32) the rows are
+    // computed from columns inside the tile and not stored.
+    const int dcol = (DKV && CU < 128 ? 0 : 64 * wg) + 16 * wq + 2 * g;
+    auto items = [&](const unsigned char* xt, uint32_t x_acc, Item (&it)[NI]) {
+        const int d = dcol & (CU - 1);
+        const Item dv{xt + x_acc, 1.f, d, terms, terms + TERM};
+        const Item dk{xt, x1mul, d, terms + (DKV ? 2 : 0) * TERM, terms + (DKV ? 3 : 1) * TERM};
+        if constexpr (NI == 2) {
+            it[0] = dv;
+            it[1] = dk;
+        } else {
+            it[0] = DKV && wg == 0 ? dv : dk;
+        }
+    };
+
+    float acc[A][NI][4][4], c[4][4];
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[a][i][jn][e] = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[jn][e] = 0.f;
+
+    // P = exp(S - lse) and dU = P o (dP - delta) of tile j (rows row0 ..)
+    // from the logits in c (warpgroup 0: S, warpgroup 1: dP, at the same
+    // fragment positions), to their hi and lo terms [own][kpos(tile row)].
+    // Warpgroup w finishes own columns 16 w .. 16 w + 15 (jn = 2w, 2w + 1):
+    // first each hands the other the half it does not finish, at the places
+    // where that half's dU terms go (S at dU hi, dP at dU lo; the thread that
+    // reads a value writes its dU there), then both finish their halves.
+    auto p_and_du = [&](int j) {
+        const int row0 = j * TILE;
+        const float* st = stats + (j & 1) * 2 * TILE;
+        unsigned char* const du_hi = tp + (DKV ? 2 : 0) * TERM;
+        unsigned char* const du_lo = du_hi + TERM;
+        unsigned char* const handed = wg ? du_lo : du_hi;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int rr = r + 8 * (e >> 1), col = 8 * (jj + 2 - 2 * wg) + 2 * t + (e & 1);
+                *reinterpret_cast<float*>(handed + at(OWN, col, kpos(rr))) =
+                    wg ? c[jj][e] : c[jj + 2][e];
+            }
+        __syncthreads();  // the halves handed over
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int rr = r + 8 * (e >> 1), col = 8 * (jj + 2 * wg) + 2 * t + (e & 1);
+                const uint32_t o = at(OWN, col, kpos(rr));
+                const float mine = wg ? c[jj + 2][e] : c[jj][e];
+                const float s = wg ? *reinterpret_cast<const float*>(du_hi + o) : mine;
+                const float dp = wg ? mine : *reinterpret_cast<const float*>(du_lo + o);
+                const float l2 = DKV ? st[rr] * mma::LOG2E
+                                     : (wg ? lse2_own[jj + 2][e & 1] : lse2_own[jj][e & 1]);
+                const float dl = DKV ? st[TILE + rr]
+                                     : (wg ? dl_own[jj + 2][e & 1] : dl_own[jj][e & 1]);
+                const bool ok = row0 + rr < n_oth && own0 + col < n_own;
+                const float p = ok ? mma::fast_exp2(fmaf(s, mma::LOG2E, -l2)) : 0.f;
+                uint32_t hi, lo;
+                if (DKV) {
+                    split(p, hi, lo);
+                    *reinterpret_cast<uint32_t*>(tp + o) = hi;
+                    *reinterpret_cast<uint32_t*>(tp + TERM + o) = lo;
+                }
+                split(p * (dp - dl), hi, lo);
+                *reinterpret_cast<uint32_t*>(du_hi + o) = hi;
+                *reinterpret_cast<uint32_t*>(du_lo + o) = lo;
+            }
+        wgmma::fence_proxy_async();
+        __syncthreads();  // P and dU are in place
+    };
+
+    const int ntiles = (n_oth + TILE - 1) / TILE;
+    if constexpr (!WIDE) {
+        // the own rows, raw, into slot 1 (free until tile 1 is copied) and
+        // tile 0 into slot 0
+        const uint32_t raw = slots + LY::slot;
+        copy_rows<OWN, W>(raw, o1, o1n, own0, n_own, 0, tid);
+        copy_rows<OWN, W>(raw + LY::own_t, o2, o2n, own0, n_own, 0, tid);
+        auto load_tile = [&](int j) {
+            const uint32_t slot = slots + (j & 1) * LY::slot;
+            copy_rows<TILE, W>(slot, x1, x1n, j * TILE, n_oth, 0, tid);
+            copy_rows<TILE, W>(slot + LY::x_t, x2, x2n, j * TILE, n_oth, 0, tid);
+            load_stats(j);
+        };
+        load_tile(0);
+        mma::cp_async_commit();
+        int j = 0;
+        do {
+            mma::cp_async_wait<0>();
+            if (j == 0) {
+                const unsigned char* rp = sm.ptr + LY::slots + LY::slot;
+                split_own<W>(own_p, own_p + LY::own_t, rp, o1mul, tid);
+                split_own<W>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t, rp + LY::own_t, 1.f, tid);
+            }
+            wgmma::fence_proxy_async();
+            __syncthreads();  // the tile (and the own terms) in place; slot j - 1 free
+            if (j + 1 < ntiles) load_tile(j + 1);
+            mma::cp_async_commit();
+            const unsigned char* xt = sm.ptr + LY::slots + (j & 1) * LY::slot;
+            logits<W, 4>(c, xt + wg * LY::x_t, wg ? 1.f : x1mul, sm.addr + 2 * wg * LY::own_t,
+                      sm.addr + (2 * wg + 1) * LY::own_t, r, t, true);
+            p_and_du(j);
+            Item it[NI];
+            items(xt, LY::x_t, it);
+            accumulate_t<NI, 2>(acc[0], it, t);
+        } while (++j < ntiles);
+    } else {
+        // a tile is `pieces` units of 64 logit columns (the tile's X1, X2
+        // and, but at Dh 256, the own O1, O2, raw), then A units of CU of the
+        // chunk's columns of the tile (X1, and in dkv X2, x_acc bytes on)
+        const int pieces = Dh / PIECE;
+        const uint32_t x_acc = TILE * CU * 4;
+        auto load_piece = [&](int u, int j, int p) {
+            const uint32_t slot = slots + (u & 1) * LY::slot;
+            copy_rows<TILE, PIECE>(slot, x1, x1n, j * TILE, n_oth, p * PIECE, tid);
+            copy_rows<TILE, PIECE>(slot + LY::x_t, x2, x2n, j * TILE, n_oth, p * PIECE, tid);
+            if (!RES) {
+                copy_rows<OWN, PIECE>(slot + 2 * LY::x_t, o1, o1n, own0, n_own, p * PIECE, tid);
+                copy_rows<OWN, PIECE>(slot + 2 * LY::x_t + LY::own_t, o2, o2n, own0, n_own,
+                                      p * PIECE, tid);
+            }
+            if (p == 0) load_stats(j);
+        };
+        auto load_cols = [&](int u, int j, int a) {
+            const uint32_t slot = slots + (u & 1) * LY::slot;
+            const int col = c0 + a * CU;
+            copy_rows<TILE, CU>(slot, x1, x1n, j * TILE, n_oth, col, tid);
+            if (DKV) copy_rows<TILE, CU>(slot + x_acc, x2, x2n, j * TILE, n_oth, col, tid);
+        };
+        if constexpr (RES) {
+            // Dh 256: the own rows, raw, through the two slots, and their
+            // terms once for the block (128 KB)
+            copy_rows<OWN, DH>(slots, o1, o1n, own0, n_own, 0, tid);
+            copy_rows<OWN, DH>(slots + LY::slot, o2, o2n, own0, n_own, 0, tid);
+            mma::cp_async_commit();
+            mma::cp_async_wait<0>();
+            split_own<DH>(own_p, own_p + LY::own_t, sm.ptr + LY::slots, o1mul, tid);
+            split_own<DH>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t,
+                          sm.ptr + LY::slots + LY::slot, 1.f, tid);
+            __syncthreads();  // the raw rows read: the slots are free
+        }
+        load_piece(0, 0, 0);
+        mma::cp_async_commit();
+        int u = 0, j = 0;
+        do {
+            int p = 0;
+            do {
+                mma::cp_async_wait<0>();
+                const unsigned char* sp = sm.ptr + LY::slots + (u & 1) * LY::slot;
+                if (!RES) {
+                    // the own terms of this piece, into buffer u & 1 (its
+                    // last readers, unit u - 2's logits, are done)
+                    unsigned char* ob = own_p + (u & 1) * 4 * LY::own_t;
+                    split_own<PIECE>(ob, ob + LY::own_t, sp + 2 * LY::x_t, o1mul, tid);
+                    split_own<PIECE>(ob + 2 * LY::own_t, ob + 3 * LY::own_t,
+                                     sp + 2 * LY::x_t + LY::own_t, 1.f, tid);
+                }
+                wgmma::fence_proxy_async();
+                __syncthreads();  // unit u in place; slot u - 1 free
+                if (p + 1 < pieces) load_piece(u + 1, j, p + 1);
+                else load_cols(u + 1, j, 0);
+                mma::cp_async_commit();
+                // the own terms' columns of this piece (Dh 256: 2 p blocks on)
+                const uint32_t oa = sm.addr + LY::own +
+                                    (RES ? p * 2 * OWN * ROW : (u & 1) * 4 * LY::own_t);
+                logits<PIECE, LB>(c, sp + wg * LY::x_t, wg ? 1.f : x1mul, oa + 2 * wg * LY::own_t,
+                                  oa + (2 * wg + 1) * LY::own_t, r, t, p == 0);
+                ++u;
+            } while (++p < pieces);
+            mma::cp_async_wait<0>();  // accumulating unit 0 (published by p_and_du's barriers)
+            p_and_du(j);
+#pragma unroll
+            for (int a = 0; a < A; ++a) {
+                if (a > 0) {
+                    mma::cp_async_wait<0>();
+                    __syncthreads();  // unit a in place; unit a - 1's slot free
+                }
+                if (a + 1 < A) load_cols(u + 1, j, a + 1);
+                else if (j + 1 < ntiles) load_piece(u + 1, j + 1, 0);
+                mma::cp_async_commit();
+                Item it[NI];
+                items(sm.ptr + LY::slots + (u & 1) * LY::slot, x_acc, it);
+                accumulate_t<NI, AB>(acc[a], it, t);
+                ++u;
+            }
+        } while (++j < ntiles);
+    }
+
+    // the transposed accumulators: rows dcol and dcol + 1 of unit a's
+    // columns, columns the own rows 8 jn + 2t (+1); dq times Dh^-1/2
+    const float omul = DKV ? 1.f : scale;
+    if (dcol >= CU) return;
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+            float* out = DKV && (NI == 2 ? i == 0 : wg == 0) ? out1 : out0;
+            const int d = c0 + a * CU + dcol;
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = own0 + 8 * jn + 2 * t + e;
+                    if (n >= n_own) continue;
+                    const long long o = (((long long)b * n_own + n) * H + h) * DHT + d;
+                    *reinterpret_cast<float2*>(out + o) =
+                        make_float2(acc[a][i][jn][e] * omul, acc[a][i][jn][e + 2] * omul);
+                }
+        }
+}
+
 struct Args {
     const void *q, *k, *v, *dout;
     const float *lse, *delta;
@@ -1642,20 +1618,6 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int DH>
-int launch_dkv_fma(const Args& a, void* dk, void* dv) {
-    auto kernel = flash_attn_bwd_dkv_kernel<float, DH>;
-    constexpr size_t smem = dkv_smem_bytes<DH>();
-    if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.NK + BK - 1) / BK), (unsigned)(a.B * a.H));
-    kernel<<<grid, NT, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.NQ,
-        a.NK, a.H, a.qs, a.ks, a.vs, a.gs, a.scale);
-    return (int)cudaGetLastError();
 }
 
 template <int DH, int NWARPS>
@@ -1674,20 +1636,6 @@ int launch_dkv_tc(const Args& a, void* dk, void* dv) {
 }
 
 template <int DH>
-int launch_dq_fma(const Args& a, void* dq) {
-    auto kernel = flash_attn_bwd_dq_kernel<float, DH>;
-    constexpr size_t smem = dq_smem_bytes<DH>();
-    if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.NQ + BQ - 1) / BQ), (unsigned)(a.B * a.H));
-    kernel<<<grid, NT, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(dq), a.NQ, a.NK, a.H, a.qs, a.ks, a.vs,
-        a.gs, a.scale);
-    return (int)cudaGetLastError();
-}
-
-template <int DH>
 int launch_dq_tc(const Args& a, void* dq) {
     auto kernel = flash_bwd_dq_tc_kernel<DH>;
     constexpr size_t smem = dq_tc_smem_bytes<DH>();
@@ -1702,7 +1650,7 @@ int launch_dq_tc(const Args& a, void* dq) {
     return (int)cudaGetLastError();
 }
 
-// Above 128 (a multiple of WIDE): a block per (64 keys or query rows,
+// bfloat16 above 128 (a multiple of 128): a block per (64 keys or query rows,
 // (batch, head), chunk of `chunk` output columns); `rows` is NK for dkv, NQ
 // for dq.
 template <typename T, typename Kernel, typename... Outs>
@@ -1719,18 +1667,36 @@ int launch_wide(Kernel kernel, size_t smem, int threads, int chunk, int rows,
     return (int)cudaGetLastError();
 }
 
-bool wide_head_dim(int Dh) { return Dh > WIDE && Dh % WIDE == 0; }
+bool wide_head_dim(int Dh) { return Dh > 128 && Dh % 128 == 0; }
 
-// float32: the FMA kernel, BK keys per block.
-int dispatch_dkv_fma(int Dh, const Args& a, void* dk, void* dv) {
+// float32: flash_bwd_f32_kernel, f32::OWN keys (dkv) or query rows (dq) a
+// block, above 128 one chunk of CW columns a block (grid z).
+template <bool DKV, int DH, int CW = DH>
+int launch_f32(const Args& a, int Dh, void* out0, void* out1) {
+    auto kernel = flash_bwd_f32_kernel<DKV, DH, CW>;
+    constexpr size_t smem = f32::Layout<DKV, DH>::bytes;
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const int rows = DKV ? a.NK : a.NQ;
+    const dim3 grid((unsigned)((rows + f32::OWN - 1) / f32::OWN), (unsigned)(a.B * a.H),
+                    (unsigned)(DH ? 1 : Dh / CW));
+    kernel<<<grid, f32::THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(out0), static_cast<float*>(out1), a.NQ, a.NK, a.H, Dh, a.qs, a.ks,
+        a.vs, a.gs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+template <bool DKV>
+int dispatch_f32(int Dh, const Args& a, void* out0, void* out1) {
     switch (Dh) {
-        case 32: return launch_dkv_fma<32>(a, dk, dv);
-        case 64: return launch_dkv_fma<64>(a, dk, dv);
-        case 128: return launch_dkv_fma<128>(a, dk, dv);
+        case 32: return launch_f32<DKV, 32>(a, Dh, out0, out1);
+        case 64: return launch_f32<DKV, 64>(a, Dh, out0, out1);
+        case 128: return launch_f32<DKV, 128>(a, Dh, out0, out1);
     }
-    if (wide_head_dim(Dh))
-        return launch_wide<float>(flash_attn_bwd_dkv_wide_kernel<float>,
-                                  dkv_smem_bytes<WIDE>(), NT, WIDE, a.NK, a, Dh, dk, dv);
+    if (Dh == 256) return launch_f32<DKV, 256, 256>(a, Dh, out0, out1);
+    if (wide_head_dim(Dh) && Dh % 256 == 0) return launch_f32<DKV, 0, 256>(a, Dh, out0, out1);
+    if (wide_head_dim(Dh)) return launch_f32<DKV, 0, 128>(a, Dh, out0, out1);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1744,19 +1710,6 @@ int dispatch_dkv_tc(int Dh, const Args& a, void* dk, void* dv) {
     if (wide_head_dim(Dh))
         return launch_wide<bf16>(flash_bwd_dkv_wide_tc_kernel, wide::dkv_smem_bytes,
                                  wide::THREADS, wide::CHUNK, a.NK, a, Dh, dk, dv);
-    return (int)cudaErrorInvalidValue;
-}
-
-// float32: the FMA kernel, BQ query rows per block.
-int dispatch_dq_fma(int Dh, const Args& a, void* dq) {
-    switch (Dh) {
-        case 32: return launch_dq_fma<32>(a, dq);
-        case 64: return launch_dq_fma<64>(a, dq);
-        case 128: return launch_dq_fma<128>(a, dq);
-    }
-    if (wide_head_dim(Dh))
-        return launch_wide<float>(flash_attn_bwd_dq_wide_kernel<float>,
-                                  dq_smem_bytes<WIDE>(), NT, WIDE, a.NQ, a, Dh, dq);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1802,15 +1755,17 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // q and dout: (B, N, H, Dh), k and v: (B, Nk, H, Dh), of one type, read
 // through the (batch, token, head) strides in `strides` (a host array of 12
 // values in elements: q, k, v, dout), last dimension contiguous; in bfloat16
-// every row start must be 16-byte aligned. lse, delta: contiguous fp32
-// (B*H, N), the forward's logsumexp and rowsum(dO o O). dk, dv: contiguous
-// (B, Nk, H, Dh), dq: contiguous (B, N, H, Dh), of the input type. Dh: 32,
-// 64, 128 or a multiple of 128 (the wrapper zero-pads the others). A block
-// owns 64 keys (dkv) or 64 query rows (dq) in either type, and above
-// Dh = 128 one chunk of output columns: 128 in float32, 256 in bfloat16
-// (the last 128 wide where Dh is an odd multiple of 128). Both entries
-// choose their kernel by dtype, here: float32 runs the FMA kernel, bfloat16
-// the tensor-core kernel; neither stands in for the other.
+// every row start must be 16-byte aligned (both types are read in 16-byte
+// copies). lse, delta: contiguous fp32 (B*H, N), the forward's logsumexp
+// and rowsum(dO o O). dk, dv: contiguous (B, Nk, H, Dh), dq: contiguous
+// (B, N, H, Dh), of the input type. Dh: 32, 64, 128 or a multiple of 128
+// (the wrapper zero-pads the others). A block owns 64 keys (dkv) or 64
+// query rows (dq) in bfloat16, 32 in float32, and above Dh = 128 one chunk
+// of output columns: 128 in float32, 256 in bfloat16 (the last 128 wide
+// where Dh is an odd multiple of 128). Both entries choose their kernel by
+// dtype, here: float32 runs flash_bwd_f32_kernel (three TF32 passes on
+// wgmma), bfloat16 the bf16 tensor-core kernels; neither stands in for the
+// other.
 // Each entry returns the cudaError_t of its launch (0 on success); launches on
 // `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1822,7 +1777,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* stream) {
     const Args a = make_args(q, k, v, dout, lse, delta, B, N, Nk, H, strides,
                              scale, stream);
-    if (dtype == MRI_DTYPE_F32) return dispatch_dkv_fma(Dh, a, dk, dv);
+    if (dtype == MRI_DTYPE_F32) return dispatch_f32<true>(Dh, a, dk, dv);
     if (dtype == MRI_DTYPE_BF16) return dispatch_dkv_tc(Dh, a, dk, dv);
     return (int)cudaErrorInvalidValue;
 }
@@ -1835,7 +1790,7 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
     const Args a = make_args(q, k, v, dout, lse, delta, B, N, Nk, H, strides,
                              scale, stream);
-    if (dtype == MRI_DTYPE_F32) return dispatch_dq_fma(Dh, a, dq);
+    if (dtype == MRI_DTYPE_F32) return dispatch_f32<false>(Dh, a, dq, nullptr);
     if (dtype == MRI_DTYPE_BF16) return dispatch_dq_tc(Dh, a, dq);
     return (int)cudaErrorInvalidValue;
 }

@@ -15,9 +15,13 @@ CUDA kernels:
   KV-major pass for dK and dV and one Q-major pass for dQ, without atomics.
 
 For bfloat16 inputs all three run on the tensor cores (bf16 ``mma``, bf16
-tiles in shared memory filled by 16-byte asynchronous copies); for float32
-inputs every product is fp32 FMAs. The C entry picks by dtype.
-``launch_plan`` chooses the forward's rows per block and reports the others'.
+tiles in shared memory filled by 16-byte asynchronous copies). For float32
+inputs the forward's products are fp32 FMAs, and the two backward kernels'
+are fp32-grade on the tensor cores: three TF32 passes (x = hi + lo, hi cut
+to TF32; hi·hi + hi·lo + lo·hi) on Hopper's warpgroup products, the
+TPU kernels' ``Precision.HIGHEST``, 32 keys (dkv) or query rows (dq) a
+block. The C entry picks by dtype. ``launch_plan`` chooses the forward's
+rows per block and reports the others'.
 
 API: q of shape (B, N, H, Dh), k and v of shape (B, Nk, H, Dh) → out
 (B, N, H, Dh) in the input dtype, lse fp32 (B·H, N); Nk = N is
@@ -32,9 +36,11 @@ any multiple of ``COLUMN_CHUNK`` = 128 above that in column chunks: a block
 owns one chunk of output columns (a grid axis), computes the logits over
 all of Dh and accumulates P·V (dK, dV; dQ′) for its own columns only, so
 its accumulators fit the register file at any Dh; every chunk recomputes
-the logits. The float32 kernels take chunks of 128; the three bfloat16
-kernels chunks of ``BACKWARD_CHUNK`` = 256 (the last one 128 wide where Dh
-is an odd multiple of 128) on Hopper's warpgroup products: the forward a
+the logits. The float32 forward takes chunks of 128, the float32 backward
+chunks of 256 (of 128 where Dh is an odd multiple of 128; at Dh 256 its own
+rows' terms stay whole); the three bfloat16 kernels chunks of
+``BACKWARD_CHUNK`` = 256 (the last one 128 wide where Dh is an odd multiple
+of 128) on Hopper's warpgroup products: the forward a
 warpgroup of 64 query rows a chunk (one or two a block, ``launch_plan``),
 with q′ staged once and K and V streamed past it; the backward two
 warpgroups of 128 columns a block.
@@ -86,6 +92,7 @@ FORWARD_TILES = (128, 64)          # query rows per block of the bf16 forward
 DKV_TILE = 64                      # keys per block of the bf16 dkv: 4 warps of 16
 DQ_TILE = 64                       # query rows per block of the bf16 dq: 4 warps of 16
 INNER_TILE = 64                    # keys (forward, dq) or query rows (dkv) per inner step
+F32_BACKWARD_TILE = 32             # keys (dkv) or query rows (dq) a block of the float32 backward
 COPY_ALIGNMENT = 16                # bytes moved by one asynchronous copy
 
 
@@ -126,13 +133,28 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     Tiles are bf16 with a pitch of Dh + 8:
     forward Q + 2 stages of K and V; dkv K, V + 2 stages of Q, dO and of the
     rows' lse and Δ; dq Q, dO + 2 stages of K and V.
-    float32 (FMA kernels): fixed 64 rows and 256 threads, fp32 tiles of pitch
-    Dh + 4 and (64, 68) P (and, in dkv, dU) tiles.
+    float32, 8 warps (two warpgroups). Forward (FMA kernel): 64 rows, fp32
+    tiles of pitch Dh + 4 and a (64, 68) P tile. dkv and dq (three TF32
+    passes on ``wgmma``): ``F32_BACKWARD_TILE`` = 32 keys or query rows a
+    block, the other side streamed in tiles of 64 rows; in shared memory, in
+    rows of 128 bytes and 1 KB of alignment, the own rows' TF32 hi and lo
+    terms of two tensors (64 KB at Dh 128), two slots of a tile's two tensors
+    as they are (64 KB each at Dh 128), the P and dU hi and lo terms of 32 ×
+    64 (dq: dU's), and in dkv two slots of lse and Δ: 226 KB (dkv) and
+    209 KB (dq) at Dh 128, one block an SM.
 
     Dh a multiple of 128 above 128: ``chunks`` blocks per tile (grid z).
-    float32: Dh/128 chunks of 128 output columns, 64 rows or keys a block,
-    the Dh = 128 kernels' tiles (pitch 132), the forward holding one piece
-    of q′ and of K (V's chunk goes into K's tile) beside P. bfloat16:
+    float32. The forward: Dh/128 chunks of 128 output columns, 64 rows a
+    block, the Dh = 128 kernel's tiles (pitch 132), one piece of q′ and of K
+    (V's chunk goes into K's tile) beside P. dkv and dq: chunks of 256
+    (Dh/256 of them; 128 where Dh is an odd multiple of 128), 32 own rows a
+    block; a tile of the other side comes as Dh/64 units of 64 logit
+    columns (the tile's and the own rows' two tensors, the own rows' terms
+    split anew into one of two 32 KB buffers) and one unit for each 128 of
+    the chunk's columns of the tile: two 64 KB slots, the same 226 KB and
+    209 KB. At Dh 256 the own rows' terms stay (128 KB) and the units carry
+    the tile alone (two 32 KB slots; dkv's accumulating units 64 columns of
+    both tensors, dq's 128 of K). bfloat16:
     ⌈Dh/256⌉ chunks of ``BACKWARD_CHUNK`` columns (at Dh 384 the last is 128
     wide) in 64-row blocks of 64 columns in the 128-byte swizzle, one block
     an SM.
@@ -160,12 +182,12 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
             f"flash-attention kernels take head dims {SUPPORTED_HEAD_DIMS} or a multiple "
             f"of {COLUMN_CHUNK} up to {MAX_HEAD_DIM}, got {d}")
     forward = kernel == "flash_attn_fwd"
-    if dtype == torch.float32:
+    if dtype == torch.float32 and forward:
         tile, warps = 64, 8
-        floats = {"flash_attn_fwd": 2 * 64 * (d + 4) + 64 * d + 64 * 68,
-                  "flash_attn_bwd_dkv": 4 * 64 * (d + 4) + 2 * 64 * 68,
-                  "flash_attn_bwd_dq": 4 * 64 * (d + 4) + 64 * 68}[kernel]
-        shared = 4 * floats
+        shared = 4 * (2 * 64 * (d + 4) + 64 * d + 64 * 68)
+    elif dtype == torch.float32:
+        tile, warps = F32_BACKWARD_TILE, 8
+        shared = _f32_backward_shared(kernel, d)
     elif dtype == torch.bfloat16:
         big, small = FORWARD_TILES
         if not forward:
@@ -191,10 +213,12 @@ def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
     tile = 64
     if dtype == torch.float32:
         chunks, warps = d // COLUMN_CHUNK, 8
-        floats = {"flash_attn_fwd": 2 * 64 * (COLUMN_CHUNK + 4) + 64 * 68,
-                  "flash_attn_bwd_dkv": 4 * 64 * (COLUMN_CHUNK + 4) + 2 * 64 * 68,
-                  "flash_attn_bwd_dq": 4 * 64 * (COLUMN_CHUNK + 4) + 64 * 68}[kernel]
-        shared = 4 * floats
+        if kernel == "flash_attn_fwd":
+            shared = 4 * (2 * 64 * (COLUMN_CHUNK + 4) + 64 * 68)
+        else:
+            tile, shared = F32_BACKWARD_TILE, _f32_backward_shared(kernel, d)
+            if d % BACKWARD_CHUNK == 0:
+                chunks = d // BACKWARD_CHUNK
     elif dtype == torch.bfloat16:
         # csrc/flash_attention_{fwd,bwd}.cu, namespace wide: 64-row blocks of
         # 64 columns (8 KB); a slot and the backward's own rows 8 blocks
@@ -214,6 +238,22 @@ def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
     return LaunchPlan(tile, warps, b * h * -(-n // tile) * chunks, shared, chunks)
 
 
+def _f32_backward_shared(kernel: str, d: int) -> int:
+    """Shared bytes of the float32 backward kernels (``csrc/flash_attention_bwd.cu``,
+    ``f32::Layout``): 1 KB of alignment; the own rows' hi and lo terms of two
+    tensors, 32 rows of Dh columns (up to 256; above: two buffers of 64
+    columns); the P and dU terms, 32 × 64 each (dq: dU's two); two slots of
+    a tile's two tensors, 64 rows of Dh columns (at 256: of 64, above: of
+    128); dkv's lse and Δ of two tiles."""
+    own, rows = F32_BACKWARD_TILE, INNER_TILE
+    dkv = kernel == "flash_attn_bwd_dkv"
+    own_bytes = 4 * own * d * 4 if d <= 2 * COLUMN_CHUNK else 2 * 4 * own * 64 * 4
+    slot = 2 * rows * (d if d <= COLUMN_CHUNK else 64 if d == 2 * COLUMN_CHUNK
+                       else COLUMN_CHUNK) * 4
+    stats = 2 * 2 * rows * 4 if dkv else 0
+    return 1024 + own_bytes + (4 if dkv else 2) * own * rows * 4 + 2 * slot + stats
+
+
 def _misalignment(t: torch.Tensor) -> Optional[str]:
     """What keeps ``t`` from being read in 16-byte copies, or None."""
     size = t.element_size()
@@ -228,7 +268,8 @@ def _misalignment(t: torch.Tensor) -> Optional[str]:
 
 
 def check_copy_alignment(name: str, t: torch.Tensor) -> None:
-    """The bf16 kernels move rows of Dh values in 16-byte asynchronous copies:
+    """The bf16 kernels and the float32 backward kernels move rows of Dh
+    values in 16-byte asynchronous copies:
     the data pointer and every (batch, token, head) stride must be multiples
     of 16 bytes. Raises a ``ValueError`` that names the operand."""
     fault = _misalignment(t)
@@ -481,12 +522,13 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must share dtype and device")
 
 
-def _check_kernel_operands(**operands: torch.Tensor) -> None:
-    """Sizes the kernels take and, for bfloat16, the alignment their 16-byte
-    copies need, of q and of every strided operand given by name."""
+def _check_kernel_operands(copies: bool, **operands: torch.Tensor) -> None:
+    """Sizes the kernels take and, where the launch reads its operands in
+    16-byte copies (``copies``), the alignment they need, of q and of every
+    strided operand given by name."""
     q = operands["q"]
     _check_kernel_sizes(q, operands["k"].shape[1])
-    if q.dtype == torch.bfloat16:
+    if copies:
         for name, t in operands.items():
             check_copy_alignment(name, t)
 
@@ -560,7 +602,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attn_fwd`` at q's own (compiled) head dim."""
     code = _build.dtype_code(q.dtype)
-    _check_kernel_operands(q=q, k=k, v=v)
+    _check_kernel_operands(q.dtype == torch.bfloat16, q=q, k=k, v=v)
     b, n, h, d = q.shape
     plan = launch_plan("flash_attn_fwd", b, n, h, d, q.dtype)
     nk = k.shape[1]
@@ -602,7 +644,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs, scale: floa
     b, n, h, d = q.shape
     nk = k.shape[1]
     code = _build.dtype_code(q.dtype)
-    _check_kernel_operands(q=q, k=k, v=v, dout=dout)
+    _check_kernel_operands(True, q=q, k=k, v=v, dout=dout)
     strides = _BwdStrides(*[
         s for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
         for s in _token_strides(name, t)])
@@ -665,14 +707,13 @@ def flash_attention_backward(
     gradient ``dout``: Δ = rowsum(dO∘O) in plain PyTorch (the TPU wrapper
     computes it outside its kernels too), then ``flash_attn_bwd_dkv`` and
     ``flash_attn_bwd_dq``. ``dout`` is copied only if its last axis is not
-    contiguous (an expanded gradient), its dtype is not the inputs' or, for
-    bfloat16, its rows are not 16-byte aligned."""
+    contiguous (an expanded gradient), its dtype is not the inputs' or its
+    rows are not 16-byte aligned (both kernels read it in 16-byte copies)."""
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(
             f"out and dout must be {tuple(q.shape)}, got {tuple(out.shape)} "
             f"and {tuple(dout.shape)}")
-    if (dout.dtype != q.dtype or dout.stride(3) != 1
-            or (q.dtype == torch.bfloat16 and _misalignment(dout))):
+    if dout.dtype != q.dtype or dout.stride(3) != 1 or _misalignment(dout):
         dout = torch.empty(q.shape, dtype=q.dtype, device=q.device).copy_(dout)
     delta = flash_attention_delta(out, dout)
     dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta)

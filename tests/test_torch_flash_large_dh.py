@@ -137,6 +137,12 @@ def test_column_chunks_at_nq_ne_nk_match_jax():
 # dU), and in dkv two slots of lse and delta
 BWD_WIDE_SHARED = {"flash_attn_bwd_dkv": 1024 + 3 * 65536 + 4 * 8192 + 1024,
                    "flash_attn_bwd_dq": 1024 + 3 * 65536 + 2 * 8192}
+# csrc/flash_attention_bwd.cu, f32::Layout above 128: 1 KB of alignment, two
+# buffers of the 32 own rows' hi and lo terms of two tensors at 64 columns,
+# the P and dU terms of 32 x 64 (dq: dU's), two 64 KB slots, in dkv two slots
+# of lse and delta
+F32_WIDE_SHARED = {"flash_attn_bwd_dkv": 1024 + 2 * 32768 + 4 * 8192 + 2 * 65536 + 1024,
+                   "flash_attn_bwd_dq": 1024 + 2 * 32768 + 2 * 8192 + 2 * 65536}
 # csrc/flash_attention_fwd.cu, namespace wide, by query rows a block: 1 KB of
 # alignment, q' of the chunk (32 KB a warpgroup of 64 rows), two 64 KB slots
 FWD_WIDE_SHARED = {64: 1024 + 32768 + 2 * 65536, 128: 1024 + 2 * 32768 + 2 * 65536}
@@ -147,8 +153,10 @@ FWD_WIDE_SHARED = {64: 1024 + 32768 + 2 * 65536, 128: 1024 + 2 * 32768 + 2 * 655
                                                (640, 640, 5)])
 def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
     """``kernel_head_dim`` rounds up to a multiple of 128. The float32
-    kernels have ``chunks`` = Dh/128 blocks along the column axis, 64 rows or
-    keys and 8 warps a block; the three bf16 kernels ⌈Dh/256⌉ (the last 128
+    kernels have 8 warps a block: the forward ``chunks`` = Dh/128 blocks
+    along the column axis and 64 rows, the backward chunks of 256 (of 128 at
+    an odd multiple of 128) and 32 keys or rows (226 KB and 209 KB of shared
+    memory at any Dh); the three bf16 kernels ⌈Dh/256⌉ (the last 128
     wide at an odd multiple of 128), one block an SM: the backward 64 keys
     or rows and 8 warps, the forward a warpgroup of 4 warps for every 64
     query rows, 64 rows where the (8, 800, 1) launch then fits the card in
@@ -162,7 +170,10 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
         for dtype, warps in ((torch.bfloat16, 4), (torch.float32, 8)):
             plan = fa.launch_plan(kernel, 8, 800, 1, kernel_d, dtype)
             want = (64, warps, chunks)
-            if dtype == torch.bfloat16 and kernel != "flash_attn_fwd":
+            if dtype == torch.float32 and kernel != "flash_attn_fwd":
+                want = (fa.F32_BACKWARD_TILE, 8, chunks if chunks % 2 else chunks // 2)
+                assert plan.shared_bytes == F32_WIDE_SHARED[kernel]
+            elif dtype == torch.bfloat16 and kernel != "flash_attn_fwd":
                 want = (64, 8, wide_chunks)
                 assert plan.shared_bytes == BWD_WIDE_SHARED[kernel]
             elif dtype == torch.bfloat16:
@@ -175,7 +186,7 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
             assert (plan.tile, plan.warps, plan.chunks) == want
             assert plan.blocks == 8 * -(-800 // plan.tile) * plan.chunks
             assert plan.shared_bytes <= fa.MAX_SHARED_BYTES
-            if plan.tile == 64:
+            if plan.tile in (64, fa.F32_BACKWARD_TILE):
                 assert plan.shared_bytes == fa.launch_plan(kernel, 8, 800, 1, 256,
                                                            dtype).shared_bytes
 

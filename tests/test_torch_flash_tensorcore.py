@@ -486,7 +486,8 @@ def test_launch_plan_fits_the_card(kernel, d, b, n, h):
             tiles = fa.FORWARD_TILES if kernel == "flash_attn_fwd" else (fa.DKV_TILE,)
             assert plan.tile in tiles and plan.warps == 4
         else:
-            assert (plan.tile, plan.warps) == (64, 8)
+            tile = 64 if kernel == "flash_attn_fwd" else fa.F32_BACKWARD_TILE
+            assert (plan.tile, plan.warps) == (tile, 8)
 
 
 def test_forward_launch_plan_trades_blocks_against_l2_traffic():
@@ -517,8 +518,11 @@ def test_dkv_launch_plan_keeps_64_keys_a_block(b, n, h, d, blocks):
 
 def test_launch_plan_shared_memory_is_what_the_sources_lay_out():
     """bf16 tiles of pitch Dh + 8: forward Q + 2·(K, V) of 64 rows; dkv K, V
-    + 2·(Q, dO) of 64 rows + 2·(lse, Δ) of 64 floats. float32: the FMA
-    kernels' fp32 tiles of pitch Dh + 4."""
+    + 2·(Q, dO) of 64 rows + 2·(lse, Δ) of 64 floats. float32: the forward
+    FMA kernel's fp32 tiles of pitch Dh + 4; dkv (three TF32 passes) 1 KB of
+    alignment, the 32 own keys' hi and lo terms of K and V, the P and dU
+    terms of 32 × 64, two slots of a tile's q and dO (64 rows) and two of
+    lse and Δ."""
     assert fa.launch_plan("flash_attn_fwd", 2, 800, 4, 128, torch.bfloat16).shared_bytes \
         == 2 * (64 + 4 * 64) * 136
     assert fa.launch_plan("flash_attn_fwd", 8, 800, 4, 128, torch.bfloat16).shared_bytes \
@@ -528,27 +532,33 @@ def test_launch_plan_shared_memory_is_what_the_sources_lay_out():
     assert fa.launch_plan("flash_attn_fwd", 2, 800, 4, 128, torch.float32).shared_bytes \
         == 4 * (2 * 64 * 132 + 64 * 128 + 64 * 68)
     assert fa.launch_plan("flash_attn_bwd_dkv", 2, 800, 4, 128, torch.float32).shared_bytes \
-        == 4 * (4 * 64 * 132 + 2 * 64 * 68)
+        == 1024 + 4 * (4 * 32 * 128 + 4 * 32 * 64 + 2 * 2 * 64 * 128 + 2 * 2 * 64) == 231424
 
 
 @pytest.mark.parametrize("b,n,h,d,blocks", [(2, 800, 4, 128, 104), (8, 800, 4, 128, 416),
                                             (1, 51200, 4, 32, 3200), (1, 17, 2, 64, 2)])
 def test_dq_launch_plan_keeps_64_query_rows_a_block(b, n, h, d, blocks):
+    """bf16: 64 query rows a block; float32 (three TF32 passes on wgmma): 32."""
     for dtype in (torch.bfloat16, torch.float32):
         plan = fa.launch_plan("flash_attn_bwd_dq", b, n, h, d, dtype)
-        assert (plan.tile, plan.blocks) == (64, blocks)
-        assert plan.warps == (4 if dtype == torch.bfloat16 else 8)
+        if dtype == torch.bfloat16:
+            assert (plan.tile, plan.warps, plan.blocks) == (64, 4, blocks)
+        else:
+            assert (plan.tile, plan.warps) == (fa.F32_BACKWARD_TILE, 8) == (32, 8)
+            assert plan.blocks == b * h * -(-n // 32)
 
 
 @pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
 def test_dq_launch_plan_shared_memory_is_what_the_source_lays_out(d):
     """bf16: q′ and dO of 64 rows + 2 stages of K and V of 64 keys, pitch
-    Dh + 8 (two blocks an SM at Dh = 128). float32: the FMA kernel's Q, dO,
-    K, V tiles of pitch Dh + 4 and one (64, 68) dU tile."""
+    Dh + 8 (two blocks an SM at Dh = 128). float32: 1 KB of alignment, the
+    32 own rows' hi and lo terms of q′ and dO, dU's two terms (32 × 64), two
+    slots of a tile's K and V (64 keys)."""
     bf16 = fa.launch_plan("flash_attn_bwd_dq", 8, 800, 4, d, torch.bfloat16)
     assert bf16.shared_bytes == 2 * (2 * 64 + 4 * 64) * (d + 8)
     fp32 = fa.launch_plan("flash_attn_bwd_dq", 8, 800, 4, d, torch.float32)
-    assert fp32.shared_bytes == 4 * (4 * 64 * (d + 4) + 64 * 68)
+    assert fp32.shared_bytes == 1024 + 4 * (4 * 32 * d + 2 * 32 * 64 + 2 * 2 * 64 * d)
+    assert fp32.shared_bytes <= fa.MAX_SHARED_BYTES
     if d == 128:
         assert bf16.shared_bytes == 104448 and 2 * bf16.shared_bytes <= 232448
 

@@ -216,6 +216,41 @@ def test_flash_attention_backward_kernels_match_plain_versions(cuda, shape, dtyp
         torch.testing.assert_close(g, w, **tol, msg=name)
 
 
+@pytest.mark.parametrize("q_shape,nk", [
+    ((8, 800, 4, 128), 800), ((1, 130, 3, 64), 130), ((1, 1000, 2, 32), 1000),
+    ((1, 17, 2, 64), 17),
+    # above 128: chunks of 256, and of 128 at an odd multiple of 128
+    ((2, 800, 2, 256), 800), ((1, 300, 1, 512), 300), ((1, 64, 1, 384), 64),
+    # a sequence-parallel chunk: q of 400 rows against 800 keys
+    ((8, 400, 4, 128), 800)])
+def test_float32_backward_kernels_match_plain_versions_bitwise_again(cuda, q_shape, nk):
+    """The float32 ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq`` (three
+    TF32 passes on ``wgmma``) against their plain versions at 1e-4 absolute,
+    one launch each; a second launch of each gives the same bits (every
+    output element is summed by one thread in a fixed order)."""
+    b, n, h, d = q_shape
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(size=(b, nk, 3, h, d)).astype(np.float32)).to(cuda)
+    q, k, v = qkv[:, :n, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.from_numpy(rng.normal(size=q_shape).astype(np.float32)).to(cuda)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    delta = fa.flash_attention_delta(out, dout)
+    fa.launches.reset()
+    dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta)
+    dq = fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta)
+    assert fa.launches.as_dict() == {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 1,
+                                     "flash_attn_bwd_dq": 1}
+    want_dk, want_dv = fa.flash_attn_bwd_dkv_reference(q, k, v, dout, lse, delta, q_block=400)
+    want_dq = fa.flash_attn_bwd_dq_reference(q, k, v, dout, lse, delta, q_block=400)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv), ("dq", dq, want_dq)):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=name)
+    again = (*fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta),
+             fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta))
+    for name, got, first in zip(("dk", "dv", "dq"), again, (dk, dv, dq)):
+        assert torch.equal(got, first), name
+
+
 def test_flash_attention_autograd_route_launches_all_three_kernels(cuda):
     """Under autograd on CUDA the front does not raise: forward and both
     backward kernels run, and the gradient of the fused qkv buffer agrees with
