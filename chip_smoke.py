@@ -12,18 +12,20 @@ What it does, in order:
    prints what ``ptxas`` says of the tensor-core kernels and how many ``HMMA``
    (``mma.sync``) and ``HGMMA`` (``wgmma``) instructions ``cuobjdump -sass``
    finds in the two flash-attention libraries and in each tensor-core kernel
-   (none is a failure, and so is a warpgroup kernel without ``HGMMA``; the
-   float32 backward kernel runs three TF32 passes on ``wgmma`` and is one),
+   (none is a failure, and so is an instance of a warpgroup kernel without
+   ``HGMMA``; the float32 forward and backward kernels run three TF32 passes
+   on ``wgmma`` and are two),
    with every warning ``ptxas`` gave (a serialized ``wgmma`` among them);
 2. calls each kernel's wrapper on CUDA tensors at the shapes the main path
    gives it (fp32 and bf16, plus ragged sizes) and holds the result against
-   the kernel's plain PyTorch version on the same inputs;
+   the kernel's plain PyTorch version on the same inputs (the float32
+   kernels also against a second launch, bit for bit);
 3. times kernel, plain version and — as a yardstick only, the port never calls
    it — the one PyTorch call that computes the same function, with CUDA
    events (warm-up, then the median of ``REPEATS`` single calls, device time
    only), beside the least time the card could take (bytes / 3.35 TB/s or
-   flops / peak rate; for the float32 backward kernels also at the 165
-   TFLOP/s of three TF32 passes on the tensor cores, ``*_bound_tc_ms``), and
+   flops / peak rate; for the float32 kernels also at the 165 TFLOP/s of
+   three TF32 passes on the tensor cores, ``*_bound_tc_ms``), and
    the host's time to issue one wrapper call; the
    flash kernels also at N = 51 200 (4 heads of 32), with the rate of the
    exponentials beside the operations bound; GroupNorm+SiLU also weighted by
@@ -159,13 +161,14 @@ What it does, in order:
 Phases 2 and 3 also hold the three flash kernels at head dims above 128
 (``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
 256 and 384; ``FLASH_LARGE_DH_CHUNK``: Nq ≠ Nk at Dh 512), which they take
-in column chunks (128 in the float32 forward, 256 in the float32 backward
-and the three bf16 warpgroup kernels, 128 at an odd multiple of 128),
+in column chunks (256 in the float32 backward and the three bf16 warpgroup
+kernels, 128 at an odd multiple of 128; the float32 forward holds every
+column up to Dh 512 and takes chunks of 512 above),
 against their plain versions at the bars of Dh 128, one launch a wrapper
 call, two launches of each kernel bitwise equal, and time them beside the
 plain versions, ``F.scaled_dot_product_attention`` and the bound at the true
-head dim, with the registers and spills ``ptxas`` gave each bf16 kernel and
-the bytes each copies from L2 into shared memory (``flash_large_dh_times``);
+head dim, with the registers and spills ``ptxas`` gave each kernel and the
+bytes each bf16 kernel copies from L2 into shared memory (``flash_large_dh_times``);
 and GroupNorm+SiLU at 4096 and 8192 channels (``GN_WIDE_CHANNELS``), compared
 and timed (``groupnorm_times_wide_channels``).
 
@@ -626,8 +629,14 @@ def compare_flash(rng):
     lse (fp32 on both sides) 1e-4; out 2e-3 + 1e-2 relative — each side rounds
     its unnormalised probabilities to bf16 against another max (running vs
     final) and the output once more, a few bf16 ulps of an output of size
-    ~0.1.
+    ~0.1. At every shape a second launch of the float32 kernel must give the
+    same bits (out and lse).
     """
+
+    def same_again(tag, q, k, v, out, lse):
+        again = fa.flash_attention_forward(q, k, v)
+        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+            raise AssertionError(f"flash {tag}: a second launch gave other bits")
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     shapes = [FLASH_MAIN, FLASH_TRAIN] + FLASH_OTHER
@@ -641,6 +650,8 @@ def compare_flash(rng):
             e = check_close(f"flash {key} {shape} out", out, ref_out, **tol)
             check_close(f"flash {key} {shape} lse", lse, ref_lse, atol=1e-4)
             worst[key] = max(worst[key], e)
+            if dtype == torch.float32:
+                same_again(f"{key} {shape}", q, k, v, out, lse)
     # N = 51 200: the plain version cannot hold N x N logits, but query rows
     # are independent, so it is run on chunks of the queries against all keys
     # (float32: 1e-5 on out, its values are of size ~0.01 at this length;
@@ -651,6 +662,8 @@ def compare_flash(rng):
         key = str(dtype).replace("torch.", "")
         q, k, v = flash_inputs(rng, FLASH_LONG, dtype)
         out, lse = fa.flash_attention_forward(q, k, v)
+        if dtype == torch.float32:
+            same_again(f"{key} {FLASH_LONG}", q, k, v, out, lse)
         for start in range(0, FLASH_LONG[1], 4096):
             rows = slice(start, start + 4096)
             ref_out, ref_lse = fa.flash_attention_reference(q[:, rows], k, v)
@@ -662,7 +675,7 @@ def compare_flash(rng):
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.synchronize()
     print(f"compare flash: {len(shapes) + 1} shapes x 2 dtypes ({FLASH_LONG} among them) ok, "
-          f"max abs err {json.dumps(worst)}")
+          f"float32 bitwise from launch to launch, max abs err {json.dumps(worst)}")
     return worst
 
 
@@ -1074,9 +1087,9 @@ def time_flash_large_dh(rng):
     block's warpgroups) and the bytes it copies from L2 into shared memory
     (``*_l2_bytes``), and for ``dkv`` and ``dq`` the time of the operations
     with P and dU entering as two bf16 terms, 1.5 and 4/3 times the
-    operations (``*_split_floor_ms``). float32 ``dkv`` and ``dq`` rows carry
-    the bound of fp32-grade products on the tensor cores as well
-    (``*_bound_tc_ms``) and the registers and spills of the instance that ran
+    operations (``*_split_floor_ms``). float32 rows carry the bound of
+    fp32-grade products on the tensor cores as well (``*_bound_tc_ms``) and
+    the registers and spills of the instance of each kernel that ran
     (``*_ptxas``)."""
     rows = []
     ptxas = wide_ptxas()
@@ -1135,6 +1148,7 @@ def time_flash_large_dh(rng):
                 if lib is not None:
                     row[f"{name}_library_ms"] = lib
             if dtype == torch.float32:
+                row["fwd_ptxas"] = ptxas.get(f32_fwd_instance(kd))
                 for name, dkv in (("dkv", True), ("dq", False)):
                     row[f"{name}_ptxas"] = ptxas.get(f32_instance(dkv, kd))
             if dtype == torch.bfloat16:
@@ -1340,11 +1354,11 @@ def time_groupnorm_backward(rng):
 
 
 def tensor_core_bound(name, flops, t_bytes, key):
-    """``{name}_bound_tc_ms`` of a float32 backward kernel: the larger of its
-    flops over the rate of fp32-grade products on the tensor cores
-    (``TF32X3_FLOPS``) and ``t_bytes`` ms, beside the CUDA-core bound that
-    ``PEAK_FLOPS`` gives; nothing for bf16 or the forward."""
-    if key != "float32" or name not in ("dkv", "dq"):
+    """``{name}_bound_tc_ms`` of a float32 flash kernel (``fwd``, ``dkv``,
+    ``dq``): the larger of its flops over the rate of fp32-grade products on
+    the tensor cores (``TF32X3_FLOPS``) and ``t_bytes`` ms, beside the
+    CUDA-core bound that ``PEAK_FLOPS`` gives; nothing for bf16."""
+    if key != "float32" or name not in ("fwd", "dkv", "dq"):
         return {}
     return {f"{name}_bound_tc_ms": max(flops / TF32X3_FLOPS * 1e3, t_bytes)}
 
@@ -1359,12 +1373,15 @@ def time_flash(rng):
     """The forward kernel, its plain version, the library yardstick and the
     bound, per shape. At N = 51 200 the plain version cannot hold its logits
     (``plain_ms`` is null there), fewer calls are timed, and ``exp_ms`` is the
-    time the card's special-function units need for the B·H·N² exponentials."""
+    time the card's special-function units need for the B·H·N² exponentials.
+    ``bound_tc_ms``: the bound of three TF32 passes on the tensor cores
+    (float32 rows; null for bf16)."""
 
     rows = []
     for shape, dtype, repeats in (
             (FLASH_MAIN, torch.bfloat16, REPEATS), (FLASH_MAIN, torch.float32, REPEATS),
             (FLASH_OTHER[0], torch.bfloat16, REPEATS), (FLASH_TRAIN, torch.bfloat16, REPEATS),
+            (FLASH_TRAIN, torch.float32, REPEATS),
             (FLASH_LONG, torch.bfloat16, LONG_REPEATS)):
         b, n, h, d = shape
         key = str(dtype).replace("torch.", "")
@@ -1389,6 +1406,7 @@ def time_flash(rng):
             "op_host_issue_us": host_issue_us(lambda: fa.flash_attn_fwd_op(q, k, v),
                                               calls=200 if shape != FLASH_LONG else 3),
             "plan": flash_plan_note("flash_attn_fwd", shape, dtype),
+            "bound_tc_ms": tensor_core_bound("fwd", flops, t_bytes, key).get("fwd_bound_tc_ms"),
         })
     print("flash_times " + json.dumps(rows))
     return rows
@@ -4548,6 +4566,8 @@ def wide_ptxas():
             name = m.group(0)
         elif m := F32_ENTRY.search(entry):
             name = f32_name(*m.groups())
+        elif m := F32_FWD_ENTRY.search(entry):
+            name = f32_fwd_name(*m.groups())
         else:
             continue
         names[name] = {"registers": regs, "spill_bytes": spilled}
@@ -4561,6 +4581,23 @@ F32_ENTRY = re.compile(r"flash_bwd_f32_kernelILb(\d)ELi(\d+)ELi(\d+)E")
 def f32_name(dkv, dh, cw):
     dh = ">= 384" if dh == "0" else dh
     return f"flash_bwd_f32_kernel<{'dkv' if dkv == '1' else 'dq'}, Dh {dh}, chunk {cw}>"
+
+
+# flash_fwd_f32_kernel<OWN, DH, CW> in a mangled entry name
+F32_FWD_ENTRY = re.compile(r"flash_fwd_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def f32_fwd_name(own, dh, cw):
+    dh = "> 512" if dh == "0" else dh
+    return f"flash_fwd_f32_kernel<{own} rows, Dh {dh}, chunk {cw}>"
+
+
+def f32_fwd_instance(kd):
+    """The float32 forward instance that runs at kernel head dim ``kd``
+    (``csrc/flash_attention_fwd.cu::dispatch_f32``)."""
+    plan = fa.launch_plan("flash_attn_fwd", 1, 1, 1, kd, torch.float32)
+    return f32_fwd_name(str(plan.tile), str(kd if plan.chunks == 1 else 0),
+                        str(kd // plan.chunks))
 
 
 def f32_instance(dkv, kd):
@@ -4587,8 +4624,9 @@ def report_ptxas(name):
             params = ", ".join(f"{label}={value}" for label, value in
                                zip(labels, re.findall(r"Li(\d+)E", m.group(2))))
             print(f"    {m.group(1)}<{params}>: {regs} registers, {spilled} bytes spilled")
-        elif m := F32_ENTRY.search(entry):
-            print(f"    {f32_name(*m.groups())} (three TF32 passes, wgmma): {regs} registers, "
+        elif m := F32_ENTRY.search(entry) or F32_FWD_ENTRY.search(entry):
+            label = (f32_name if m.re is F32_ENTRY else f32_fwd_name)(*m.groups())
+            print(f"    {label} (three TF32 passes, wgmma): {regs} registers, "
                   f"{spilled} bytes spilled")
         elif m := re.search(r"\d(flash_[a-z_]*wide[a-z_]*_kernel)", entry):
             chunks = "256-column chunks, wgmma" if "tc" in m.group(1) else "128-column chunks"
@@ -4599,7 +4637,7 @@ def report_ptxas(name):
 
 
 WGMMA_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_bwd_dkv_wide_tc_kernel",
-                 "flash_bwd_dq_wide_tc_kernel", "flash_bwd_f32_kernel")
+                 "flash_bwd_dq_wide_tc_kernel", "flash_bwd_f32_kernel", "flash_fwd_f32_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                        "flash_bwd_dq_tc_kernel") + WGMMA_KERNELS
 
@@ -4609,11 +4647,13 @@ def tensor_core_proof(libs):
     instructions in the machine code of the two flash-attention libraries
     and of each tensor-core kernel in them (all its instantiations
     together); a library or kernel without any did not get its tensor-core
-    code, and a warpgroup kernel (``WGMMA_KERNELS``) without ``HGMMA`` not
-    its warpgroup products."""
+    code, and an instance of a warpgroup kernel (``WGMMA_KERNELS``) without
+    ``HGMMA`` not its warpgroup products."""
     cuobjdump = _build.cuda_tool("cuobjdump")
     counts = {name: {"HMMA": 0, "HGMMA": 0}
               for name in ("flash_attention_fwd", "flash_attention_bwd") + TENSOR_CORE_KERNELS}
+
+    without = []   # instances of a warpgroup kernel without HGMMA
 
     def add(name, sass):
         for op in ("HMMA", "HGMMA"):
@@ -4627,12 +4667,15 @@ def tensor_core_proof(libs):
             kernel = next((k for k in TENSOR_CORE_KERNELS if k in function.split("\n", 1)[0]), None)
             if kernel:
                 add(kernel, function)
+                if kernel in WGMMA_KERNELS and not re.search(r"\bHGMMA\.", function):
+                    without.append(function.split("\n", 1)[0].strip())
     print("tensor_core_instructions " + json.dumps(counts))
     if min(sum(c.values()) for c in counts.values()) == 0:
         raise AssertionError(f"a flash-attention library or kernel holds no HMMA/HGMMA "
                              f"instruction: {counts}")
-    if min(counts[k]["HGMMA"] for k in WGMMA_KERNELS) == 0:
-        raise AssertionError(f"a warpgroup kernel holds no HGMMA instruction: {counts}")
+    if min(counts[k]["HGMMA"] for k in WGMMA_KERNELS) == 0 or without:
+        raise AssertionError(f"a warpgroup kernel holds no HGMMA instruction: {counts}, "
+                             f"instances without: {without}")
 
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
@@ -4648,13 +4691,16 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     max abs error by dtype and the times of ``time_flash_small_dh``) and the
     head dims above 128 (``large_head_dims``: run in column chunks, max abs
     error by dtype and the times of ``time_flash_large_dh``); the two backward
-    kernels their float32 times at the training batch (``float32``, with the
-    tensor-core bound of three TF32 passes beside the CUDA-core one);
+    kernels and the forward their float32 times at the training batch
+    (``float32``, with the tensor-core bound of three TF32 passes beside the
+    CUDA-core one);
     ``gn_silu_stats`` and ``gn_silu_apply`` their times at 4096 and 8192
     channels (``wide_channels``)."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
+    fl32 = next(r for r in flash_rows
+                if r["dtype"] == "float32" and tuple(r["shape"]) == FLASH_TRAIN)
     bw = bwd_rows[0]
     bw32 = next(r for r in bwd_rows if r["dtype"] == "float32")
     src_gn = "mrijax_torch/csrc/groupnorm_silu.cu"
@@ -4736,7 +4782,10 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
          **chunks("flash_attn_fwd", "fwd"), **small("flash_attn_fwd", "fwd"),
-         **large("flash_attn_fwd", "fwd")},
+         **large("flash_attn_fwd", "fwd"),
+         "float32": {"shape": fl32["shape"], "ms": fl32["ms"], "plain_ms": fl32["plain_ms"],
+                     "library_ms": fl32["library_ms"], "bound_ms": fl32["bound_ms"],
+                     "bound_tc_ms": fl32["bound_tc_ms"], "bound_by": fl32["bound_by"]}},
         # library_ms of the two backward kernels is one call that computes dq,
         # dk and dv together
         {"name": "flash_attn_bwd_dkv", "route": "cuda", "source": src_bwd,

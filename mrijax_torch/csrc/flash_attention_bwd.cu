@@ -146,6 +146,7 @@
 #include "common.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -1083,12 +1084,11 @@ flash_bwd_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 // flash_bwd_f32_kernel: the design notes at the top of the file.
 namespace f32 {
 
+using namespace tf32;   // TILE: rows of a tile of the other side; THREADS, ROW
+
 constexpr int OWN = 32;          // own rows of a block: keys (dkv), query rows (dq)
-constexpr int TILE = 64;         // rows of a tile of the other side
-constexpr int THREADS = 256;     // two warpgroups
 constexpr int PIECE = 64;        // logit columns of a unit above Dh 128
 constexpr int CHUNK = 128;       // output columns of an accumulating unit above Dh 128
-constexpr uint32_t ROW = 128;    // bytes of a tile row: 32 floats
 constexpr uint32_t TERM = OWN * TILE * 4;   // a P or dU term, [own][tile row]
 
 // Shared memory of one instance (DH = 0: above 128, but 256), in bytes from
@@ -1105,90 +1105,6 @@ struct Layout {
     static constexpr uint32_t stat = slots + 2 * slot;
     static constexpr size_t bytes = 1024 + stat + (DKV ? 2 * 2 * TILE * 4 : 0);
 };
-
-// Byte offset of (row r, column c) in a tile of `rows` rows kept as blocks
-// of 32 columns, [rows][128 bytes] each, in the 128-byte swizzle.
-__device__ __forceinline__ uint32_t at(int rows, int r, int c) {
-    return (c >> 5) * rows * ROW + r * ROW + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
-}
-
-// Where a B tile keeps index x of the summed dimension: in each group of 8
-// the even ones first (2i at i, 2i + 1 at 4 + i), as the A fragments take them.
-__device__ __forceinline__ int kpos(int x) {
-    return (x & ~7) | ((x & 1) << 2) | ((x & 7) >> 1);
-}
-
-// x = hi + lo as the TF32 products read them: hi = x with its 13 low
-// mantissa bits cleared (a TF32 value, used as it is), lo = x - hi (exact in
-// fp32), of which the tensor cores use the TF32 part, within 2^-10 of lo:
-// hi + lo is x to 2^-20.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = __float_as_uint(x) & 0xFFFFE000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// An A fragment of m64nNk8 tf32 (rows g, g + 8 of the warp's 16; k t, t + 4)
-// as hi and lo terms.
-struct Frag {
-    uint32_t hi[4], lo[4];
-};
-
-// d = A B + (scale_d ? d : 0): A (64 x 8) from registers, B (8 x 32) K-major
-// at descriptor b.
-__device__ __forceinline__ void m64n32k8(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-// d += A B in three TF32 passes, B's hi and lo terms at shared bhi, blo.
-__device__ __forceinline__ void mma3(float (&d)[4][4], const Frag& a, uint32_t bhi,
-                                     uint32_t blo, int keep) {
-    const uint64_t h = wgmma::desc_k(bhi), l = wgmma::desc_k(blo);
-    m64n32k8(d, a.hi, h, keep);
-    m64n32k8(d, a.hi, l, 1);
-    m64n32k8(d, a.lo, h, 1);
-}
-
-__device__ __forceinline__ float2 ld2(const unsigned char* p) {
-    return *reinterpret_cast<const float2*>(p);
-}
-
-// The fragment of k-step kk over a tile's columns (times mul), for tile rows
-// r and r + 8: columns 8 kk + 2t and + 1 as k t and t + 4.
-__device__ __forceinline__ void frag_rows(Frag& f, const unsigned char* x, int r, int kk, int t,
-                                          float mul) {
-    const int c = kk * 8 + 2 * t;
-    const float2 u = ld2(x + at(TILE, r, c)), w = ld2(x + at(TILE, r + 8, c));
-    split(u.x * mul, f.hi[0], f.lo[0]);
-    split(w.x * mul, f.hi[1], f.lo[1]);
-    split(u.y * mul, f.hi[2], f.lo[2]);
-    split(w.y * mul, f.hi[3], f.lo[3]);
-}
-
-// The fragment of k-step kk over a tile's rows of the transposed tile (times
-// mul): columns d and d + 1 as rows g and g + 8, rows 8 kk + 2t and + 1 as k
-// t and t + 4.
-__device__ __forceinline__ void frag_cols(Frag& f, const unsigned char* x, int d, int kk, int t,
-                                          float mul) {
-    const int r = kk * 8 + 2 * t;
-    const float2 u = ld2(x + at(TILE, r, d)), w = ld2(x + at(TILE, r + 1, d));
-    split(u.x * mul, f.hi[0], f.lo[0]);
-    split(u.y * mul, f.hi[1], f.lo[1]);
-    split(w.x * mul, f.hi[2], f.lo[2]);
-    split(w.y * mul, f.hi[3], f.lo[3]);
-}
 
 // c = (first ? 0 : c) + (x times mul) O^T over W columns: x the tile's rows
 // r, r + 8 (raw), O's hi and lo terms (OWN rows, blocks of 32 columns) at
@@ -1257,45 +1173,6 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[NI][4][4], const Item 
     wgmma::wait<0>();
 #pragma unroll
     for (int i = 0; i < NI; ++i) wgmma::fence_operand(acc[i]);
-}
-
-// ROWS rows x WC columns of a (B, N, H, Dh) operand from column col0 of row
-// row0 on, into a tile at shared address dst, 16-byte cp.async; rows beyond
-// N are zero-filled and not read.
-template <int ROWS, int WC>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const float* base, long long stride_n,
-                                          int row0, int N, int col0, int tid) {
-    constexpr int CPR = WC / 4, EACH = ROWS * CPR / THREADS;
-    static_assert(EACH * THREADS == ROWS * CPR, "the threads must share the chunks evenly");
-#pragma unroll
-    for (int i = 0; i < EACH; ++i) {
-        const int e = tid + i * THREADS, r = e / CPR, c = e % CPR * 4;
-        const bool ok = row0 + r < N;
-        const float* src = ok ? base + (long long)(row0 + r) * stride_n + col0 + c : base;
-        mma::cp_async_16_zfill(dst + at(ROWS, r, c), src, ok);
-    }
-}
-
-// After its own copies of copy_rows<OWN, WC>(raw) landed, a thread writes
-// the chunks it brought, times mul, as hi and lo terms at their kpos columns.
-template <int WC>
-__device__ __forceinline__ void split_own(unsigned char* hi, unsigned char* lo,
-                                          const unsigned char* raw, float mul, int tid) {
-    constexpr int CPR = WC / 4, EACH = OWN * CPR / THREADS;
-#pragma unroll
-    for (int i = 0; i < EACH; ++i) {
-        const int e = tid + i * THREADS, r = e / CPR, c = e % CPR * 4;
-        const float4 x = *reinterpret_cast<const float4*>(raw + at(OWN, r, c));
-        const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            uint32_t h, l;
-            split(xs[j] * mul, h, l);
-            const uint32_t o = at(OWN, r, kpos(c + j));
-            *reinterpret_cast<uint32_t*>(hi + o) = h;
-            *reinterpret_cast<uint32_t*>(lo + o) = l;
-        }
-    }
 }
 
 }  // namespace f32
@@ -1484,8 +1361,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             mma::cp_async_wait<0>();
             if (j == 0) {
                 const unsigned char* rp = sm.ptr + LY::slots + LY::slot;
-                split_own<W>(own_p, own_p + LY::own_t, rp, o1mul, tid);
-                split_own<W>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t, rp + LY::own_t, 1.f, tid);
+                split_own<W, OWN>(own_p, own_p + LY::own_t, rp, o1mul, tid);
+                split_own<W, OWN>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t, rp + LY::own_t, 1.f, tid);
             }
             wgmma::fence_proxy_async();
             __syncthreads();  // the tile (and the own terms) in place; slot j - 1 free
@@ -1529,8 +1406,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             copy_rows<OWN, DH>(slots + LY::slot, o2, o2n, own0, n_own, 0, tid);
             mma::cp_async_commit();
             mma::cp_async_wait<0>();
-            split_own<DH>(own_p, own_p + LY::own_t, sm.ptr + LY::slots, o1mul, tid);
-            split_own<DH>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t,
+            split_own<DH, OWN>(own_p, own_p + LY::own_t, sm.ptr + LY::slots, o1mul, tid);
+            split_own<DH, OWN>(own_p + 2 * LY::own_t, own_p + 3 * LY::own_t,
                           sm.ptr + LY::slots + LY::slot, 1.f, tid);
             __syncthreads();  // the raw rows read: the slots are free
         }
@@ -1546,8 +1423,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     // the own terms of this piece, into buffer u & 1 (its
                     // last readers, unit u - 2's logits, are done)
                     unsigned char* ob = own_p + (u & 1) * 4 * LY::own_t;
-                    split_own<PIECE>(ob, ob + LY::own_t, sp + 2 * LY::x_t, o1mul, tid);
-                    split_own<PIECE>(ob + 2 * LY::own_t, ob + 3 * LY::own_t,
+                    split_own<PIECE, OWN>(ob, ob + LY::own_t, sp + 2 * LY::x_t, o1mul, tid);
+                    split_own<PIECE, OWN>(ob + 2 * LY::own_t, ob + 3 * LY::own_t,
                                      sp + 2 * LY::x_t + LY::own_t, 1.f, tid);
                 }
                 wgmma::fence_proxy_async();

@@ -55,257 +55,73 @@
 //   computed on zeros and not stored): as before. The output tile is staged
 //   through the warp's own (dead) Q rows and written 16 bytes a lane.
 //
-// float32 -> flash_attn_fwd_kernel, fp32 FMAs from shared memory (the TPU
-// kernel runs fp32 at Precision.HIGHEST, which bf16 tensor cores do not give):
-// * One block per (batch*head, tile of BQ query rows); a loop inside the
-//   block walks the KV tiles, running max / sum / accumulator in registers.
-// * 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
-//   ty + 16*i (i < 4). For S = q'k^T it owns key columns tx + 16*j (j < 4);
-//   for acc += P V it owns a few columns of Dh. The 16 threads that share a
-//   row are the lanes of a half warp, so row max and row sum are four
-//   shuffles, and the alpha rescale needs no shared memory.
-// * Tiles are held in shared memory as fp32 with row pitch Dh + 4, so that
-//   the float4 reads along Dh of 8 neighbouring rows fall into distinct banks.
-// * q is scaled by Dh^-1/2 when the tile is loaded; P goes through shared
-//   memory for the PV product.
+// float32 -> flash_fwd_f32_kernel (namespace f32), on Hopper's warpgroup
+// products, at every head dim:
+// * What bounds it: operations. The TPU kernel runs fp32 at
+//   Precision.HIGHEST; here both products are three TF32 passes on wgmma
+//   (tf32.cuh: x = hi + lo, hi = x with its 13 low mantissa bits cleared,
+//   A B = hi hi + hi lo + lo hi in fp32): 4 B H Nq Nk Dh flops at 495 / 3 =
+//   165 TFLOP/s, against 67 on the CUDA cores. One TF32 pass, what
+//   allow_tf32 gives, is another function and misses the 1e-4 bar
+//   (tests/test_torch_flash_f32_forward.py emulates both).
+// * flash_bwd_f32_kernel's dq design turned into the forward. A block owns
+//   OWN query rows of one (batch, head) (64 up to Dh 256, 32 above: the
+//   q' terms and O^T must fit), two warpgroups, and streams the keys in
+//   tiles of 64. Both products run transposed, A from registers split as
+//   it is read, B from K-major tiles:
+//     logits  S^T  = K q'^T    (M: the tile's 64 keys, N: the own rows)
+//     P V     O^T += V^T P^T   (M: 64 columns of Dh,   N: the own rows)
+//   B of the logits is q' = fp32(q Dh^-1/2) split once into resident hi
+//   and lo terms [own][kpos(column)]; B of P V is P's terms [own][kpos(key)].
+// * The warpgroups halve both products: the logits along what they sum
+//   (each warpgroup half of every unit's columns; the two partial S^T meet
+//   in shared memory and are added), P V along what it writes (each
+//   warpgroup 64 of every 128 columns; at Dh 32 and 64 both compute the
+//   unit's columns and each stores its half).
+// * The softmax runs on the rows of that shared tile: the partial S^T sit
+//   at the P terms' places, and 256 / OWN consecutive threads take an own
+//   row, 64 OWN / 256 keys each, so its max and sum are two or three
+//   shuffles and no warp waits for another. Keys beyond Nk get -1e30 before
+//   the max; P = 2^(S log2 e - m log2 e) on ex2, split into P's terms in
+//   place; l sums the unrounded P in a fixed order; alpha = 2^((m_old - m)
+//   log2 e) goes through shared memory to the O^T columns.
+// * A tile's V^T P^T is summed from zero in the tensor cores and added to
+//   O^T by an fma in registers, O^T = alpha O^T + V^T P^T: the tensor
+//   cores' fp32 additions are not rounded to nearest, so a sum over all keys
+//   kept inside them drifts with N, and at N = 51 200 out missed its 1e-5
+//   bar on an H100 (scripts/probe_torch_flash_f32_fwd.py builds that
+//   variant, sum_in_tensor_cores). The products share one accumulator with
+//   the logits, which are dead by then.
+// * O^T stays in registers, CW OWN / 256 a thread (32 at Dh 128, 64 at 256
+//   and 512), so up to Dh 512 a block holds every output column and the
+//   logits are computed once. Above 512 the resident q' terms no longer fit beside
+//   the ring and O^T not in the registers: a block owns a chunk of CW = 512
+//   output columns (256 or 128 where Dh is no multiple of 512; grid z), q's
+//   rows come with K's in every logit unit and are split anew, and every
+//   chunk recomputes the logits.
+// * K and V come raw (cp.async, 4 bytes an element) through a ring of R
+//   slots (2 to 4, as many as fit) in units of 64 keys x min(Dh, 128)
+//   columns: Dh / 128 logit units of K, then CW / 128 P V units of V a
+//   tile, one block barrier a unit and one between the partial logits and
+//   the softmax. Shared memory at Dh 128: q' terms 64 KB, four 32 KB slots,
+//   P's terms 32 KB, alpha and l, 1 KB to align the swizzle: 226 KB, one
+//   block an SM.
+// * out = O / l and lse = m + log(max(l, 1e-30)) (chunk 0). Rows beyond Nq
+//   are zero-filled, computed and not stored. No atomics: every output is
+//   summed by one thread in a fixed order, so launches agree bit for bit.
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 256;   // threads per block
-constexpr int LDP = BK + 4;
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
     long long b, n, h;  // in elements; the last dimension has stride 1
 };
-
-template <int DH>
-constexpr size_t flash_smem_bytes() {
-    return sizeof(float) * (BQ * (DH + 4) + BK * (DH + 4) + BK * DH + BQ * LDP);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
-
-// s[i][j] += q'[ty + 16 i] . k[tx + 16 j] over W columns of two fp32 tiles
-// of pitch LD.
-template <int LD, int W>
-__device__ __forceinline__ void fma_logits(const float* Qs, const float* Ks,
-                                           int tx, int ty, float (&s)[4][4]) {
-#pragma unroll 2
-    for (int d = 0; d < W; d += 4) {
-        float4 qa[4], ka[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + d]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            ka[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-                s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-                s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-                s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-            }
-    }
-}
-
-// Keys beyond NK get -inf (only the last tile has any), then the online
-// softmax update of rows ty + 16 i: P, rounded to T, goes to Ps for the P V
-// product; running max m and sum l advance and acc is rescaled.
-template <typename T, int NC>
-__device__ __forceinline__ void fma_softmax(float (&s)[4][4], int k0, int NK,
-                                            float (&m)[4], float (&l)[4],
-                                            float (&acc)[4][NC], float* Ps,
-                                            int tx, int ty) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j >= NK) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
-        }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float mc = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-        mc = half_warp_max(mc);
-        const float mn = fmaxf(m[i], mc);
-        const float alpha = expf(m[i] - mn);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const float p = expf(s[i][j] - mn);
-            rs += p;
-            Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
-        }
-        rs = half_warp_sum(rs);
-        l[i] = alpha * l[i] + rs;
-        m[i] = mn;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-}
-
-// acc += P V for rows ty + 16 i, columns tx*CW + 16*CW*jj + w of a V tile
-// of pitch LDV.
-template <int LDV, int CW, int NJ>
-__device__ __forceinline__ void fma_pv(const float* Ps, const float* Vs, int tx,
-                                       int ty, float (&acc)[4][NJ * CW]) {
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-        float pa[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                &Ps[(ty + 16 * i) * LDP + kk]);
-            pa[i][0] = t.x;
-            pa[i][1] = t.y;
-            pa[i][2] = t.z;
-            pa[i][3] = t.w;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int jj = 0; jj < NJ; ++jj) {
-                const float* vp = &Vs[(kk + u) * LDV + tx * CW + 16 * CW * jj];
-                float vv[CW];
-                if constexpr (CW == 4) {
-                    const float4 t = *reinterpret_cast<const float4*>(vp);
-                    vv[0] = t.x;
-                    vv[1] = t.y;
-                    vv[2] = t.z;
-                    vv[3] = t.w;
-                } else {
-                    const float2 t = *reinterpret_cast<const float2*>(vp);
-                    vv[0] = t.x;
-                    vv[1] = t.y;
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int w = 0; w < CW; ++w)
-                        acc[i][jj * CW + w] =
-                            fmaf(pa[i][u], vv[w], acc[i][jj * CW + w]);
-            }
-        }
-    }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int NQ, int NK, int H, Strides qs,
-                      Strides ks, Strides vs, float scale) {
-    constexpr int LD = DH + 4;
-    // columns of Dh owned by a thread in the PV product: NJ pieces of CW
-    constexpr int CW = DH >= 64 ? 4 : DH / 16;
-    constexpr int NJ = DH / (16 * CW);
-    static_assert(CW == 4 || CW == 2,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_fwd_wide_kernel)");
-    static_assert(NJ * CW * 16 == DH,
-                  "one-piece instances take Dh 32, 64 or 128; a larger Dh runs "
-                  "in 128-column chunks (flash_attn_fwd_wide_kernel)");
-
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;            // [BQ][LD]  q', fp32
-    float* Ks = Qs + BQ * LD;    // [BK][LD]
-    float* Vs = Ks + BK * LD;    // [BK][DH]
-    float* Ps = Vs + BK * DH;    // [BQ][LDP]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int q0 = blockIdx.x * BQ;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h;
-
-    for (int e = tid; e < BQ * DH; e += NT) {
-        const int r = e / DH, d = e % DH;
-        const int n = q0 + r;
-        float x = 0.f;
-        if (n < NQ) x = round_to<T>(to_float<T>(qb[n * qs.n + d]) * scale);
-        Qs[r * LD + d] = x;
-    }
-
-    float m[4], l[4], acc[4][NJ * CW];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = NEG_INF;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NJ * CW; ++c) acc[i][c] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < NK; k0 += BK) {
-        // the previous tile's readers are done (first pass: orders the Q store)
-        __syncthreads();
-        for (int e = tid; e < BK * DH; e += NT) {
-            const int r = e / DH, d = e % DH;
-            const int n = k0 + r;
-            float kx = 0.f, vx = 0.f;
-            if (n < NK) {
-                kx = to_float<T>(kb[n * ks.n + d]);
-                vx = to_float<T>(vb[n * vs.n + d]);
-            }
-            Ks[r * LD + d] = kx;
-            Vs[r * DH + d] = vx;
-        }
-        __syncthreads();
-
-        // S = q' k^T for rows ty + 16 i, keys tx + 16 j
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        fma_logits<LD, DH>(Qs, Ks, tx, ty, s);
-        fma_softmax<T, NJ * CW>(s, k0, NK, m, l, acc, Ps, tx, ty);
-        __syncthreads();
-        fma_pv<DH, CW, NJ>(Ps, Vs, tx, ty, acc);
-    }
-
-    // every valid row has seen at least one valid key, so l >= 1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = q0 + ty + 16 * i;
-        if (n >= NQ) continue;
-        T* orow = out + (((long long)b * NQ + n) * H + h) * DH;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                orow[col] = from_float<T>(acc[i][jj * CW + w] / l[i]);
-            }
-        if (tx == 0) lse[(long long)bh * NQ + n] = m[i] + logf(l[i]);
-    }
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -592,116 +408,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------------------- Dh above 128
 //
 // The wrapper zero-pads a head dim above 128 to a multiple of WIDE = 128.
-// Both types take Dh in column chunks: a block owns a tile of query rows and
-// ONE chunk of output columns (grid z), so its fp32 accumulator fits the
-// register file at any Dh; it computes the logits over all of Dh and P V for
-// its own chunk of V only. Every chunk computes the same logits and lse;
-// chunk 0 writes lse. float32: chunks of WIDE, below; bfloat16: chunks of
-// 256 on warpgroup products, flash_fwd_wide_tc_kernel further down.
+// bfloat16 takes it in column chunks: a block owns a tile of query rows and
+// ONE chunk of 256 output columns (grid z), so its fp32 accumulator fits
+// the register file at any Dh; it computes the logits over all of Dh and
+// P V for its own chunk of V only. Every chunk computes the same logits and
+// lse; chunk 0 writes lse. float32 is flash_fwd_f32_kernel, further down.
 
-constexpr int WIDE = 128;                  // columns of a piece and of a chunk (fp32)
-
-// float32: 256 threads as in flash_attn_fwd_kernel; one piece of q' and of
-// K at a time (plain loads, two barriers a piece), then the chunk of V into
-// K's tile for the P V product.
-constexpr size_t flash_wide_smem_bytes() {
-    return sizeof(float) * (BQ * (WIDE + 4) + BK * (WIDE + 4) + BQ * LDP);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_wide_piece(float* dst, const T* base,
-                                                long long stride_n, int row0,
-                                                int N, float scale, bool scaled,
-                                                int tid) {
-    constexpr int LD = WIDE + 4;
-    for (int e = tid; e < 64 * WIDE; e += NT) {
-        const int r = e / WIDE, d = e % WIDE;
-        const int n = row0 + r;
-        float x = 0.f;
-        if (n < N) {
-            x = to_float<T>(base[n * stride_n + d]);
-            if (scaled) x = round_to<T>(x * scale);
-        }
-        dst[r * LD + d] = x;
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_attn_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse, int NQ, int NK, int H,
-                           int DH, Strides qs, Strides ks, Strides vs,
-                           float scale) {
-    constexpr int LD = WIDE + 4;
-    constexpr int CW = 4;                  // columns a thread owns per piece
-    constexpr int NJ = WIDE / (16 * CW);   // pieces of CW columns
-    constexpr int NC = NJ * CW;
-
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;            // [BQ][LD]  a piece of q', fp32
-    float* Ks = Qs + BQ * LD;    // [BK][LD]  a piece of K, then the chunk of V
-    float* Ps = Ks + BK * LD;    // [BQ][LDP]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh % H;
-    const int q0 = blockIdx.x * BQ;
-    const int chunk = blockIdx.z;
-    const int pieces = DH / WIDE;
-
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + h * ks.h;
-    const T* vb = v + b * vs.b + h * vs.h + chunk * WIDE;
-
-    float m[4], l[4], acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = NEG_INF;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < NK; k0 += BK) {
-        // S = q' k^T over all of Dh, a piece of WIDE columns at a time
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int c = 0; c < pieces; ++c) {
-            __syncthreads();  // the readers of the last piece (or of V) are done
-            load_wide_piece<T>(Qs, qb + c * WIDE, qs.n, q0, NQ, scale, true, tid);
-            load_wide_piece<T>(Ks, kb + c * WIDE, ks.n, k0, NK, 1.f, false, tid);
-            __syncthreads();
-            fma_logits<LD, WIDE>(Qs, Ks, tx, ty, s);
-        }
-        fma_softmax<T, NC>(s, k0, NK, m, l, acc, Ps, tx, ty);
-        __syncthreads();  // K's tile is free, P is visible
-        load_wide_piece<T>(Ks, vb, vs.n, k0, NK, 1.f, false, tid);
-        __syncthreads();
-        fma_pv<LD, CW, NJ>(Ps, Ks, tx, ty, acc);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = q0 + ty + 16 * i;
-        if (n >= NQ) continue;
-        T* orow = out + (((long long)b * NQ + n) * H + h) * DH + chunk * WIDE;
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-            for (int w = 0; w < CW; ++w) {
-                const int col = tx * CW + 16 * CW * jj + w;
-                orow[col] = from_float<T>(acc[i][jj * CW + w] / l[i]);
-            }
-        if (chunk == 0 && tx == 0) lse[(long long)bh * NQ + n] = m[i] + logf(l[i]);
-    }
-}
+constexpr int WIDE = 128;                  // the multiple a head dim above 128 is padded to
 
 // bfloat16: flash_fwd_wide_tc_kernel, the TPU's _flash_kernel for Dh =
 // 128 P, P >= 2, on Hopper's warpgroup products (wgmma.mma_async, see
@@ -994,6 +707,342 @@ flash_fwd_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------- float32
+//
+// flash_fwd_f32_kernel: the design notes at the top of the file.
+namespace f32 {
+
+using namespace tf32;   // TILE: keys of a tile; THREADS, ROW
+
+constexpr int UNIT = 128;          // columns of a unit above Dh 128
+constexpr int MAX_SMEM = 232448;   // shared bytes a block may ask for
+
+// Own query rows of a block at head dim DH (0: above 512).
+constexpr int own_rows(int dh) { return dh && dh <= 256 ? 64 : 32; }
+
+// Shared memory of one instance (DH = 0: above 512, q streamed), in bytes
+// from a 1024-byte boundary: the q' terms (streamed: two buffers of a
+// unit's), a ring of R slots of units, the P terms, alpha and l of the own
+// rows.
+template <int OWN, int DH>
+struct Layout {
+    static constexpr bool RES = DH > 0;                              // q' terms resident
+    static constexpr int UW = RES && DH < UNIT ? DH : UNIT;          // columns of a unit
+    static constexpr uint32_t own_t = OWN * (RES ? DH : UW) * 4;     // one q' term
+    static constexpr uint32_t kv = TILE * UW * 4;                    // K or V of a unit
+    static constexpr uint32_t slot = kv + (RES ? 0 : OWN * UW * 4);  // streamed: and q's rows
+    static constexpr uint32_t term = OWN * TILE * 4;                 // a P term, [own][key]
+    static constexpr uint32_t own = 0, slots = (RES ? 2 : 4) * own_t;
+    static constexpr int rest = MAX_SMEM - 1024 - (int)slots - 2 * (int)term - 8 * OWN;
+    static constexpr int R = rest / (int)slot < 4 ? rest / (int)slot : 4;   // slots of the ring
+    static constexpr uint32_t p = slots + R * slot, alpha = p + 2 * term, l = alpha + 4 * OWN;
+    static constexpr size_t bytes = 1024 + l + 4 * OWN;
+    static_assert(R >= 2 && bytes <= MAX_SMEM, "a ring of two slots at least");
+    static_assert(!RES || R * slot >= own_t, "q's rows come in through the slots");
+};
+
+// c (+)= S^T over one logit unit: the unit's K rows r, r + 8 (raw, split as
+// read) times the q' terms at bhi, blo, over this warpgroup's half of the
+// unit's UW columns, k-steps kb0 on of the terms' (blocks of 32 columns, NF
+// 8 rows). With `first` the sum starts from zero. B k-steps a batch (fewer
+// where Dh is UW), the next batch's fragments made while the last one's
+// products run.
+template <int NF, int UW, int B>
+__device__ __forceinline__ void logits(float (&c)[NF][4], const unsigned char* x, uint32_t bhi,
+                                       uint32_t blo, int kb0, int r, int t, int wg, bool first) {
+    constexpr int STEPS = UW / 16, BATCH = STEPS < B ? STEPS : B, BATCHES = STEPS / BATCH;
+    constexpr uint32_t BLOCK = NF * 8 * ROW;
+    Frag f[2][BATCH];
+    wgmma::fence_operand(c);
+#pragma unroll
+    for (int bt = 0; bt < BATCHES; ++bt) {
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s)
+            frag_rows(f[bt & 1][s], x, r, wg * STEPS + bt * BATCH + s, t, 1.f);
+        wgmma::fence();
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) {
+            const int kk = kb0 + wg * STEPS + bt * BATCH + s;
+            const uint32_t off = (kk >> 2) * BLOCK + (kk & 3) * 32;
+            mma3(c, f[bt & 1][s], bhi + off, blo + off, !first || bt * BATCH + s > 0);
+        }
+        wgmma::commit();
+        wgmma::wait<1>();
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(c);
+}
+
+// o = V^T P^T over one tile of 64 keys, summed from zero: A the V unit's
+// columns d, d + 1 (raw, split as read), B the P terms at phi, plo; BATCH
+// k-steps a batch.
+template <int NF, int BATCH>
+__device__ __forceinline__ void pv(float (&o)[NF][4], const unsigned char* x, int d, uint32_t phi,
+                                   uint32_t plo, int t) {
+    constexpr int BATCHES = TILE / 8 / BATCH;
+    constexpr uint32_t BLOCK = NF * 8 * ROW;
+    Frag f[2][BATCH];
+    wgmma::fence_operand(o);
+#pragma unroll
+    for (int bt = 0; bt < BATCHES; ++bt) {
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) frag_cols(f[bt & 1][s], x, d, bt * BATCH + s, t, 1.f);
+        wgmma::fence();
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) {
+            const int kk = bt * BATCH + s;
+            const uint32_t off = (kk >> 2) * BLOCK + (kk & 3) * 32;
+            mma3(o, f[bt & 1][s], phi + off, plo + off, kk > 0);
+        }
+        wgmma::commit();
+        wgmma::wait<1>();
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(o);
+}
+
+// The key that position x of a [own][kpos(key)] row holds (kpos inverted).
+__device__ __forceinline__ int key_at(int x) {
+    return (x & ~7) | ((x & 3) << 1) | ((x >> 2) & 1);
+}
+
+}  // namespace f32
+
+// OWN query rows a block. DH: 32, 64, 128, 256, 384 or 512 (CW = DH: the
+// q' terms resident, every output column); or 0 above 512 (Dh): a block
+// owns a chunk of CW = 512, 256 or 128 output columns (grid z), q streamed.
+template <int OWN, int DH, int CW>
+__global__ void __launch_bounds__(f32::THREADS, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int NQ, int NK, int H, int Dh, Strides qs,
+                     Strides ks, Strides vs, float scale) {
+    using namespace f32;
+    using LY = Layout<OWN, DH>;
+    constexpr bool RES = LY::RES;
+    constexpr int UW = LY::UW, R = LY::R;
+    constexpr int NF = OWN / 8;          // 8-column fragments of the own rows
+    constexpr int NP = CW / UW;          // P V units a tile: a 64-column block of O^T each
+    constexpr int HALF = UW / 2;         // a warpgroup's columns of a unit
+    constexpr int TPC = THREADS / OWN;   // softmax threads of an own row
+    constexpr int KPT = TILE / TPC;      // keys of a softmax thread
+    constexpr int BATCH = NP > 1 ? 2 : 4;   // k-steps a batch of products (registers)
+    static_assert(RES ? CW == DH : CW % UNIT == 0, "a chunk of whole units");
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = mma::smem_addr(smem_raw);
+    const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+    unsigned char* const sp = smem_raw + pad;
+    const uint32_t sa = raw + pad;
+    float* const alpha_s = reinterpret_cast<float*>(sp + LY::alpha);
+    float* const l_s = reinterpret_cast<float*>(sp + LY::l);
+
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    const int wq = (tid & 127) >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int r = 16 * wq + g;    // the fragments' key (and r + 8)
+    // the softmax thread's own row, and its keys' places KPT sq .. in the terms
+    const int scol = tid / TPC, sq = tid % TPC;
+    // O^T rows of this warpgroup in a P V unit: columns dcol, dcol + 1 of
+    // the unit (wrapped below 128: computed, stored from one warpgroup)
+    const int dloc = 16 * wq + 2 * g, dcol = (wg * HALF + dloc) % UW;
+    const int bh = blockIdx.y;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int own0 = blockIdx.x * OWN;
+    const int c0 = RES ? 0 : blockIdx.z * CW;
+    const int DHT = RES ? DH : Dh;
+    const int NL = DHT / UW;             // logit units a tile
+    const int per_tile = NL + NP;
+    const int ntiles = (NK + TILE - 1) / TILE, total = ntiles * per_tile;
+
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* kb = k + b * ks.b + h * ks.h;
+    const float* vb = v + b * vs.b + h * vs.h;
+
+    // unit u of the stream: of tile u / per_tile a logit unit (K's columns
+    // of the unit; streamed: q's too) or a P V unit (V's columns of the chunk)
+    auto load_unit = [&](int u) {
+        if (u >= total) return;
+        const int j = u / per_tile, w = u - j * per_tile;
+        const uint32_t slot = sa + LY::slots + (u % R) * LY::slot;
+        if (w < NL) {
+            copy_rows<TILE, UW>(slot, kb, ks.n, j * TILE, NK, w * UW, tid);
+            if constexpr (!RES)
+                copy_rows<OWN, UW>(slot + LY::kv, qb, qs.n, own0, NQ, w * UW, tid);
+        } else {
+            copy_rows<TILE, UW>(slot, vb, vs.n, j * TILE, NK, c0 + (w - NL) * UW, tid);
+        }
+    };
+    if constexpr (RES) {
+        // the own rows, raw, through the slots, and their terms once for the block
+        copy_rows<OWN, DH>(sa + LY::slots, qb, qs.n, own0, NQ, 0, tid);
+        mma::cp_async_commit();
+        mma::cp_async_wait<0>();
+        split_own<DH, OWN>(sp + LY::own, sp + LY::own + LY::own_t, sp + LY::slots, scale, tid);
+        __syncthreads();  // the raw rows read: the slots are free
+    }
+#pragma unroll
+    for (int u = 0; u < R - 1; ++u) {
+        load_unit(u);
+        mma::cp_async_commit();
+    }
+
+    // O^T, and the products' accumulator: a tile's partial logits, then its
+    // V^T P^T of one unit, summed from zero in the tensor cores and added to
+    // O^T in registers, so that no sum runs longer than a tile inside them
+    // (their fp32 additions are not rounded to nearest)
+    float o[NP][NF][4], c[NF][4];
+#pragma unroll
+    for (int a = 0; a < NP; ++a)
+#pragma unroll
+        for (int jn = 0; jn < NF; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[a][jn][e] = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < NF; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[jn][e] = 0.f;
+    float m = NEG_INF, l = 0.f;   // the softmax thread's own row
+
+    unsigned char* const part = sp + LY::p;   // P hi; P lo LY::term on
+    // Every loop runs at least once (NK >= 1, NL >= 1): a path around one
+    // would carry an accumulator past a wait without a product, and ptxas
+    // would serialize the products.
+    int u = 0, j = 0;
+    do {
+        int lu = 0;
+        do {
+            mma::cp_async_wait<R - 2>();  // unit u landed
+            const unsigned char* x = sp + LY::slots + (u % R) * LY::slot;
+            uint32_t bq = sa + LY::own;
+            int kb0 = lu * (UW / 8);
+            if constexpr (!RES) {
+                // this unit's q' terms, into buffer u & 1 (its last readers,
+                // unit u - 2's products, are done)
+                unsigned char* ob = sp + LY::own + (u & 1) * 2 * LY::own_t;
+                split_own<UW, OWN>(ob, ob + LY::own_t, x + LY::kv, scale, tid);
+                bq += (u & 1) * 2 * LY::own_t;
+                kb0 = 0;
+            }
+            wgmma::fence_proxy_async();
+            __syncthreads();  // unit u in place; slot u - 1 free
+            load_unit(u + R - 1);
+            mma::cp_async_commit();
+            logits<NF, UW, BATCH>(c, x, bq, bq + LY::own_t, kb0, r, t, wg, lu == 0);
+            ++u;
+        } while (++lu < NL);
+
+        // The two partial S^T, [own][kpos(key)]: warpgroup 0's at the P hi
+        // term, 1's at P lo (their last readers, the last tile's P V, are
+        // done); then the softmax thread of own row scol takes the places
+        // KPT sq .. KPT sq + KPT - 1 of its row in both, adds them, and
+        // writes P's terms there.
+#pragma unroll
+        for (int jn = 0; jn < NF; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                *reinterpret_cast<float*>(part + wg * LY::term +
+                                          at(OWN, 8 * jn + 2 * t + (e & 1), kpos(r + 8 * (e >> 1)))) =
+                    c[jn][e];
+        __syncthreads();  // the partial logits in place
+        {
+            const int k0 = j * TILE;
+            float s[KPT];
+#pragma unroll
+            for (int i = 0; i < KPT / 4; ++i) {
+                const uint32_t o4 = at(OWN, scol, sq * KPT + 4 * i);
+                const float4 s0 = *reinterpret_cast<const float4*>(part + o4);
+                const float4 s1 = *reinterpret_cast<const float4*>(part + LY::term + o4);
+                s[4 * i] = s0.x + s1.x;
+                s[4 * i + 1] = s0.y + s1.y;
+                s[4 * i + 2] = s0.z + s1.z;
+                s[4 * i + 3] = s0.w + s1.w;
+            }
+            if (k0 + TILE > NK) {
+#pragma unroll
+                for (int e = 0; e < KPT; ++e)
+                    if (k0 + key_at(sq * KPT + e) >= NK) s[e] = NEG_INF;
+            }
+            float mc = NEG_INF;
+#pragma unroll
+            for (int e = 0; e < KPT; ++e) mc = fmaxf(mc, s[e]);
+#pragma unroll
+            for (int off = 1; off < TPC; off <<= 1)
+                mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
+            const float mn = fmaxf(m, mc);
+            const float alpha = mma::fast_exp2((m - mn) * mma::LOG2E);
+            const float mn2 = mn * mma::LOG2E;
+            float rs = 0.f;
+#pragma unroll
+            for (int i = 0; i < KPT / 4; ++i) {
+                uint32_t hi[4], lo[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float pe = mma::fast_exp2(fmaf(s[4 * i + e], mma::LOG2E, -mn2));
+                    rs += pe;
+                    split(pe, hi[e], lo[e]);
+                }
+                const uint32_t o4 = at(OWN, scol, sq * KPT + 4 * i);
+                *reinterpret_cast<uint4*>(part + o4) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+                *reinterpret_cast<uint4*>(part + LY::term + o4) =
+                    make_uint4(lo[0], lo[1], lo[2], lo[3]);
+            }
+#pragma unroll
+            for (int off = 1; off < TPC; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+            l = alpha * l + rs;
+            m = mn;
+            if (sq == 0) alpha_s[scol] = alpha;
+            wgmma::fence_proxy_async();
+        }
+
+#pragma unroll
+        for (int a = 0; a < NP; ++a) {
+            mma::cp_async_wait<R - 2>();  // unit u landed
+            __syncthreads();  // ... for all; P and alpha in place; slot u - 1 free
+            load_unit(u + R - 1);
+            mma::cp_async_commit();
+            pv<NF, BATCH>(c, sp + LY::slots + (u % R) * LY::slot, dcol, sa + LY::p,
+                          sa + LY::p + LY::term, t);
+            // O^T = alpha O^T + the tile's, per column (own rows 8 jn + 2t, + 1)
+#pragma unroll
+            for (int jn = 0; jn < NF; ++jn) {
+                const float2 al = *reinterpret_cast<const float2*>(alpha_s + 8 * jn + 2 * t);
+                o[a][jn][0] = fmaf(o[a][jn][0], al.x, c[jn][0]);
+                o[a][jn][1] = fmaf(o[a][jn][1], al.y, c[jn][1]);
+                o[a][jn][2] = fmaf(o[a][jn][2], al.x, c[jn][2]);
+                o[a][jn][3] = fmaf(o[a][jn][3], al.y, c[jn][3]);
+            }
+            ++u;
+        }
+    } while (++j < ntiles);
+
+    // lse of the own rows (chunk 0), l for the division; out = O / l as
+    // 8-byte pieces (columns dcol, dcol + 1) of the rows below Nq; every
+    // valid row has seen a valid key, so l >= 1
+    if (sq == 0) {
+        l_s[scol] = l;
+        const int n = own0 + scol;
+        if (c0 == 0 && n < NQ) lse[(long long)bh * NQ + n] = m + logf(fmaxf(l, 1e-30f));
+    }
+    __syncthreads();
+    if (dloc >= HALF) return;
+#pragma unroll
+    for (int a = 0; a < NP; ++a) {
+        const int d = c0 + a * UW + dcol;
+#pragma unroll
+        for (int jn = 0; jn < NF; ++jn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int n = own0 + 8 * jn + 2 * t + e;
+                if (n >= NQ) continue;
+                const float lv = l_s[8 * jn + 2 * t + e];
+                *reinterpret_cast<float2*>(out + (((long long)b * NQ + n) * H + h) * DHT + d) =
+                    make_float2(o[a][jn][e] / lv, o[a][jn][e + 2] / lv);
+            }
+    }
+}
+
 struct Args {
     const void *q, *k, *v;
     void* out;
@@ -1009,19 +1058,6 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int DH>
-int launch_fma(const Args& a) {
-    auto kernel = flash_attn_fwd_kernel<float, DH>;
-    constexpr size_t smem = flash_smem_bytes<DH>();
-    if (int err = raise_smem_limit(kernel, smem)) return err;
-    const dim3 grid((unsigned)((a.NQ + BQ - 1) / BQ), (unsigned)(a.B * a.H));
-    kernel<<<grid, NT, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
-        a.NQ, a.NK, a.H, a.qs, a.ks, a.vs, a.scale);
-    return (int)cudaGetLastError();
 }
 
 template <int DH, int NWARPS, int MT>
@@ -1062,20 +1098,37 @@ int launch_wide_tc(const Args& a, int Dh) {
 
 bool wide_head_dim(int Dh) { return Dh > WIDE && Dh % WIDE == 0; }
 
-// float32: the FMA kernel, whose tile is fixed at BQ rows.
-int dispatch_fma(int Dh, int tile, const Args& a) {
-    if (tile != BQ) return (int)cudaErrorInvalidValue;
+// float32: flash_fwd_f32_kernel, OWN query rows a block; above Dh 512 one
+// chunk of CW output columns a block (grid z).
+template <int OWN, int DH, int CW = DH>
+int launch_f32(const Args& a, int Dh) {
+    auto kernel = flash_fwd_f32_kernel<OWN, DH, CW>;
+    constexpr size_t smem = f32::Layout<OWN, DH>::bytes;
+    if (int err = raise_smem_limit(kernel, smem)) return err;
+    const dim3 grid((unsigned)((a.NQ + OWN - 1) / OWN), (unsigned)(a.B * a.H),
+                    (unsigned)(DH ? 1 : Dh / CW));
+    kernel<<<grid, f32::THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.NQ, a.NK, a.H, Dh,
+        a.qs, a.ks, a.vs, a.scale);
+    return (int)cudaGetLastError();
+}
+
+int dispatch_f32(int Dh, const Args& a) {
+    using f32::own_rows;
     switch (Dh) {
-        case 32: return launch_fma<32>(a);
-        case 64: return launch_fma<64>(a);
-        case 128: return launch_fma<128>(a);
+        case 32: return launch_f32<own_rows(32), 32>(a, Dh);
+        case 64: return launch_f32<own_rows(64), 64>(a, Dh);
+        case 128: return launch_f32<own_rows(128), 128>(a, Dh);
+        case 256: return launch_f32<own_rows(256), 256>(a, Dh);
+        case 384: return launch_f32<own_rows(384), 384>(a, Dh);
+        case 512: return launch_f32<own_rows(512), 512>(a, Dh);
     }
-    if (wide_head_dim(Dh))
-        return launch_wide(flash_attn_fwd_wide_kernel<float>, flash_wide_smem_bytes(),
-                           BQ, NT, WIDE, a, Dh, static_cast<const float*>(a.q),
-                           static_cast<const float*>(a.k),
-                           static_cast<const float*>(a.v),
-                           static_cast<float*>(a.out), a.lse);
+    if (wide_head_dim(Dh)) {
+        if (Dh % 512 == 0) return launch_f32<own_rows(0), 0, 512>(a, Dh);
+        if (Dh % 256 == 0) return launch_f32<own_rows(0), 0, 256>(a, Dh);
+        return launch_f32<own_rows(0), 0, 128>(a, Dh);
+    }
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1114,13 +1167,15 @@ int dispatch_tc(int Dh, int tile, const Args& a) {
 // head) strides given in elements, last dimension contiguous; for bfloat16
 // every row start must be 16-byte aligned. out: contiguous (B, N, H, Dh) of
 // the input type. lse: contiguous fp32 (B*H, N). `tile` is the number of query
-// rows per block from the wrapper's launch plan: 64 or 128 for bfloat16 (at
-// any Dh), 64 for float32. Dh: 32, 64, 128 or a multiple of 128 (the wrapper
+// rows per block of the bfloat16 kernels from the wrapper's launch plan: 64
+// or 128 (at any Dh); float32 does not read it (its rows are
+// f32::own_rows(Dh)). Dh: 32, 64, 128 or a multiple of 128 (the wrapper
 // zero-pads the others).
-// The kernel is chosen by dtype, here: float32 runs the FMA kernel, bfloat16
-// the tensor-core kernel; neither stands in for the other. Returns the
-// cudaError_t of the launch (0 on success); launches on `stream`, does not
-// synchronise, allocates nothing.
+// The kernel is chosen by dtype, here: float32 runs flash_fwd_f32_kernel
+// (three TF32 passes on wgmma), bfloat16 flash_fwd_tc_kernel at Dh <= 128
+// and flash_fwd_wide_tc_kernel above; neither type stands in for the other.
+// Returns the cudaError_t of the launch (0 on success); launches on
+// `stream`, does not synchronise, allocates nothing.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int dtype, int B, int N,
                               int Nk, int H, int Dh, int tile, long long qsb,
@@ -1132,7 +1187,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                  Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh},
                  Strides{vsb, vsn, vsh}, (float)scale,
                  static_cast<cudaStream_t>(stream)};
-    if (dtype == MRI_DTYPE_F32) return dispatch_fma(Dh, tile, a);
+    if (dtype == MRI_DTYPE_F32) return dispatch_f32(Dh, a);
     if (dtype == MRI_DTYPE_BF16) return dispatch_tc(Dh, tile, a);
     return (int)cudaErrorInvalidValue;
 }

@@ -16,12 +16,13 @@ CUDA kernels:
 
 For bfloat16 inputs all three run on the tensor cores (bf16 ``mma``, bf16
 tiles in shared memory filled by 16-byte asynchronous copies). For float32
-inputs the forward's products are fp32 FMAs, and the two backward kernels'
-are fp32-grade on the tensor cores: three TF32 passes (x = hi + lo, hi cut
-to TF32; hi·hi + hi·lo + lo·hi) on Hopper's warpgroup products, the
-TPU kernels' ``Precision.HIGHEST``, 32 keys (dkv) or query rows (dq) a
-block. The C entry picks by dtype. ``launch_plan`` chooses the forward's
-rows per block and reports the others'.
+inputs all three are fp32-grade on the tensor cores: three TF32 passes
+(x = hi + lo, hi cut to TF32; hi·hi + hi·lo + lo·hi) on Hopper's warpgroup
+products, the TPU kernels' ``Precision.HIGHEST``; the forward owns 64 query
+rows a block up to Dh 256 and 32 above, the backward 32 keys (dkv) or query
+rows (dq). Every kernel reads its operands in 16-byte asynchronous copies.
+The C entry picks by dtype. ``launch_plan`` chooses the bf16 forward's rows
+per block and reports the others'.
 
 API: q of shape (B, N, H, Dh), k and v of shape (B, Nk, H, Dh) → out
 (B, N, H, Dh) in the input dtype, lse fp32 (B·H, N); Nk = N is
@@ -36,7 +37,9 @@ any multiple of ``COLUMN_CHUNK`` = 128 above that in column chunks: a block
 owns one chunk of output columns (a grid axis), computes the logits over
 all of Dh and accumulates P·V (dK, dV; dQ′) for its own columns only, so
 its accumulators fit the register file at any Dh; every chunk recomputes
-the logits. The float32 forward takes chunks of 128, the float32 backward
+the logits. The float32 forward holds every column up to Dh 512 (one
+chunk, the logits once) and takes chunks of 512 above (of 256 or 128 where
+Dh is no multiple of 512), the float32 backward
 chunks of 256 (of 128 where Dh is an odd multiple of 128; at Dh 256 its own
 rows' terms stay whole); the three bfloat16 kernels chunks of
 ``BACKWARD_CHUNK`` = 256 (the last one 128 wide where Dh is an odd multiple
@@ -93,6 +96,9 @@ DKV_TILE = 64                      # keys per block of the bf16 dkv: 4 warps of 
 DQ_TILE = 64                       # query rows per block of the bf16 dq: 4 warps of 16
 INNER_TILE = 64                    # keys (forward, dq) or query rows (dkv) per inner step
 F32_BACKWARD_TILE = 32             # keys (dkv) or query rows (dq) a block of the float32 backward
+F32_FORWARD_TILES = (64, 32)       # query rows a block of the float32 forward: Dh ≤ 256, above
+F32_FORWARD_RESIDENT = 512         # the float32 forward holds every column up to this Dh
+F32_FORWARD_CHUNKS = (512, 256, 128)   # above it: the largest of these that divides Dh
 COPY_ALIGNMENT = 16                # bytes moved by one asynchronous copy
 
 
@@ -133,9 +139,10 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     Tiles are bf16 with a pitch of Dh + 8:
     forward Q + 2 stages of K and V; dkv K, V + 2 stages of Q, dO and of the
     rows' lse and Δ; dq Q, dO + 2 stages of K and V.
-    float32, 8 warps (two warpgroups). Forward (FMA kernel): 64 rows, fp32
-    tiles of pitch Dh + 4 and a (64, 68) P tile. dkv and dq (three TF32
-    passes on ``wgmma``): ``F32_BACKWARD_TILE`` = 32 keys or query rows a
+    float32, 8 warps (two warpgroups), three TF32 passes on ``wgmma``. The
+    forward (``_f32_forward_plan``): 64 query rows a block up to Dh 256, 32
+    above, 225.5 KB of shared memory at Dh 128. dkv and dq:
+    ``F32_BACKWARD_TILE`` = 32 keys or query rows a
     block, the other side streamed in tiles of 64 rows; in shared memory, in
     rows of 128 bytes and 1 KB of alignment, the own rows' TF32 hi and lo
     terms of two tensors (64 KB at Dh 128), two slots of a tile's two tensors
@@ -144,9 +151,8 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
     209 KB (dq) at Dh 128, one block an SM.
 
     Dh a multiple of 128 above 128: ``chunks`` blocks per tile (grid z).
-    float32. The forward: Dh/128 chunks of 128 output columns, 64 rows a
-    block, the Dh = 128 kernel's tiles (pitch 132), one piece of q′ and of K
-    (V's chunk goes into K's tile) beside P. dkv and dq: chunks of 256
+    float32. The forward: one chunk up to Dh 512, above it chunks of 512
+    (``F32_FORWARD_CHUNKS``). dkv and dq: chunks of 256
     (Dh/256 of them; 128 where Dh is an odd multiple of 128), 32 own rows a
     block; a tile of the other side comes as Dh/64 units of 64 logit
     columns (the tile's and the own rows' two tensors, the own rows' terms
@@ -183,9 +189,8 @@ def launch_plan(kernel: str, b: int, n: int, h: int, d: int,
             f"of {COLUMN_CHUNK} up to {MAX_HEAD_DIM}, got {d}")
     forward = kernel == "flash_attn_fwd"
     if dtype == torch.float32 and forward:
-        tile, warps = 64, 8
-        shared = 4 * (2 * 64 * (d + 4) + 64 * d + 64 * 68)
-    elif dtype == torch.float32:
+        return _f32_forward_plan(b, n, h, d)
+    if dtype == torch.float32:
         tile, warps = F32_BACKWARD_TILE, 8
         shared = _f32_backward_shared(kernel, d)
     elif dtype == torch.bfloat16:
@@ -212,13 +217,12 @@ def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
     """``launch_plan`` of the column-chunk kernels (Dh a multiple of 128)."""
     tile = 64
     if dtype == torch.float32:
-        chunks, warps = d // COLUMN_CHUNK, 8
         if kernel == "flash_attn_fwd":
-            shared = 4 * (2 * 64 * (COLUMN_CHUNK + 4) + 64 * 68)
-        else:
-            tile, shared = F32_BACKWARD_TILE, _f32_backward_shared(kernel, d)
-            if d % BACKWARD_CHUNK == 0:
-                chunks = d // BACKWARD_CHUNK
+            return _f32_forward_plan(b, n, h, d)
+        chunks, warps = d // COLUMN_CHUNK, 8
+        tile, shared = F32_BACKWARD_TILE, _f32_backward_shared(kernel, d)
+        if d % BACKWARD_CHUNK == 0:
+            chunks = d // BACKWARD_CHUNK
     elif dtype == torch.bfloat16:
         # csrc/flash_attention_{fwd,bwd}.cu, namespace wide: 64-row blocks of
         # 64 columns (8 KB); a slot and the backward's own rows 8 blocks
@@ -236,6 +240,27 @@ def _chunked_plan(kernel: str, b: int, n: int, h: int, d: int,
     else:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
     return LaunchPlan(tile, warps, b * h * -(-n // tile) * chunks, shared, chunks)
+
+
+def _f32_forward_plan(b: int, n: int, h: int, d: int) -> LaunchPlan:
+    """``launch_plan`` of the float32 forward (``csrc/flash_attention_fwd.cu``,
+    ``f32::Layout``): 8 warps; ``own`` = 64 query rows a block up to Dh 256,
+    32 above. Shared memory from a 1 KB alignment on: the own rows' q′ hi and
+    lo terms (own × Dh each; above ``F32_FORWARD_RESIDENT`` two buffers of a
+    unit's, own × 128 each), a ring of 2 to 4 slots (as many as fit 227 KB)
+    of units of 64 keys × min(Dh, 128) columns of K or V (above 512 with q's
+    own rows of the unit's columns), P's hi and lo terms (own × 64 each), α
+    and l of the own rows. 225.5 KB at Dh 128 and 256, 209.25 KB at 384 and
+    512, 225.25 KB above."""
+    own = F32_FORWARD_TILES[0] if d <= 2 * COLUMN_CHUNK else F32_FORWARD_TILES[1]
+    resident = d <= F32_FORWARD_RESIDENT
+    unit = min(d, COLUMN_CHUNK)
+    own_bytes = (2 * own * d if resident else 4 * own * unit) * 4
+    slot = (INNER_TILE + (0 if resident else own)) * unit * 4
+    fixed = 1024 + own_bytes + 2 * own * INNER_TILE * 4 + 2 * own * 4
+    ring = min(4, (MAX_SHARED_BYTES - fixed) // slot)
+    chunks = 1 if resident else d // next(c for c in F32_FORWARD_CHUNKS if d % c == 0)
+    return LaunchPlan(own, 8, b * h * -(-n // own) * chunks, fixed + ring * slot, chunks)
 
 
 def _f32_backward_shared(kernel: str, d: int) -> int:
@@ -268,8 +293,7 @@ def _misalignment(t: torch.Tensor) -> Optional[str]:
 
 
 def check_copy_alignment(name: str, t: torch.Tensor) -> None:
-    """The bf16 kernels and the float32 backward kernels move rows of Dh
-    values in 16-byte asynchronous copies:
+    """The kernels move rows of Dh values in 16-byte asynchronous copies:
     the data pointer and every (batch, token, head) stride must be multiples
     of 16 bytes. Raises a ``ValueError`` that names the operand."""
     fault = _misalignment(t)
@@ -522,15 +546,13 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must share dtype and device")
 
 
-def _check_kernel_operands(copies: bool, **operands: torch.Tensor) -> None:
-    """Sizes the kernels take and, where the launch reads its operands in
-    16-byte copies (``copies``), the alignment they need, of q and of every
-    strided operand given by name."""
+def _check_kernel_operands(**operands: torch.Tensor) -> None:
+    """Sizes the kernels take, and the alignment their 16-byte copies need,
+    of q and of every strided operand given by name."""
     q = operands["q"]
     _check_kernel_sizes(q, operands["k"].shape[1])
-    if copies:
-        for name, t in operands.items():
-            check_copy_alignment(name, t)
+    for name, t in operands.items():
+        check_copy_alignment(name, t)
 
 
 def _check_kernel_sizes(q: torch.Tensor, nk: int) -> None:
@@ -588,8 +610,8 @@ def flash_attention_forward(
 
     On CUDA: the ``flash_attn_fwd`` kernel (``at_kernel_head_dim``), or an
     error for what it does not take (a dtype other than float32/bfloat16, a
-    head dimension above ``MAX_HEAD_DIM``, a strided last axis, bfloat16 rows
-    that are not 16-byte aligned). On the CPU: ``flash_attention_reference``.
+    head dimension above ``MAX_HEAD_DIM``, a strided last axis, rows that are
+    not 16-byte aligned). On the CPU: ``flash_attention_reference``.
     """
     _check_qkv(q, k, v)
     q, k, v = q.detach(), k.detach(), v.detach()
@@ -602,7 +624,7 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attn_fwd`` at q's own (compiled) head dim."""
     code = _build.dtype_code(q.dtype)
-    _check_kernel_operands(q.dtype == torch.bfloat16, q=q, k=k, v=v)
+    _check_kernel_operands(q=q, k=k, v=v)
     b, n, h, d = q.shape
     plan = launch_plan("flash_attn_fwd", b, n, h, d, q.dtype)
     nk = k.shape[1]
@@ -644,7 +666,7 @@ def _launch_backward(entry: str, q, k, v, dout, lse, delta, outputs, scale: floa
     b, n, h, d = q.shape
     nk = k.shape[1]
     code = _build.dtype_code(q.dtype)
-    _check_kernel_operands(True, q=q, k=k, v=v, dout=dout)
+    _check_kernel_operands(q=q, k=k, v=v, dout=dout)
     strides = _BwdStrides(*[
         s for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout))
         for s in _token_strides(name, t)])

@@ -85,7 +85,8 @@ def _jax_attentions():
             "pallas": _pallas}
 
 
-# the bf16 kernels' chunk of 256 (ids as before), and the 128 of float32
+# the bf16 kernels' chunk of 256 (ids as before), and the 128 of the float32
+# backward at an odd multiple of 128
 CHUNK_CASES = ([pytest.param(d, fa.BACKWARD_CHUNK, id=str(d)) for d in LARGE_DH]
                + [pytest.param(d, 128, id=f"{d}-width128") for d in LARGE_DH])
 
@@ -148,13 +149,20 @@ F32_WIDE_SHARED = {"flash_attn_bwd_dkv": 1024 + 2 * 32768 + 4 * 8192 + 2 * 65536
 FWD_WIDE_SHARED = {64: 1024 + 32768 + 2 * 65536, 128: 1024 + 2 * 32768 + 2 * 65536}
 
 
+# the float32 forward at a kernel head dim: rows a block, chunks, shared bytes
+# (tests/test_torch_flash_f32_forward.py lays them out)
+F32_FWD_PLANS = {256: (64, 1, 230912), 384: (32, 1, 214272), 512: (32, 1, 214272),
+                 640: (32, 5, 230656), 1024: (32, 2, 230656)}
+
+
 @pytest.mark.parametrize("d,kernel_d,chunks", [(129, 256, 2), (256, 256, 2), (320, 384, 3),
                                                (512, 512, 4), (1024, 1024, 8), (384, 384, 3),
                                                (640, 640, 5)])
 def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
     """``kernel_head_dim`` rounds up to a multiple of 128. The float32
-    kernels have 8 warps a block: the forward ``chunks`` = Dh/128 blocks
-    along the column axis and 64 rows, the backward chunks of 256 (of 128 at
+    kernels have 8 warps a block: the forward holds every column up to Dh
+    512 (64 rows at 256, 32 above) and takes chunks of 512 above (of 128 at
+    640), the backward chunks of 256 (of 128 at
     an odd multiple of 128) and 32 keys or rows (226 KB and 209 KB of shared
     memory at any Dh); the three bf16 kernels ⌈Dh/256⌉ (the last 128
     wide at an odd multiple of 128), one block an SM: the backward 64 keys
@@ -162,7 +170,7 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
     query rows, 64 rows where the (8, 800, 1) launch then fits the card in
     one wave (one chunk: Dh 256), else 128. Shared memory within what a
     block may ask for, and the same at any Dh for a given kernel, type and
-    tile."""
+    tile but the float32 forward's (``F32_FWD_PLANS``)."""
     assert fa.kernel_head_dim(d) == kernel_d and fa.runs_in_chunks(kernel_d)
     wide_chunks = -(-kernel_d // fa.BACKWARD_CHUNK)
     assert wide_chunks * fa.BACKWARD_CHUNK - kernel_d == (128 if chunks % 2 else 0)
@@ -170,7 +178,11 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
         for dtype, warps in ((torch.bfloat16, 4), (torch.float32, 8)):
             plan = fa.launch_plan(kernel, 8, 800, 1, kernel_d, dtype)
             want = (64, warps, chunks)
-            if dtype == torch.float32 and kernel != "flash_attn_fwd":
+            if dtype == torch.float32 and kernel == "flash_attn_fwd":
+                tile, f32_chunks, shared = F32_FWD_PLANS[kernel_d]
+                want = (tile, 8, f32_chunks)
+                assert plan.shared_bytes == shared
+            elif dtype == torch.float32:
                 want = (fa.F32_BACKWARD_TILE, 8, chunks if chunks % 2 else chunks // 2)
                 assert plan.shared_bytes == F32_WIDE_SHARED[kernel]
             elif dtype == torch.bfloat16 and kernel != "flash_attn_fwd":
@@ -186,7 +198,8 @@ def test_head_dims_above_128_launch_in_column_chunks(d, kernel_d, chunks):
             assert (plan.tile, plan.warps, plan.chunks) == want
             assert plan.blocks == 8 * -(-800 // plan.tile) * plan.chunks
             assert plan.shared_bytes <= fa.MAX_SHARED_BYTES
-            if plan.tile in (64, fa.F32_BACKWARD_TILE):
+            if plan.tile in (64, fa.F32_BACKWARD_TILE) and (kernel, dtype) != (
+                    "flash_attn_fwd", torch.float32):
                 assert plan.shared_bytes == fa.launch_plan(kernel, 8, 800, 1, 256,
                                                            dtype).shared_bytes
 

@@ -518,11 +518,12 @@ def test_dkv_launch_plan_keeps_64_keys_a_block(b, n, h, d, blocks):
 
 def test_launch_plan_shared_memory_is_what_the_sources_lay_out():
     """bf16 tiles of pitch Dh + 8: forward Q + 2·(K, V) of 64 rows; dkv K, V
-    + 2·(Q, dO) of 64 rows + 2·(lse, Δ) of 64 floats. float32: the forward
-    FMA kernel's fp32 tiles of pitch Dh + 4; dkv (three TF32 passes) 1 KB of
-    alignment, the 32 own keys' hi and lo terms of K and V, the P and dU
-    terms of 32 × 64, two slots of a tile's q and dO (64 rows) and two of
-    lse and Δ."""
+    + 2·(Q, dO) of 64 rows + 2·(lse, Δ) of 64 floats. float32 (three TF32
+    passes), 1 KB of alignment each: the forward the 64 own rows' q′ hi and lo
+    terms, four slots of 64 keys of K or V, P's hi and lo terms of 64 × 64,
+    α and l of the own rows; dkv the 32 own keys' hi and lo terms of K and V,
+    the P and dU terms of 32 × 64, two slots of a tile's q and dO (64 rows)
+    and two of lse and Δ."""
     assert fa.launch_plan("flash_attn_fwd", 2, 800, 4, 128, torch.bfloat16).shared_bytes \
         == 2 * (64 + 4 * 64) * 136
     assert fa.launch_plan("flash_attn_fwd", 8, 800, 4, 128, torch.bfloat16).shared_bytes \
@@ -530,7 +531,7 @@ def test_launch_plan_shared_memory_is_what_the_sources_lay_out():
     assert fa.launch_plan("flash_attn_bwd_dkv", 8, 800, 4, 128, torch.bfloat16).shared_bytes \
         == 2 * (2 * 64 + 4 * 64) * 136 + 2 * 2 * 64 * 4
     assert fa.launch_plan("flash_attn_fwd", 2, 800, 4, 128, torch.float32).shared_bytes \
-        == 4 * (2 * 64 * 132 + 64 * 128 + 64 * 68)
+        == 1024 + 4 * (2 * 64 * 128 + 4 * 64 * 128 + 2 * 64 * 64 + 2 * 64) == 230912
     assert fa.launch_plan("flash_attn_bwd_dkv", 2, 800, 4, 128, torch.float32).shared_bytes \
         == 1024 + 4 * (4 * 32 * 128 + 4 * 32 * 64 + 2 * 2 * 64 * 128 + 2 * 2 * 64) == 231424
 

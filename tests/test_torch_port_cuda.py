@@ -251,6 +251,32 @@ def test_float32_backward_kernels_match_plain_versions_bitwise_again(cuda, q_sha
         assert torch.equal(got, first), name
 
 
+@pytest.mark.parametrize("q_shape,nk", [
+    ((2, 800, 4, 128), 800), ((1, 130, 2, 32), 130), ((2, 64, 4, 4), 64),
+    ((1, 200, 1, 256), 200), ((2, 96, 1, 384), 96), ((8, 800, 1, 512), 800),
+    # sequence-parallel chunks: q of fewer rows than the keys, one ragged
+    ((8, 400, 4, 128), 800), ((1, 48, 2, 64), 130)])
+def test_float32_forward_kernel_matches_plain_version_bitwise_again(cuda, q_shape, nk):
+    """The float32 ``flash_attn_fwd`` (three TF32 passes on ``wgmma``) on
+    strided views of one (B, Nk, 3, H, Dh) buffer against the plain version:
+    out and lse within 1e-4 absolute, one launch; a second launch gives the
+    same bits (every output is summed by one thread in a fixed order)."""
+    b, n, h, d = q_shape
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.normal(size=(b, nk, 3, h, d)).astype(np.float32)).to(cuda)
+    q, k, v = qkv[:, :n, 0], qkv[:, :, 1], qkv[:, :, 2]
+    fa.launches.reset()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    assert fa.launches.as_dict() == {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0,
+                                     "flash_attn_bwd_dq": 0}
+    want_out, want_lse = fa.flash_attention_reference(q, k, v)
+    assert out.dtype == torch.float32 and out.is_contiguous() and out.shape == q_shape
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=0, msg="out")
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0, msg="lse")
+    again = fa.flash_attention_forward(q, k, v)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
 def test_flash_attention_autograd_route_launches_all_three_kernels(cuda):
     """Under autograd on CUDA the front does not raise: forward and both
     backward kernels run, and the gradient of the fused qkv buffer agrees with
