@@ -157,6 +157,14 @@ What it does, in order:
    5 cached-latent train steps at batch 8, launches exact; one forward of
    the flagship at 2 heads (Dh 256); s a step and a call and peak memory
    beside the 4-head flagship's of phases 5 and 7.
+18. runs the port's bench (``bench_path``): ``mrijax_torch.bench.main`` in
+   this process for every mode with ``--tiny`` on the card (each mode through
+   the kernels on CUDA tensors, its launch counts set to 0 just before and
+   read just after, in the ``kernels`` line as ``bench_*``), then the
+   headline once with ``--smoke`` (full widths: batch 8, decode chunks of 4,
+   5 DDIM steps); each JSON line checked as ``tests/test_torch_bench.py``
+   checks it on the CPU, with ``device`` naming this card and ``mfu`` in
+   (0, 1]; the phase's seconds against its budget of 90.
 
 Phases 2 and 3 also hold the three flash kernels at head dims above 128
 (``FLASH_LARGE_DH``: Dh 256, 512 and 1024, and 192 and 320, zero-padded to
@@ -197,7 +205,7 @@ exits non-zero at once where ``torch.cuda.is_available()`` is false. TF32 is
 switched off for convolutions and matrix products, so float32 comparisons are
 float32. The last line is ``{"ok": true, "device": {...}}``; the line before
 names the card; the line before that is the ``{"kernels": [...]}`` record,
-and before it the ``entry_points_path`` line.
+and before it the script's total seconds and the ``bench_path`` line.
 """
 
 import argparse
@@ -230,6 +238,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mrijax_torch import aot, cli, graft_entry, parallel
+from mrijax_torch import bench as port_bench
 from mrijax_torch import generate as generate_module
 from mrijax_torch.config import (
     ExperimentConfig,
@@ -4504,6 +4513,108 @@ def large_head_path(four_heads_generate, four_heads_train):
             "large_head_train_fp32_small": small["train_launches"]}
 
 
+# ------------------------------------------------------------------ phase 18
+
+BENCH_GN = ("gn_silu_stats", "gn_silu_apply")
+BENCH_FLASH_BWD = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+BENCH_SAMPLE_3D = BENCH_GN + ("flash_attn_fwd",)
+BENCH_TRAIN_3D = BENCH_SAMPLE_3D + BENCH_FLASH_BWD
+# argv of a mode → (metric, lines, the kernels it launches; the others it must not)
+BENCH_MODES = [
+    ((), "3d_ldm_volume_sampling_throughput", 1, BENCH_SAMPLE_3D),
+    (("--train",), "3d_ldm_train_step_time", 1, BENCH_TRAIN_3D),
+    (("--train-cached",), "3d_ldm_cached_train_throughput", 1, BENCH_TRAIN_3D),
+    (("--train-cached-sweep",), "3d_ldm_cached_train_throughput", 5, BENCH_TRAIN_3D),
+    (("--train-vae",), "vae3d_train_throughput", 1, BENCH_GN),
+    (("--train-vae-sweep",), "vae3d_train_throughput", 6, BENCH_GN),
+    (("--train-2d",), "slice_cond_2d_train_step_time", 1, BENCH_GN),
+    (("--train-25d",), "ddpm_25d_train_step_time", 1, BENCH_GN),
+    (("--train-2d-profile",), "slice_cond_2d_train_profile", 5, BENCH_GN),
+    (("--sample-2d",), "slice_cond_2d_sampling_throughput", 1, BENCH_GN),
+    (("--sample-2d", "--steps", "3", "--sampler", "dpm"), "slice_cond_2d_sampling_throughput",
+     1, BENCH_GN),
+    (("--sample-2d-sweep",), "slice_cond_2d_sampling_ladder", 9, BENCH_GN),
+    (("--input-pipeline",), "input_pipeline_2d", 5, BENCH_GN),
+    (("--eval-2d",), "eval_2d_throughput", 2, BENCH_GN),
+    (("--sweep",), "3d_ldm_sampling_sweep", 6, BENCH_SAMPLE_3D),
+    (("--smoke",), "3d_ldm_volume_sampling_throughput", 1, BENCH_SAMPLE_3D),
+]
+BENCH_PHASE_BUDGET_S = 90
+
+
+def check_bench_line(tag, line, metric, card):
+    """One line of ``mrijax_torch.bench`` on the card: its metric, the card
+    it names, finite positive times, counted operations and an ``mfu`` in
+    (0, 1] (none for a loader's host-only rate)."""
+    host_only = line.get("variant", "").endswith("_host_only")
+    dev = line["device"]
+    problems = []
+    if line["metric"] != metric:
+        problems.append(f"metric {line['metric']}")
+    if not isinstance(dev, dict) or dev["name"] != torch.cuda.get_device_name(0) \
+            or dev["nvidia_smi"] != card or dev["count"] != torch.cuda.device_count():
+        problems.append(f"device {dev}")
+    if line["build_secs"] is None or line["cuda"] != torch.version.cuda:
+        problems.append(f"build_secs {line['build_secs']}, cuda {line['cuda']}")
+    times = [line["value"], *line["run_secs"]]
+    if not all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0 for x in times):
+        problems.append(f"value / run_secs {times}")
+    if host_only:
+        if line["mfu"] is not None:
+            problems.append(f"host-only mfu {line['mfu']}")
+    elif not (line["flops"] and 0 < line["mfu"] <= 1 and line["peak_gb"] > 0):
+        problems.append(f"flops {line['flops']}, mfu {line['mfu']}, peak_gb {line['peak_gb']}")
+    if problems:
+        raise AssertionError(f"bench {tag}: {'; '.join(problems)}: {line}")
+
+
+def bench_path(card):
+    """Phase 18: every mode of ``mrijax_torch.bench`` through its ``main``
+    with ``--tiny`` on the card, then the headline with ``--smoke`` (batch 8,
+    decode chunks of 4, 5 DDIM steps at full width). Each mode's launch
+    counts are set to 0 just before and read just after; the kernels of its
+    path must launch and no other."""
+    phase_t0 = time.perf_counter()
+    counts, summary = {}, {}
+    for argv, metric, n_lines, kernels in BENCH_MODES:
+        tag = " ".join(argv) or "headline"
+        out = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = port_bench.main([*argv] if "--smoke" in argv else [*argv, "--tiny"])
+        got = all_launch_counts()
+        seconds = time.perf_counter() - t0
+        lines = [json.loads(x) for x in out.getvalue().splitlines()]
+        if rc != 0 or len(lines) != n_lines:
+            raise AssertionError(f"bench {tag}: exit {rc}, {len(lines)} lines, expected {n_lines}")
+        for line in lines:
+            print("bench " + json.dumps(line))
+            check_bench_line(tag, line, metric, card)
+        silent = [k for k in kernels if got[k] == 0]
+        stray = [k for k, v in got.items() if k not in kernels and v]
+        if silent or stray:
+            raise AssertionError(f"bench {tag}: launch counts {got}: {silent} launched no "
+                                 f"time, {stray} launched")
+        if "--smoke" in argv:
+            line = lines[0]
+            want = {"batch": 8, "decode_chunk": 4, "ddim_steps": 5, "scale": "smoke"}
+            if {k: line[k] for k in want} != want:
+                raise AssertionError(f"bench --smoke: {line}")
+            summary["smoke_headline"] = {k: line[k] for k in (
+                "value", "secs_per_ddim_step", "decode_secs", "peak_gb", "mfu", "setup_secs")}
+        name = "bench_" + ("_".join(a.lstrip("-").replace("-", "_") for a in argv) or "headline")
+        counts[name] = got
+        summary[name] = {"seconds": seconds, "lines": len(lines)}
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - phase_t0
+    print("bench_path " + json.dumps({"phase_seconds": seconds,
+                                       "budget_seconds": BENCH_PHASE_BUDGET_S, **summary}))
+    return counts
+
+
 def ptxas_rows(name):
     """(entry, registers, spill bytes) of one library's kernels as ``ptxas
     -v`` printed them."""
@@ -4826,6 +4937,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
+    script_t0 = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -4894,13 +5006,15 @@ def main() -> int:
     counts_driver = driver_path(train_result["no_remat"]["seconds_per_step"])
     counts_entry = entry_points_path()
     counts_large_head = large_head_path(result, train_result)
+    counts_bench = bench_path(card)
 
     counts_by_path = {"generate": result["launches"],
                       "train_no_remat": train_counts["no_remat"],
                       "train_remat_level0": train_counts["remat_level0"],
                       **trainer_counts, **counts_2d, **counts_25d, **counts_train_2d,
-                      **counts_driver, **counts_entry, **counts_large_head,
+                      **counts_driver, **counts_entry, **counts_large_head, **counts_bench,
                       "train_fp32_small": counts_fp32_train}
+    print(f"chip_smoke total: {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
         chunk_worst, chunk_rows, small_worst, small_rows, large_worst, large_rows,
