@@ -38,6 +38,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from mrijax_torch.kernels import _build
+from mrijax_torch.obs.profiling import span
 
 launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply")
 
@@ -443,11 +444,12 @@ class _GroupNormSiLU(torch.autograd.Function):
         # imported here: ops.norms imports this module for its fused front
         from mrijax_torch.ops.norms import group_norm_silu
 
-        x, scale, bias = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            y = group_norm_silu(x, ctx.groups, scale, bias, ctx.eps)
-        wanted = [t for t, need in zip((x, scale, bias), ctx.needs_input_grad) if need]
-        grads = iter(torch.autograd.grad(y, wanted, dy))
+        with span("gn_silu.backward"):
+            x, scale, bias = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            with torch.enable_grad():
+                y = group_norm_silu(x, ctx.groups, scale, bias, ctx.eps)
+            wanted = [t for t, need in zip((x, scale, bias), ctx.needs_input_grad) if need]
+            grads = iter(torch.autograd.grad(y, wanted, dy))
         return tuple(next(grads) if need else None
                      for need in ctx.needs_input_grad[:3]) + (None, None)
 

@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mrijax_torch.kernels.flash_attention import flash_attention
+from mrijax_torch.obs.profiling import span
 from mrijax_torch.ops.attention import multi_head_self_attention
 from mrijax_torch.ops.embeddings import sinusoidal_time_embedding
 from mrijax_torch.ops.norms import group_norm, group_norm_silu_auto
@@ -84,6 +85,8 @@ class _Conv:
     """A convolution on channels-last activations that computes in ``dtype``
     with parameters held in ``param_dtype`` (``None``: in ``dtype``)."""
 
+    span_name = "conv"
+
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None):
@@ -92,9 +95,10 @@ class _Conv:
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = _cast(self.weight, self.compute_dtype)
-        bias = _cast(self.bias, self.compute_dtype)
-        return _channels_last_call(lambda t: self._conv_forward(t, weight, bias), x)
+        with span(self.span_name):
+            weight = _cast(self.weight, self.compute_dtype)
+            bias = _cast(self.bias, self.compute_dtype)
+            return _channels_last_call(lambda t: self._conv_forward(t, weight, bias), x)
 
 
 class Conv3d(_Conv, nn.Conv3d):
@@ -107,6 +111,8 @@ class Conv2d(_Conv, nn.Conv2d):
 
 class _Downsample:
     """4-kernel stride-2 conv, padding 1 (halves each spatial dim)."""
+
+    span_name = "conv.down"
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None):
@@ -125,6 +131,8 @@ class Downsample2D(_Downsample, Conv2d):
 class _Upsample:
     """4-kernel stride-2 transposed conv, padding 1 (doubles each spatial dim)."""
 
+    span_name = "conv.up"
+
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__(in_ch, out_ch, 4, stride=2, padding=1,
@@ -132,10 +140,11 @@ class _Upsample:
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = _cast(self.weight, self.compute_dtype)
-        bias = _cast(self.bias, self.compute_dtype)
-        return _channels_last_call(
-            lambda t: self._transpose(t, weight, bias, self.stride, self.padding), x)
+        with span(self.span_name):
+            weight = _cast(self.weight, self.compute_dtype)
+            bias = _cast(self.bias, self.compute_dtype)
+            return _channels_last_call(
+                lambda t: self._transpose(t, weight, bias, self.stride, self.padding), x)
 
 
 class Upsample(_Upsample, nn.ConvTranspose3d):

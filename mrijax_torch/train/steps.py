@@ -41,6 +41,7 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from mrijax_torch.diffusion.gaussian import GaussianDiffusion
+from mrijax_torch.obs.profiling import span
 from mrijax_torch.parallel.mesh import (
     all_reduce_mean,
     axis_size,
@@ -87,7 +88,9 @@ def apply_if_finite(state: TrainState, loss: torch.Tensor, group=None) -> TrainS
     if group is not None:
         ok = ok.to(torch.int32).reshape(1)
         dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
-    if bool(ok):
+    with span("train.guard"):
+        ok = bool(ok)
+    if ok:
         state.optimizer.step()
         state.step += 1
     return state
@@ -180,10 +183,13 @@ def _loss_update(state: TrainState, model_fn, diffusion: GaussianDiffusion,
     """Diffusion loss, backward, the data-parallel synchronisation (under a
     mesh), Adam (guarded where asked) and EMA."""
     _zero_grad(state)
-    loss = diffusion.p_losses(model_fn, x, t, noise)
-    loss.backward()
+    with span("train.forward", stream=True):
+        loss = diffusion.p_losses(model_fn, x, t, noise)
+    with span("train.backward", stream=True):
+        loss.backward()
     loss, group = _synchronise(state, mesh, loss.detach())
-    _update(state, loss, nan_guard, ema_decay, group)
+    with span("train.update", stream=True):
+        _update(state, loss, nan_guard, ema_decay, group)
     return state, loss
 
 

@@ -2,8 +2,12 @@
 profiler traces — against ``mrijax.obs`` on the same inputs: the same report
 from the same ``metrics.jsonl``, the same energy summary for the same power,
 window and busy time. ``NvmlPowerSensor`` reads the card through NVML, which
-is absent here; ``tests/test_torch_cli_cuda.py`` reads it on the card."""
+is absent here; ``tests/test_torch_cli_cuda.py`` reads it on the card. The
+span registry (``profiling.span``, ``spans``) has no JAX counterpart: its
+tests hold it to the profiler's clock and sessions, and to the train step's
+split."""
 
+import contextlib
 import json
 import time
 
@@ -14,8 +18,12 @@ import torch
 from mrijax.obs import analyze as janalyze
 from mrijax.obs import energy as jenergy
 from mrijax.obs import timing as jtiming
+from mrijax_torch.diffusion import GaussianDiffusion, linear_beta_schedule, make_schedule
+from mrijax_torch.models import UNet2D
+from mrijax_torch.models.blocks import GroupNormSiLU, _Conv, _Downsample, _Upsample
 from mrijax_torch.obs import analyze, energy, profiling
 from mrijax_torch.obs import timing
+from mrijax_torch.train import TrainState, make_diffusion_train_step
 
 
 def write_metrics(run_dir, seed=0):
@@ -157,3 +165,136 @@ def test_trace_names_the_step_annotation(tmp_path):
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
     assert {"train_step#0", "train_step#1", "decorated_fn"} <= names
     assert work.__name__ == "work"
+
+
+@contextlib.contextmanager
+def profiled():
+    """A CPU profiler session that starts a new span session: a span entered
+    while no profiler records ends the one before."""
+    with profiling.span("obs.off"):
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        yield prof
+
+
+def test_span_off_records_nothing_and_is_the_shared_noop():
+    reg = profiling.SpanRegistry()
+    first, second = reg.span("a"), reg.span("b")
+    assert first is second is profiling.span("c")
+    with first:
+        torch.ones(4).sum()
+    assert reg.records == [] and reg.spans() == [] and not reg.live
+
+
+def test_span_brackets_its_operator_on_the_profilers_clock():
+    a = torch.randn(64, 64)
+    with profiled() as prof:
+        with profiling.span("obs.mm", stream=True):
+            time.sleep(2e-4)
+            a @ a
+            time.sleep(2e-4)
+        with profiling.span("obs.mm.host"):
+            a @ a
+    s, host = profiling.spans("obs.mm")
+    start = prof.profiler.kineto_results.trace_start_ns()
+    mm, _ = [e for e in prof.events() if e.name == "aten::mm"]
+    assert s.t0_ns < start + round(mm.time_range.start * 1e3)
+    assert start + round(mm.time_range.end * 1e3) < s.t1_ns
+    assert s.host_ms == s.stream_ms == (s.t1_ns - s.t0_ns) / 1e6 > 0.4
+    assert host.name == "obs.mm.host" and host.stream_ms is None and host.host_ms > 0
+
+
+def test_span_adds_no_event_to_the_profiler():
+    with profiled() as prof:
+        with profiling.span("obs.quiet"):
+            torch.ones(8) + 1
+    assert [s.name for s in profiling.spans("obs.")] == ["obs.quiet"]
+    names = [e.name for e in prof.events()]
+    assert "obs.quiet" not in names and "aten::add" in names
+    assert not [e.name for e in prof.events() if e.is_user_annotation]
+
+
+def test_a_second_session_hides_the_first():
+    with profiled():
+        with profiling.span("obs.first"):
+            pass
+    with profiling.span("obs.between"):
+        pass
+    assert [s.name for s in profiling.spans("obs.")] == ["obs.first"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("obs.second"):
+            pass
+        with profiling.span("obs.second"):
+            pass
+    assert [s.name for s in profiling.spans("obs.")] == ["obs.second"] * 2
+
+
+def test_span_store_is_bounded_and_counts_what_it_drops():
+    reg = profiling.SpanRegistry()
+    reg.capacity = 3
+    with profiled():
+        for _ in range(5):
+            with reg.span("obs.many"):
+                pass
+    assert len(reg.spans()) == 3 and reg.dropped == 2
+
+
+class PlainStep:
+    """A plain gradient step in Adam's place: the split under test is the
+    train step's, and a torch optimizer's first construction imports
+    ``torch._dynamo`` (seconds)."""
+
+    def __init__(self, params, lr):
+        self.params, self.lr = list(params), lr
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        for p in self.params:
+            if p.grad is not None:
+                p.sub_(self.lr * p.grad)
+
+
+def test_train_step_records_its_split_once_and_a_backward_per_groupnorm():
+    torch.manual_seed(0)
+    net = UNet2D(base_channels=8, channel_mults=(1, 2), time_emb_dim=8)
+    step = make_diffusion_train_step(net, GaussianDiffusion(make_schedule(linear_beta_schedule(20))),
+                                     nan_guard=True)
+    state = TrainState(net, PlainStep(net.parameters(), 1e-3))
+    batch = {"image": torch.randn(1, 8, 8, 1), "z_pos": torch.rand(1)}
+    g = torch.Generator().manual_seed(0)
+    with profiled():
+        step(state, batch, g)
+    names = [s.name for s in profiling.spans()]
+    for part in ("train.forward", "train.backward", "train.update", "train.guard"):
+        assert names.count(part) == 1, part
+    norms = sum(isinstance(m, GroupNormSiLU) for m in net.modules())
+    assert norms > 0 and names.count("gn_silu.backward") == norms
+    split = {s.name: s for s in profiling.spans("train.")}
+    guard, update = split["train.guard"], split["train.update"]
+    assert update.t0_ns <= guard.t0_ns <= guard.t1_ns <= update.t1_ns
+    assert split["train.forward"].t1_ns <= split["train.backward"].t0_ns
+    # the step's split times the stream; the guard and each norm stay on the host
+    for part in ("train.forward", "train.backward", "train.update"):
+        assert split[part].stream_ms == split[part].host_ms, part
+    assert guard.stream_ms is None
+    assert all(s.stream_ms is None for s in profiling.spans("gn_silu."))
+    assert state.step == 1
+
+
+def test_unet_forward_records_a_span_for_each_convolution_by_its_kind():
+    torch.manual_seed(0)
+    net = UNet2D(base_channels=8, channel_mults=(1, 2), time_emb_dim=8)
+    with profiled():
+        net(torch.randn(1, 8, 8, 1), torch.tensor([3]), torch.rand(1))
+    names = [s.name for s in profiling.spans("conv")]
+    downs = sum(isinstance(m, _Downsample) for m in net.modules())
+    ups = sum(isinstance(m, _Upsample) for m in net.modules())
+    convs = sum(isinstance(m, _Conv) and not isinstance(m, _Downsample) for m in net.modules())
+    assert downs > 0 and names.count("conv.down") == downs
+    assert ups > 0 and names.count("conv.up") == ups
+    assert names.count("conv") == convs > 0 and len(names) == downs + ups + convs
+    assert all(s.stream_ms is None for s in profiling.spans("conv"))

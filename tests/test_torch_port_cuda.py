@@ -396,3 +396,37 @@ def test_unet2d_sampling_on_the_card_matches_the_cpu(cuda):
     assert gn.launches.as_dict() == {"gn_silu_stats": 4 * 29, "gn_silu_apply": 4 * 29}
     want = sample_2d(model, diffusion, device="cpu", **kw)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+def test_span_times_the_stream_and_adds_nothing_to_the_profilers_timeline(cuda):
+    """A recorded span that times the stream covers the kernel inside it
+    (within the events around it) while its host ms is the launch alone; its
+    ``cuEventRecord`` events put no event and no user annotation in the
+    profiler's trace. A span that does not time the stream has no stream
+    ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrijax_torch.obs import profiling
+
+    with profiling.span("test.off"):
+        pass
+    torch.cuda._sleep(1000)      # the first launch loads the kernel
+    torch.cuda.synchronize()
+    outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        outer[0].record()
+        with profiling.span("test.sleep", stream=True):
+            torch.cuda._sleep(10_000_000)
+        outer[1].record()
+        with profiling.span("test.host"):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    (s,) = profiling.spans("test.sleep")
+    (host,) = profiling.spans("test.host")
+    assert host.stream_ms is None and host.host_ms > 0
+    around = outer[0].elapsed_time(outer[1])
+    assert 0.8 * around < s.stream_ms <= around and s.host_ms < 0.5 * s.stream_ms
+    device = [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
+    assert device and not any("test." in n for n in device)
+    assert not [e.name for e in prof.events() if e.is_user_annotation]
