@@ -192,6 +192,17 @@ sequence-parallel chunks ``FLASH_CHUNKS``, q of N/d rows against k, v of N
 rows) against their plain versions and, stacked and summed over the chunks,
 against the full kernels, and time them (``flash_chunk_times``).
 
+Phases 2 and 3 end with the 3D stride-2 convolution kernel (``conv3d_path``):
+each instance holds ``HGMMA``; at its main-path calls (``CONV_SHAPES``: the
+UNet3D's two ``Downsample``s at batch 8 and 32, its two ``Upsample`` input
+gradients at 32 with the output gradient a slice of a concatenation's, the
+VAE3D encoder's two ``Downsample``s) one launch, held against the plain
+version in float32 (``conv3d_bar``) and timed beside its operations bound,
+the plain version's one call and ``F.conv3d`` (``library_ms``); the
+``Upsample`` input gradient through the module; 2 launches a bf16 UNet3D
+forward and 2 more in its backward (``conv3d_k4s2_times``). Phases 5 and 7
+hold the flagship to the same counts (40 generating, 20 in 5 train steps).
+
 Phase 3 also prints the host time to issue one GroupNorm+SiLU pair and one
 flash forward through the ``torch.library`` custom ops (the route of the
 exported programs) beside the direct route that eager callers take.
@@ -303,6 +314,7 @@ from mrijax_torch.io import (
     save_params_npz,
 )
 from mrijax_torch.kernels import _build
+from mrijax_torch.kernels import conv3d as cv
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
 from mrijax_torch.models import UNet2D, UNet3D, VAE3D
@@ -413,6 +425,23 @@ TWO_ULPS = dict(atol=1e-5, rtol=2 ** -6)   # bf16 dq: rounded twice, around the 
 GN_REMAT_LEVEL0_CALLS = 8         # 4 res blocks at level 0, two norms each, run again in the backward
 GN_GRAD_SHAPES = [(51200, 128), (800, 512)]
 GENERATION_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_attn_fwd")
+# The 3D stride-2 convolution kernel's main-path calls: (name, input (B, D, H,
+# W, Cin), Cout, bias): the UNet3D's two Downsamples at the generation batch
+# of 8 and the training batch of 32, the input gradients of its two Upsamples
+# at 32 (the output gradient is a slice of the concatenation's, read through
+# its strides; no bias), the VAE3D encoder's two Downsamples at one volume.
+CONV_SHAPES = [
+    ("unet_down0_b8", (8, 32, 40, 40, 128), 256, True),
+    ("unet_down1_b8", (8, 16, 20, 20, 256), 512, True),
+    ("unet_down0_b32", (32, 32, 40, 40, 128), 256, True),
+    ("unet_down1_b32", (32, 16, 20, 20, 256), 512, True),
+    ("unet_up0_dx_b32", (32, 32, 40, 40, 128), 256, False),
+    ("unet_up1_dx_b32", (32, 16, 20, 20, 256), 512, False),
+    ("vae_down0_b1", (1, 128, 160, 160, 64), 64, True),
+    ("vae_down1_b1", (1, 64, 80, 80, 128), 128, True),
+]
+CONV_PER_UNET_FORWARD = 2    # the UNet3D's Downsamples
+CONV_PER_UNET_BACKWARD = 2   # the input gradients of its Upsamples
 
 # The 2D and 2.5D families (presets slice_cond_2d and ddpm_25d): UNet2D base 64,
 # mults (1, 2, 4, 8), time dim 256, at 128². GroupNorm+SiLU call sites of one
@@ -1362,6 +1391,128 @@ def time_groupnorm_backward(rng):
     return rows
 
 
+# ------------------------------------------------ phase 2/3: conv3d_k4s2
+
+
+def conv3d_bar(want):
+    """The bar of the bf16 convolution kernel against its plain version
+    computed in float32 from the same bf16 operands: the kernel rounds its
+    fp32 sum once to bf16, so it lies within half a bf16 ulp (2^-8 relative)
+    of the plain float32 sum, plus 1e-4 of the largest output for the two
+    sums' different order (the tensor cores' fp32 accumulation included)."""
+    return 2 ** -8 * want.abs() + 1e-4 * want.abs().max()
+
+
+def check_conv3d(name, got, want):
+    """Raise unless ``got`` (bf16) meets ``conv3d_bar``; returns the largest
+    error relative to the largest output."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, want {tuple(want.shape)}")
+    err = (got.float() - want).abs()
+    if not bool(torch.isfinite(err).all()):
+        raise AssertionError(f"{name}: kernel output is not finite")
+    beyond = int((err > conv3d_bar(want)).sum())
+    if beyond:
+        raise AssertionError(f"{name}: {beyond} elements beyond the bar, max abs err "
+                             f"{float(err.max()):.3e}")
+    return float(err.max() / want.abs().max())
+
+
+def conv3d_operands(index, x_shape, c_out, bias, strided):
+    """Seeded bf16 operands; ``strided``: x is the first half of the
+    channels of a tensor twice as wide, as a concatenation's gradient is."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50 + index)
+    b, d, h, w, c_in = x_shape
+    x = torch.randn(b, d, h, w, 2 * c_in if strided else c_in, device="cuda", generator=g)
+    x = x.bfloat16()[..., :c_in]
+    weight = (torch.randn(c_out, c_in, 4, 4, 4, device="cuda", generator=g)
+              / (64 * c_in) ** 0.5).bfloat16().contiguous(memory_format=torch.channels_last_3d)
+    b_ = (0.1 * torch.randn(c_out, device="cuda", generator=g)).bfloat16() if bias else None
+    return x, weight, b_
+
+
+def conv3d_path():
+    """The 3D stride-2 convolution kernel: its instances hold ``HGMMA``; at
+    each main-path call (``CONV_SHAPES``) one launch, held against the plain
+    version in float32 (``conv3d_bar``) and timed beside its operations
+    bound, the plain version's one call and ``F.conv3d`` (``library_ms``,
+    cuDNN, the yardstick only); the ``Upsample`` input gradient through the
+    module against the plain version; launches of a UNet3D: 2 a forward, 2
+    more in its backward."""
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(_build.build_all()["conv3d_k4s2"])],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    hgmma = [len(re.findall(r"\bHGMMA\.", f)) for f in functions if "conv3d_k4s2_kernel" in f]
+    if len(hgmma) != len(cv.TILE_N) or min(hgmma) == 0:
+        raise AssertionError(f"conv3d_k4s2 instances' HGMMA counts {hgmma}")
+    rows = {}
+    for i, (name, x_shape, c_out, bias) in enumerate(CONV_SHAPES):
+        x, weight, b = conv3d_operands(i, x_shape, c_out, bias, strided=not bias)
+        cv.launches.reset()
+        got = cv.conv3d_k4s2(x, weight, b)
+        if cv.launches["conv3d_k4s2"] != 1:
+            raise AssertionError(f"{name}: {cv.launches['conv3d_k4s2']} launches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cv.conv3d_k4s2_reference(x.float(), weight.float(), None if b is None else b.float())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = check_conv3d(name, got, want)
+        del got, want
+        x_cf = x.permute(0, 4, 1, 2, 3)
+        flops = cv.operations(x_shape, c_out, bias)
+        rows[name] = {
+            "shape": list(x_shape), "c_out": c_out, "plan": dataclasses.asdict(
+                cv.launch_plan(x_shape[0] * math.prod(cv.output_spatial(x_shape[1:4])), c_out)),
+            "max_rel_err": rel, "kernel_ms": time_ms(lambda: cv.conv3d_k4s2(x, weight, b)),
+            "plain_ms": plain_ms,
+            "library_ms": time_ms(lambda: F.conv3d(x_cf, weight, b, 2, 1)),
+            "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3, "operations": flops,
+        }
+        rows[name]["x_bound"] = rows[name]["kernel_ms"] / rows[name]["bound_ms"]
+        del x, x_cf, weight, b
+        torch.cuda.empty_cache()
+
+    # the Upsample's input gradient through the module, the output gradient a
+    # slice of a concatenation's; weight and bias gradients are the library's
+    up = Upsample(256, 128, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last_3d)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    x = torch.randn(2, 16, 20, 20, 256, device="cuda", generator=g).bfloat16().requires_grad_()
+    skip = torch.randn(2, 32, 40, 40, 128, device="cuda", generator=g).bfloat16()
+    dz = torch.randn(2, 32, 40, 40, 256, device="cuda", generator=g).bfloat16()
+    cv.launches.reset()
+    torch.cat([up(x), skip], dim=-1).backward(dz)
+    if cv.launches["conv3d_k4s2"] != 1:
+        raise AssertionError(f"Upsample backward: {cv.launches['conv3d_k4s2']} launches")
+    want = cv.conv3d_k4s2_reference(dz[..., :128].float(), up.weight.detach().float())
+    rows["upsample_module_dx"] = {"max_rel_err": check_conv3d("Upsample dx", x.grad, want)}
+    del up, x, skip, dz, want
+
+    unet = UNet3D(in_channels=LATENT_CHANNELS, base_channels=32, channel_mults=(1, 2, 4),
+                  time_emb_dim=32, num_heads=1, dtype=torch.bfloat16,
+                  param_dtype=torch.float32).cuda()
+    latent = torch.randn(2, 8, 8, 8, LATENT_CHANNELS, device="cuda", generator=g)
+    t = torch.tensor([3, 200], device="cuda")
+    cv.launches.reset()
+    with torch.no_grad():
+        unet(latent, t)
+    forward = cv.launches["conv3d_k4s2"]
+    cv.launches.reset()
+    loss = unet(latent, t).square().mean()
+    loss.backward()
+    both = cv.launches["conv3d_k4s2"]
+    if (forward, both) != (CONV_PER_UNET_FORWARD, CONV_PER_UNET_FORWARD + CONV_PER_UNET_BACKWARD):
+        raise AssertionError(f"UNet3D conv3d_k4s2 launches: {forward} a forward, {both} a "
+                             f"forward and backward")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in unet.parameters()):
+        raise AssertionError("UNet3D gradients are not finite")
+    rows["unet3d_launches"] = {"forward": forward, "forward_and_backward": both}
+    print("conv3d_k4s2_times " + json.dumps(rows))
+    return rows
+
+
 def tensor_core_bound(name, flops, t_bytes, key):
     """``{name}_bound_tc_ms`` of a float32 flash kernel (``fwd``, ``dkv``,
     ``dq``): the larger of its flops over the rate of fp32-grade products on
@@ -1647,6 +1798,9 @@ def main_path(unet, vae, diffusion):
             "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}   # no gradient when sampling
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    if cv.launches["conv3d_k4s2"] != DDIM_STEPS * CONV_PER_UNET_FORWARD:
+        raise AssertionError(f"conv3d_k4s2 launches {cv.launches['conv3d_k4s2']}, expected "
+                             f"{DDIM_STEPS * CONV_PER_UNET_FORWARD}")
     if tuple(vols.shape) != (NUM_VOLUMES, 128, 160, 160, 4) or vols.dtype != torch.float32:
         raise AssertionError(f"output {vols.dtype} {tuple(vols.shape)}")
     if not vols.is_cuda or not bool(torch.isfinite(vols).all()):
@@ -1675,6 +1829,7 @@ def all_launch_counts():
 def reset_launch_counts():
     gn.launches.reset()
     fa.launches.reset()
+    cv.launches.reset()
 
 
 def small_training_check():
@@ -1794,6 +1949,10 @@ def train_path():
                 "flash_attn_bwd_dq": TRAIN_STEPS}
         if counts != want:
             raise AssertionError(f"train path {tag}: launch counts {counts}, expected {want}")
+        want_conv = TRAIN_STEPS * (CONV_PER_UNET_FORWARD + CONV_PER_UNET_BACKWARD)
+        if cv.launches["conv3d_k4s2"] != want_conv:
+            raise AssertionError(f"train path {tag}: conv3d_k4s2 launches "
+                                 f"{cv.launches['conv3d_k4s2']}, expected {want_conv}")
         losses = torch.stack(losses).cpu()
         if losses.dtype != torch.float32 or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"train path {tag}: losses {losses.tolist()}")
@@ -4972,6 +5131,8 @@ def main() -> int:
     chunk_rows = time_flash_chunks(rng)
     small_rows = time_flash_small_dh(rng)
     large_rows = time_flash_large_dh(rng)
+    torch.cuda.empty_cache()
+    conv3d_path()
     torch.cuda.empty_cache()
     if args.kernels_only:
         return 0

@@ -1,6 +1,7 @@
 // Hopper warpgroup products (wgmma.mma_async, sm_90a) for the bf16 flash
-// kernels above Dh 128 (the forward and both backward kernels), and the
-// shared-memory layout they read.
+// kernels above Dh 128 (the forward and both backward kernels) and the 3D
+// stride-2 convolution (conv3d_k4s2.cu), and the shared-memory layout they
+// read.
 //
 // Operand tiles are bf16 in the 128-byte swizzle: a tile of R rows is cut
 // into blocks of 64 columns, each [R rows][128 bytes] with 16-byte chunk c of
@@ -294,6 +295,106 @@ __device__ __forceinline__ void m64n128k16_mn(float (&d)[16][4], uint64_t a, uin
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "l"(a), "l"(b), "r"(1));
+}
+
+// A (64 x 16) K-major at descriptor a, B (16 x 128) K-major at b:
+// d = A B + (scale_d ? d : 0)
+__device__ __forceinline__ void m64n128k16(float (&d)[16][4], uint64_t a, uint64_t b,
+                                           int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// A (64 x 16) K-major at descriptor a, B (16 x 256) K-major at b:
+// d = A B + (scale_d ? d : 0)
+__device__ __forceinline__ void m64n256k16(float (&d)[32][4], uint64_t a, uint64_t b,
+                                           int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+          "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+          "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+          "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+          "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+          "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+          "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+          "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+          "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+        : "l"(a), "l"(b), "r"(scale_d));
 }
 
 }  // namespace wgmma

@@ -23,6 +23,10 @@ Parity notes (math, not code):
   transposed conv, padding 1 (output = 2× input spatially; flax's
   ``padding="SAME"``).
 
+The 3D ``Downsample`` forward and ``Upsample`` input gradient run the port's
+own tensor-core kernel on bfloat16 (``kernels/conv3d.py``), chosen by the
+input's dtype; every other convolution, and the 2D modules, are cuDNN's.
+
 Precision follows the flax modules: convolutions and linears compute in
 ``dtype`` (bf16 on the card) and hold their parameters in ``param_dtype``,
 cast to ``dtype`` inside ``forward`` so that the gradient flows back through
@@ -39,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mrijax_torch.kernels import conv3d
 from mrijax_torch.kernels.flash_attention import flash_attention
 from mrijax_torch.obs.profiling import span
 from mrijax_torch.ops.attention import multi_head_self_attention
@@ -121,7 +126,16 @@ class _Downsample:
 
 
 class Downsample(_Downsample, Conv3d):
-    pass
+    """A bfloat16 input goes through the hand-written tensor-core kernel
+    (``kernels/conv3d.py``; the gradients stay the library's), any other
+    dtype through cuDNN as ``Conv3d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        with span(self.span_name):
+            return conv3d.downsample(x, _cast(self.weight, self.compute_dtype),
+                                     _cast(self.bias, self.compute_dtype))
 
 
 class Downsample2D(_Downsample, Conv2d):
@@ -148,7 +162,19 @@ class _Upsample:
 
 
 class Upsample(_Upsample, nn.ConvTranspose3d):
+    """The forward is cuDNN's. For a bfloat16 input whose gradient is
+    recorded, the input gradient goes through the hand-written tensor-core
+    kernel (``kernels/conv3d.py``; the weight and bias gradients stay the
+    library's)."""
+
     _transpose = staticmethod(F.conv_transpose3d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        with span(self.span_name):
+            return conv3d.upsample(x, _cast(self.weight, self.compute_dtype),
+                                   _cast(self.bias, self.compute_dtype))
 
 
 class Upsample2D(_Upsample, nn.ConvTranspose2d):

@@ -16,6 +16,7 @@ from mrijax_torch.diffusion import (
     make_schedule,
 )
 from mrijax_torch.io import CheckpointManager
+from mrijax_torch.kernels import conv3d as cv
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.kernels import groupnorm as gn
 from mrijax_torch.generate import sample_2d
@@ -322,6 +323,50 @@ def test_group_norm_silu_autograd_route_runs_the_kernels(cuda, dtype):
     tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=1e-2)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **tol)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "concat_slice"])
+@pytest.mark.parametrize("shape", [(1, 5, 7, 8, 8, 8), (3, 9, 8, 7, 24, 40), (2, 6, 6, 6, 64, 264),
+                                   (2, 8, 10, 10, 128, 256), (1, 4, 6, 4, 256, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_k4s2_kernel_matches_plain_version(cuda, shape, strided):
+    """Within half a bf16 ulp of the plain version's float32 sum, plus 1e-4
+    of the largest output for the other order of the sum; every compiled
+    tile width (Cout 8, 40: 64; 264: two of 256), ragged M and odd sizes."""
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(b, d, h, w, 2 * cin, device=cuda, generator=g).bfloat16()
+    x = x[..., :cin] if strided else x[..., :cin].contiguous()
+    weight = (torch.randn(cout, cin, 4, 4, 4, device=cuda, generator=g)
+              / (64 * cin) ** 0.5).bfloat16()
+    bias = (0.1 * torch.randn(cout, device=cuda, generator=g)).bfloat16()
+    for args in ((x, weight, bias), (x, weight, None)):
+        cv.launches.reset()
+        got = cv.conv3d_k4s2(*args)
+        assert cv.launches["conv3d_k4s2"] == 1
+        want = cv.conv3d_k4s2_reference(*(None if t is None else t.float() for t in args))
+        err = (got.float() - want).abs()
+        assert not bool((err > 2 ** -8 * want.abs() + 1e-4 * want.abs().max()).any())
+
+
+def test_conv3d_modules_launch_the_kernel_in_bf16_only(cuda):
+    """A bf16 UNet3D launches the kernel twice a forward and twice more in
+    its backward (the Upsamples' input gradients); float32 never."""
+    kw = dict(in_channels=8, base_channels=16, channel_mults=(1, 2, 4), time_emb_dim=16,
+              num_heads=1)
+    x = torch.randn(2, 8, 8, 8, 8, device=cuda)
+    t = torch.tensor([3, 9], device=cuda)
+    for dtype, want in ((torch.bfloat16, (2, 4)), (torch.float32, (0, 0))):
+        net = UNet3D(**kw, dtype=dtype, param_dtype=torch.float32).to(cuda)
+        cv.launches.reset()
+        with torch.no_grad():
+            net(x, t)
+        forward = cv.launches["conv3d_k4s2"]
+        cv.launches.reset()
+        net(x, t).square().mean().backward()
+        assert (forward, cv.launches["conv3d_k4s2"]) == want
+    with pytest.raises(ValueError, match="bfloat16"):
+        cv.conv3d_k4s2(x[..., :8].contiguous(), torch.zeros(8, 8, 4, 4, 4, device=cuda))
 
 
 def test_trainer_runs_an_epoch_on_the_card_and_restores(cuda, tmp_path):
