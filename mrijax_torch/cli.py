@@ -236,12 +236,23 @@ def _restore_2d(cfg, run_dir, dev):
     return _restore_model(run_dir, build_unet2d(cfg.unet), cfg.train, dev)
 
 
+def _dit_config(run_dir):
+    """The run's ``dit.json`` (a DiT denoiser in stage 2), or None."""
+    from mrijax_torch.config import DiTConfig
+
+    path = Path(run_dir) / "dit.json"
+    return DiTConfig.from_json(path) if path.exists() else None
+
+
 def _restore_3d(cfg, run_dir, dev):
-    """(vae, unet, latent_scale) of a 3D run directory (``vae/``, ``ldm/``)."""
-    from mrijax_torch.train.experiments import build_unet3d, build_vae3d
+    """(vae, denoiser, latent_scale) of a 3D run directory (``vae/``,
+    ``ldm/``): the denoiser is the UNet3D of the config, or the DiT of the
+    run's ``dit.json``."""
+    from mrijax_torch.train.experiments import build_denoiser3d, build_vae3d
 
     vae, _ = _restore_model(run_dir / "vae", build_vae3d(cfg.vae), cfg.vae_train, dev)
-    unet, extra = _restore_model(run_dir / "ldm", build_unet3d(cfg.unet), cfg.train, dev)
+    unet, extra = _restore_model(run_dir / "ldm", build_denoiser3d(cfg, _dit_config(run_dir)),
+                                 cfg.train, dev)
     return vae, unet, float(extra.get("latent_scale", 1.0))
 
 
@@ -810,6 +821,9 @@ def cmd_export_aot(args):
     out = Path(args.out)
     dev = _device(args)
     t0 = time.perf_counter()
+    if cfg.family == "ddpm_3d_ldm" and _dit_config(run_dir) is not None:
+        raise SystemExit("export-aot exports the UNet3D denoiser; this run trained a DiT "
+                         "(dit.json): sample it with `sample --mode volume3d`")
     if cfg.family == "ddpm_3d_ldm":
         # latent_scale travels in the ldm checkpoint's extra and goes into
         # the program's settings

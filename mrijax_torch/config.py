@@ -188,6 +188,49 @@ class ExperimentConfig:
         return cls.from_dict(json.loads(Path(path).read_text()))
 
 
+@dataclass
+class DiTConfig:
+    """Widths of the 3D latent transformer denoiser (``models.dit3d.DiT3D``),
+    which stage 2 of the 3D family trains in place of the UNet where one is
+    given. It has no counterpart in the JAX package, so it is kept beside
+    ``ExperimentConfig`` and not inside it: a run directory that holds one
+    keeps it as ``dit.json`` next to ``config.json``. The defaults are
+    DiT-XL/2 (Peebles & Xie, arXiv:2212.09748) over the 16-channel latent of
+    the 3D VAE."""
+
+    in_channels: int = 16
+    patch: int = 2
+    hidden: int = 1152
+    depth: int = 28
+    heads: int = 16
+    mlp_ratio: float = 4.0
+    freq_dim: int = 256
+    remat: bool = False                        # recompute each block in the
+                                               # backward pass
+    compute_dtype: str = "bfloat16"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self, path=None) -> str:
+        s = json.dumps(self.to_dict(), indent=2)
+        if path is not None:
+            Path(path).write_text(s)
+        return s
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DiTConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise KeyError(f"unknown config key DiTConfig.{unknown[0]}")
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, path) -> "DiTConfig":
+        return cls.from_dict(json.loads(Path(path).read_text()))
+
+
 # ---------------------------------------------------------------- presets
 
 def preset_slice_cond_2d(root_dir: str = "", **over) -> ExperimentConfig:

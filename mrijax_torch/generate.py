@@ -384,7 +384,9 @@ def generate_3d_volumes(
     mesh=None,
     seed: int = 0,
 ) -> torch.Tensor:
-    """Latent sample → unscale → VAE decode. Returns (N, D, H, W, C) float32
+    """Latent sample → unscale → VAE decode. ``unet`` is the 3D denoiser:
+    ``UNet3D`` or the transformer ``DiT3D``, any module of their ``(x, t)``
+    contract. Returns (N, D, H, W, C) float32
     volumes in model space, on ``device``. ``ddim_steps`` steps of ``sampler``
     ("ddim" or "dpm"), or with ``ddim_steps=None`` the full-T ancestral loop.
     With ``mesh``, the volumes are split over the data axis — each rank

@@ -31,7 +31,7 @@ all and is ignored, as in the JAX package.
 
 import traceback
 from pathlib import Path
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -39,6 +39,7 @@ import torch.distributed as dist
 from mrijax_torch._device import require_device
 from mrijax_torch.config import (
     DiffusionConfig,
+    DiTConfig,
     ExperimentConfig,
     TrainConfig,
     UNetConfig,
@@ -71,7 +72,7 @@ from mrijax_torch.diffusion import (
 # the module, not the name: io.checkpoint imports train.steps, whose package
 # imports this module, so either may be imported first
 import mrijax_torch.io.checkpoint as checkpoint_io
-from mrijax_torch.models import UNet2D, UNet3D, VAE3D
+from mrijax_torch.models import DiT3D, UNet2D, UNet3D, VAE3D
 from mrijax_torch.obs import MetricsLogger, NullLogger, install_signal_handlers
 from mrijax_torch.parallel import shard_train_state
 from mrijax_torch.parallel.mesh import axis_size, gather_rows, make_mesh
@@ -159,6 +160,28 @@ def build_unet3d(cfg: UNetConfig) -> UNet3D:
         dtype=_dtype(cfg.compute_dtype),
         param_dtype=torch.float32,
     )
+
+
+def build_dit3d(cfg: DiTConfig) -> DiT3D:
+    """The 3D latent transformer denoiser of ``cfg``, float32 parameters."""
+    return DiT3D(
+        in_channels=cfg.in_channels,
+        patch=cfg.patch,
+        hidden=cfg.hidden,
+        depth=cfg.depth,
+        heads=cfg.heads,
+        mlp_ratio=cfg.mlp_ratio,
+        freq_dim=cfg.freq_dim,
+        remat=cfg.remat,
+        dtype=_dtype(cfg.compute_dtype),
+        param_dtype=torch.float32,
+    )
+
+
+def build_denoiser3d(cfg: ExperimentConfig, dit: Optional[DiTConfig] = None):
+    """Stage 2's denoiser: the DiT of ``dit`` where given, else the UNet3D of
+    ``cfg.unet``."""
+    return build_unet3d(cfg.unet) if dit is None else build_dit3d(dit)
 
 
 def build_vae3d(cfg: VAEConfig) -> VAE3D:
@@ -358,8 +381,14 @@ def _first_batches(loader, key: str, n: int = 200):
 
 
 def train_ddpm_3d_ldm(cfg: ExperimentConfig, device: Union[str, torch.device] = "cuda",
-                      logger=None, mesh=None):
+                      logger=None, mesh=None, dit: Optional[DiTConfig] = None):
     """Two-stage: (1) VAE on volumes; (2) frozen-VAE latent diffusion.
+
+    Stage 2 trains the UNet3D of ``cfg.unet``, or with ``dit`` the
+    transformer denoiser of that config (``build_dit3d``), which rank 0 also
+    writes as ``dit.json`` into the run directory
+    (``train.checkpoint_dir/<family>/<name>/``), where the CLI's sample route
+    finds it.
 
     Returns (vae_result, ldm_result, latent_scale). Both stages live under one
     run directory, ``train.checkpoint_dir/<family>/<name>/`` (``vae/``,
@@ -373,7 +402,11 @@ def train_ddpm_3d_ldm(cfg: ExperimentConfig, device: Union[str, torch.device] = 
     # fail fast on a bad stage-2 UNet config BEFORE the (expensive) VAE
     # stage runs; built on the meta device, so nothing is allocated
     with torch.device("meta"):
-        build_unet3d(cfg.unet)
+        build_denoiser3d(cfg, dit)
+    if dit is not None and process_index() == 0:
+        run_dir = Path(cfg.train.checkpoint_dir) / cfg.family / cfg.name
+        run_dir.mkdir(parents=True, exist_ok=True)
+        dit.to_json(run_dir / "dit.json")
 
     d = cfg.data
     if d.packed_dir:
@@ -478,7 +511,7 @@ def train_ddpm_3d_ldm(cfg: ExperimentConfig, device: Union[str, torch.device] = 
     logger.log_metric("latent_scale", latent_scale)
     print(f"[3d_ldm] latent scale = {latent_scale:.4f}")
 
-    unet = _init_params(lambda: build_unet3d(cfg.unet), cfg.train.seed)
+    unet = _init_params(lambda: build_denoiser3d(cfg, dit), cfg.train.seed)
     diffusion = build_diffusion(cfg.diffusion).to(dev)
     ldm_state = create_train_state(unet, cfg.train.learning_rate,
                                    ema=cfg.train.ema_decay is not None, device=dev)
@@ -521,7 +554,10 @@ def train_ddpm_3d_ldm(cfg: ExperimentConfig, device: Union[str, torch.device] = 
 
 
 def run_experiment(cfg: ExperimentConfig, device: Union[str, torch.device] = "cuda",
-                   logger=None, mesh=None):
+                   logger=None, mesh=None, dit: Optional[DiTConfig] = None):
+    """Train ``cfg.family``; ``dit`` (3D only) replaces stage 2's UNet3D."""
+    if dit is not None and cfg.family != "ddpm_3d_ldm":
+        raise ValueError(f"a DiT config is for the ddpm_3d_ldm family, not {cfg.family!r}")
     fn = {
         "slice_cond_2d": train_slice_cond_2d,
         "ddpm_25d": train_ddpm_25d,
@@ -529,7 +565,8 @@ def run_experiment(cfg: ExperimentConfig, device: Union[str, torch.device] = "cu
     }.get(cfg.family)
     if fn is None:
         raise ValueError(f"unknown family {cfg.family!r}")
-    return fn(cfg, device=device, logger=logger, mesh=mesh)
+    extra = {} if dit is None else {"dit": dit}
+    return fn(cfg, device=device, logger=logger, mesh=mesh, **extra)
 
 
 def _flatten_cfg(cfg: ExperimentConfig) -> dict:

@@ -52,6 +52,12 @@ from mrijax_torch.train.state import TrainState, ema_update, optimized_params
 
 Params = Dict[str, torch.Tensor]
 
+# the spans of a train step (``obs.profiling.span``): forward, backward and
+# update time the stream; ``train.allreduce`` (the gradients' reduction over
+# the data axis, only under a mesh or a sharded state) too; the nan guard's
+# flag read stays on the host
+SPANS = ("train.forward", "train.backward", "train.allreduce", "train.update", "train.guard")
+
 
 def sample_timesteps(generator: torch.Generator, batch_size: int, timesteps: int,
                      t_min: int = 0) -> torch.Tensor:
@@ -99,18 +105,19 @@ def apply_if_finite(state: TrainState, loss: torch.Tensor, group=None) -> TrainS
 def _synchronise(state: TrainState, mesh, loss: torch.Tensor):
     """After the backward, under a mesh or a sharded state: the gradients
     averaged over the data axis (reduce-scattered into the slices under
-    FSDP) and the loss made the global mean. Returns ``(loss, group)``;
-    ``group`` is None where no collective ran."""
+    FSDP; the span ``train.allreduce``) and the loss made the global mean.
+    Returns ``(loss, group)``; ``group`` is None where no collective ran."""
     layout = state.fsdp
     if layout is None and mesh is None:
         return loss, None
-    if layout is not None:
-        group, n = layout.group, layout.n
-        layout.reduce_gradients()
-    else:
-        group, n = mesh.get_group("data"), axis_size(mesh, "data")
-        all_reduce_mean([p.grad for p in state.model.parameters() if p.grad is not None],
-                        group, n)
+    with span("train.allreduce", stream=True):
+        if layout is not None:
+            group, n = layout.group, layout.n
+            layout.reduce_gradients()
+        else:
+            group, n = mesh.get_group("data"), axis_size(mesh, "data")
+            all_reduce_mean([p.grad for p in state.model.parameters() if p.grad is not None],
+                            group, n)
     total = loss.detach().float().reshape(1).clone()
     dist.all_reduce(total, group=group)
     return total.div_(n).reshape(()), group
