@@ -31,6 +31,12 @@ What it does, in order:
    exponentials beside the operations bound; GroupNorm+SiLU also weighted by
    its calls in one generate call; with ``--profile``, checks under
    ``torch.profiler`` that a ``gn_silu_stats`` call is one kernel launch;
+   the GroupNorm+SiLU backward's two kernels (``gn_silu_bwd_reduce``,
+   ``gn_silu_bwd_apply``) at every main-path training shape
+   (``gn_backward_shapes``: the UNet3D at B = 32 and 8, the UNet2D at 64,
+   the VAE3D's largest at 1) against the float64 gradient, float32 and
+   bf16, twice bitwise, and timed beside the plain route and the 3-pass
+   bytes bound (``groupnorm_backward_times``, summed over a training step);
 4. checks a small float32 pipeline on the card (kernels) against the same
    pipeline on the CPU (plain versions);
 5. drives the generation path at full width: the flagship ``UNet3D`` (base
@@ -423,7 +429,7 @@ FLASH_TRAIN = (TRAIN_BATCH, 800, 4, 128)
 ONE_ULP = dict(atol=1e-5, rtol=2 ** -7)    # bf16 dk and dv: rounded once
 TWO_ULPS = dict(atol=1e-5, rtol=2 ** -6)   # bf16 dq: rounded twice, around the Dh^-1/2 multiply
 GN_REMAT_LEVEL0_CALLS = 8         # 4 res blocks at level 0, two norms each, run again in the backward
-GN_GRAD_SHAPES = [(51200, 128), (800, 512)]
+GN_TRAIN_BATCH_3D = 32            # the batch of the 3D training cells of benchmark_h100
 GENERATION_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_attn_fwd")
 # The 3D stride-2 convolution kernel's main-path calls: (name, input (B, D, H,
 # W, Cin), Cout, bias): the UNet3D's two Downsamples at the generation batch
@@ -1206,39 +1212,85 @@ def time_flash_large_dh(rng):
     return rows
 
 
-def compare_groupnorm_autograd(rng):
-    """Gradients of the GroupNorm+SiLU ``autograd.Function`` (kernels in the
-    forward) against autograd through the plain composition, at two shapes of
-    the training path. Tolerance 1e-4 absolute in float32, the bar of the JAX package's
-    kernel test, plus 1e-5 relative for dscale and dbias, which are sums over
-    B·N terms; bf16 1e-3 + 1e-2 relative (one bf16 ulp). The backward is the
-    same plain composition on the same saved input, so the gradients agree far
-    inside that."""
+def gn_silu_float64(x, scale, bias, groups=GROUPS, eps=1e-5):
+    """GroupNorm+SiLU in float64: the plain composition's arithmetic
+    (``ops.norms.group_norm_silu`` casts to float32 first)."""
+    b, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(b, -1, groups, c // groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+    return F.silu(((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * scale + bias)
 
-    worst = 0.0
-    for n, c in GN_GRAD_SHAPES:
-        x32, scale, bias = gn_inputs(rng, TRAIN_BATCH, n, c)
-        dy32 = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, c), dtype=np.float32)).cuda()
+
+def gn_backward_shapes():
+    """(B, N, C) -> calls per training step of each GroupNorm+SiLU backward
+    of the main paths: the UNet3D's sites at the training cells' batch of 32
+    and phase 7's ``TRAIN_BATCH``, the UNet2D's at ``BATCH_2D``, and the
+    VAE3D's largest at one volume (``None``: not a UNet call)."""
+    shapes = {}
+    for b in (GN_TRAIN_BATCH_3D, TRAIN_BATCH):
+        shapes.update({(b, n, c): per_unet for (n, c), (per_unet, _) in GN_MAIN_PATH.items()
+                       if per_unet})
+    shapes.update({(BATCH_2D, n, c): calls for (n, c), calls in GN_UNET2D.items()})
+    shapes[(1, *GN_BIG)] = None
+    return shapes
+
+
+def relative_error(got, want):
+    """max |got − want| over max |want|."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def compare_groupnorm_backward(rng):
+    """The GroupNorm+SiLU ``autograd.Function`` on the card (forward and
+    backward kernels) at every main-path backward shape, float32 and bf16,
+    against the float64 gradient of the same function on the same inputs
+    (max error over max value, dx, dscale and dbias): float32 within 1e-5;
+    bf16 no further from float64 than the plain composition's own gradient
+    (``ops.norms.group_norm_silu``, which rounds to bf16 before the SiLU).
+    One launch of each of the four kernels, and a second forward and
+    backward bitwise equal."""
+    worst = {"float32": {}, "bfloat16": {}}
+    names = ("dx", "dscale", "dbias")
+    for b, n, c in gn_backward_shapes():
+        x32, scale, bias = gn_inputs(rng, b, n, c)
+        dy32 = torch.from_numpy(rng.standard_normal((b, n, c), dtype=np.float32)).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).replace("torch.", "")
-            x, dy = x32.to(dtype).requires_grad_(), dy32.to(dtype)
-            scale.requires_grad_()
-            bias.requires_grad_()
-            gn.launches.reset()
-            y = gn.group_norm_silu_fused(x, scale, bias, GROUPS)
-            if gn.launches.as_dict() != {"gn_silu_stats": 1, "gn_silu_apply": 1}:
-                raise AssertionError(f"GroupNorm+SiLU under autograd launched {gn.launches.as_dict()}")
-            got = torch.autograd.grad(y, (x, scale, bias), dy)
-            want = torch.autograd.grad(group_norm_silu(x, GROUPS, scale, bias), (x, scale, bias), dy)
-            tol = (dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32
-                   else dict(atol=1e-3, rtol=1e-2))
-            for name, g, w in zip(("dx", "dscale", "dbias"), got, want):
-                e = check_close(f"groupnorm autograd {key} ({n},{c}) {name}", g, w, **tol)
-                if name == "dx":
-                    worst = max(worst, e)
+            tag = f"groupnorm backward {key} ({b},{n},{c})"
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            leaves = [t.double().requires_grad_() for t in (x, scale, bias)]
+            want = torch.autograd.grad(gn_silu_float64(*leaves), leaves, dy.double())
+            del leaves
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+
+            def kernels():
+                y = gn.group_norm_silu_fused(*leaves, GROUPS)
+                return torch.autograd.grad(y, leaves, dy)
+
+            reset_launch_counts()
+            got = kernels()
+            if gn.launches.as_dict() != {**gn_calls(1), **gn_bwd_calls(1)}:
+                raise AssertionError(f"{tag}: launches {gn.launches.as_dict()}")
+            if not all(torch.equal(a, g) for a, g in zip(kernels(), got)):
+                raise AssertionError(f"{tag}: two launches differ")
+            errs = [relative_error(g, w) for g, w in zip(got, want)]
+            if dtype == torch.float32:
+                bars = [1e-5] * 3
+            else:
+                plain = torch.autograd.grad(group_norm_silu(leaves[0], GROUPS, *leaves[1:]),
+                                            leaves, dy)
+                bars = [relative_error(g, w) for g, w in zip(plain, want)]
+                del plain
+            for name, e, bar in zip(names, errs, bars):
+                if not e <= bar:
+                    raise AssertionError(f"{tag} {name}: relative error {e:.3e} above {bar:.3e}")
+                worst[key][name] = max(worst[key].get(name, 0.0), e)
+            del x, dy, want, got, leaves
+        del x32, dy32
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print(f"compare groupnorm autograd: {len(GN_GRAD_SHAPES)} shapes x 2 dtypes ok, "
-          f"max abs err of dx {worst:.3e}")
+    print("compare_groupnorm_backward " + json.dumps(
+        {"shapes": len(gn_backward_shapes()), "max_relative_error": worst}))
     return worst
 
 
@@ -1361,32 +1413,61 @@ def profile_groupnorm_stats(rng, calls=10):
     print("profile_gn_stats " + json.dumps(out))
 
 
-def time_groupnorm_backward(rng):
-    """Per UNet3D shape at the training batch (bf16): the fused forward (the
-    two kernels) and the backward of the ``autograd.Function``, which is
-    plain PyTorch — the recomputed composition and its gradient. With the
-    calls per forward this gives the GroupNorm+SiLU share of a training step."""
+def gn_backward_kernel_ms(fn, calls=5):
+    """Device ms a call of each GroupNorm+SiLU backward kernel under
+    ``torch.profiler`` (``calls`` calls of ``fn``), or {} where the profiler
+    recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {name: sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                      if name in e.key) / 1e3 / calls
+            for name in ("gn_silu_bwd_reduce", "gn_silu_bwd_apply")}
 
+
+def time_groupnorm_backward(rng):
+    """Per main-path backward shape in bf16 (the training batches, ``B``
+    first; ``gn_backward_shapes`` at B = 32, 64 and 1): the backward kernels
+    (``gn_silu_backward`` on the forward's stats; each kernel's share under
+    the profiler), the plain route (the composition run again under autograd
+    and differentiated, as the CPU takes it) and the bound: one read of x
+    and dy and one write of dx (3 passes) at 3.35 TB/s. Summed over one
+    training step at each family's batch (``per_train_step``)."""
     rows = []
-    for (n, c), (per_unet, _) in GN_MAIN_PATH.items():
-        if per_unet == 0:
+    for (b, n, c), calls in gn_backward_shapes().items():
+        if b == TRAIN_BATCH and b != GN_TRAIN_BATCH_3D:
             continue
-        x32, scale, bias = gn_inputs(rng, TRAIN_BATCH, n, c)
-        x = x32.to(torch.bfloat16).requires_grad_()
-        dy = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, c), dtype=np.float32))
-        dy = dy.cuda().to(torch.bfloat16)
+        x32, scale, bias = gn_inputs(rng, b, n, c)
+        x = x32.to(torch.bfloat16)
+        dy = torch.from_numpy(rng.standard_normal((b, n, c), dtype=np.float32)).cuda()
+        dy = dy.to(torch.bfloat16)
         del x32
-        leaves = (x, scale.requires_grad_(), bias.requires_grad_())
-        y = gn.group_norm_silu_fused(*leaves, GROUPS)
+        stats = gn.gn_silu_stats(x, GROUPS)
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+
+        def plain():
+            with torch.enable_grad():
+                y = group_norm_silu(leaves[0], GROUPS, *leaves[1:])
+            return torch.autograd.grad(y, leaves, dy)
+
+        kernels = lambda: gn.gn_silu_backward(x, dy, stats, scale, bias)  # noqa: E731
         rows.append({
-            "shape": [TRAIN_BATCH, n, c], "dtype": "bfloat16", "calls_per_unet_forward": per_unet,
-            "forward_ms": time_ms(lambda: gn.group_norm_silu_fused(*leaves, GROUPS)),
-            "backward_ms": time_ms(
-                lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)),
+            "shape": [b, n, c], "dtype": "bfloat16", "calls_per_step": calls,
+            "ms": time_ms(kernels), "plain_ms": time_ms(plain),
+            "bound_ms": 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
+            "kernel_ms": gn_backward_kernel_ms(kernels),
+            "host_issue_us": host_issue_us(kernels),
+            "plan": dataclasses.asdict(gn.backward_plan(b, n, c, GROUPS, x.element_size())),
         })
-        del x, y, dy, leaves
-    per_step = {k: sum(r[k] * r["calls_per_unet_forward"] for r in rows)
-                for k in ("forward_ms", "backward_ms")}
+        del x, dy, stats, leaves
+        torch.cuda.empty_cache()
+    per_step = {str(batch): {k: sum(r[k] * r["calls_per_step"] for r in rows
+                                    if r["shape"][0] == batch and r["calls_per_step"])
+                             for k in ("ms", "plain_ms", "bound_ms")}
+                for batch in (GN_TRAIN_BATCH_3D, BATCH_2D)}
     print("groupnorm_backward_times " + json.dumps({"per_train_step": per_step, "rows": rows}))
     return rows
 
@@ -1794,7 +1875,7 @@ def main_path(unet, vae, diffusion):
     peak = torch.cuda.max_memory_allocated()
 
     want_gn = DDIM_STEPS * GN_CALLS_PER_UNET + GN_CALLS_PER_DECODE
-    want = {"gn_silu_stats": want_gn, "gn_silu_apply": want_gn, "flash_attn_fwd": DDIM_STEPS,
+    want = {**gn_calls(want_gn), **gn_bwd_calls(0), "flash_attn_fwd": DDIM_STEPS,
             "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}   # no gradient when sampling
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -1943,8 +2024,8 @@ def train_path():
         peak = torch.cuda.max_memory_allocated()
 
         gn_per_step = GN_CALLS_PER_UNET + (GN_REMAT_LEVEL0_CALLS if remat_levels else 0)
-        want = {"gn_silu_stats": TRAIN_STEPS * gn_per_step,
-                "gn_silu_apply": TRAIN_STEPS * gn_per_step,
+        want = {**gn_calls(TRAIN_STEPS * gn_per_step),
+                **gn_bwd_calls(TRAIN_STEPS * GN_CALLS_PER_UNET),
                 "flash_attn_fwd": TRAIN_STEPS, "flash_attn_bwd_dkv": TRAIN_STEPS,
                 "flash_attn_bwd_dq": TRAIN_STEPS}
         if counts != want:
@@ -2134,6 +2215,8 @@ def trainer_path(bare_step):
         def want_counts(train_steps, val_steps):
             gn_calls = (train_steps + val_steps) * per_unet
             return {"gn_silu_stats": gn_calls, "gn_silu_apply": gn_calls,
+                    "gn_silu_bwd_reduce": train_steps * per_unet,
+                    "gn_silu_bwd_apply": train_steps * per_unet,
                     "flash_attn_fwd": train_steps + val_steps,
                     "flash_attn_bwd_dkv": train_steps, "flash_attn_bwd_dq": train_steps}
 
@@ -2324,11 +2407,12 @@ def check_output(tag, out, shape):
         raise AssertionError(f"{tag}: output not on the card or not finite")
 
 
-def expect_gn(tag, counts, forwards):
-    """Exactly 29 launches of each GroupNorm kernel per UNet2D forward, and
-    no flash-attention launch (the UNet2D has no attention)."""
-    want = {"gn_silu_stats": forwards * GN_CALLS_PER_UNET2D,
-            "gn_silu_apply": forwards * GN_CALLS_PER_UNET2D,
+def expect_gn(tag, counts, forwards, backwards=0):
+    """Exactly 29 launches of each GroupNorm kernel per UNet2D forward (of
+    each backward kernel per backward), and no flash-attention launch (the
+    UNet2D has no attention)."""
+    want = {**gn_calls(forwards * GN_CALLS_PER_UNET2D),
+            **gn_bwd_calls(backwards * GN_CALLS_PER_UNET2D),
             "flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     if counts != want:
         raise AssertionError(f"{tag}: launch counts {counts}, expected {want}")
@@ -2659,7 +2743,7 @@ def train_path_2d():
                 losses.append(loss)
 
         _, seconds, peak, counts = timed(run)
-        expect_gn(f"train_path_2d {name}", counts, TRAIN_STEPS)
+        expect_gn(f"train_path_2d {name}", counts, TRAIN_STEPS, backwards=TRAIN_STEPS)
         losses = torch.stack(losses).cpu()
         if losses.dtype != torch.float32 or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"train_path_2d {name}: losses {losses.tolist()}")
@@ -2896,6 +2980,10 @@ def gn_calls(n):
     return {"gn_silu_stats": n, "gn_silu_apply": n}
 
 
+def gn_bwd_calls(n):
+    return {"gn_silu_bwd_reduce": n, "gn_silu_bwd_apply": n}
+
+
 def run_driver(cfg, tmp, profile_at):
     """``run_experiment(cfg)`` on the card under a ``DriverProbe``."""
     reset_termination()
@@ -2935,7 +3023,8 @@ def expect_driver_3d(tag, stages, cfg):
         f"{cfg.family}/{cfg.name}/ldm"]
     remat = GN_VAE_FORWARD if cfg.vae.remat else 0
     expect_stage(f"{tag} stage 1", vae_stage, (DRIVER_STEPS, 1),
-                 gn_calls(GN_VAE_FORWARD + remat), gn_calls(GN_VAE_FORWARD))
+                 {**gn_calls(GN_VAE_FORWARD + remat), **gn_bwd_calls(GN_VAE_FORWARD)},
+                 gn_calls(GN_VAE_FORWARD))
     packed_counts = stages["pack_latents"]["launches"]
     if (stages["pack_latents"]["volumes"] != DRIVER_CASES
             or packed_counts != {**dict.fromkeys(packed_counts, 0),
@@ -2943,7 +3032,8 @@ def expect_driver_3d(tag, stages, cfg):
         raise AssertionError(f"{tag} pack_latents: {stages['pack_latents']}")
     flash = {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
     expect_stage(f"{tag} stage 2", ldm_stage, (1, 0),
-                 {**gn_calls(GN_CALLS_PER_UNET + GN_REMAT_LEVEL0_CALLS), **flash},
+                 {**gn_calls(GN_CALLS_PER_UNET + GN_REMAT_LEVEL0_CALLS),
+                  **gn_bwd_calls(GN_CALLS_PER_UNET), **flash},
                  {**gn_calls(GN_CALLS_PER_UNET), "flash_attn_fwd": 1})
     return vae_stage, ldm_stage
 
@@ -3033,9 +3123,10 @@ def driver_3d(raw, vol_dir, tmp):
 def expect_driver_2d(tag, rec):
     """Exact steps and launches of a 2D / 2.5D run at ``driver_path``'s cuts:
     ``DRIVER_STEPS`` train and 1 val step of 29 launches of each GroupNorm
-    kernel."""
+    kernel (and a train step of each backward kernel)."""
     expect_stage(tag, rec, (DRIVER_STEPS, 1),
-                 gn_calls(GN_CALLS_PER_UNET2D), gn_calls(GN_CALLS_PER_UNET2D))
+                 {**gn_calls(GN_CALLS_PER_UNET2D), **gn_bwd_calls(GN_CALLS_PER_UNET2D)},
+                 gn_calls(GN_CALLS_PER_UNET2D))
 
 
 DRIVER_2D_CUTS = {"data.val_fraction": DRIVER_VAL_FRACTION_2D, "train.debug_fast": True,
@@ -4223,7 +4314,7 @@ ENTRY_SMALL_LATENT = (1, 8, 8, 8, 16)    # the card-against-CPU check of entry's
 ENTRY_T = 7
 ENTRY_REPEATS = 5
 BF16_ULP = 2 ** -7                       # of a value in [1, 2)
-ENTRY_LAUNCHES = {"gn_silu_stats": GN_CALLS_PER_UNET, "gn_silu_apply": GN_CALLS_PER_UNET,
+ENTRY_LAUNCHES = {**gn_calls(GN_CALLS_PER_UNET), **gn_bwd_calls(0),
                   "flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
 SCRIPT_CONFIG = REPO / "configs" / "slice_cond_2d_tiny_cpu.json"
 SCRIPT_TIMEOUT_S = 600
@@ -4586,7 +4677,7 @@ def large_head_path(four_heads_generate, four_heads_train):
     gen_counts = all_launch_counts()
     gen_peak = torch.cuda.max_memory_allocated()
     want_gn = DDIM_STEPS * GN_CALLS_PER_UNET + GN_CALLS_PER_DECODE
-    want = {"gn_silu_stats": want_gn, "gn_silu_apply": want_gn,
+    want = {**gn_calls(want_gn), **gn_bwd_calls(0),
             "flash_attn_fwd": DDIM_STEPS * FLASH_PER_LARGE_HEAD_UNET,
             "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     if gen_counts != want:
@@ -4609,7 +4700,7 @@ def large_head_path(four_heads_generate, four_heads_train):
         torch.cuda.synchronize()
         two_s = time.perf_counter() - t0
     two_counts = all_launch_counts()
-    want = {"gn_silu_stats": GN_CALLS_PER_UNET, "gn_silu_apply": GN_CALLS_PER_UNET,
+    want = {**gn_calls(GN_CALLS_PER_UNET), **gn_bwd_calls(0),
             "flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     if two_counts != want:
         raise AssertionError(f"2-head forward: launch counts {two_counts}, expected {want}")
@@ -4636,8 +4727,8 @@ def large_head_path(four_heads_generate, four_heads_train):
     train_s = (time.perf_counter() - t0) / TRAIN_STEPS
     train_counts = all_launch_counts()
     train_peak = torch.cuda.max_memory_allocated()
-    want = {"gn_silu_stats": TRAIN_STEPS * GN_CALLS_PER_UNET,
-            "gn_silu_apply": TRAIN_STEPS * GN_CALLS_PER_UNET,
+    want = {**gn_calls(TRAIN_STEPS * GN_CALLS_PER_UNET),
+            **gn_bwd_calls(TRAIN_STEPS * GN_CALLS_PER_UNET),
             **{name: TRAIN_STEPS * FLASH_PER_LARGE_HEAD_UNET for name in
                ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}}
     if train_counts != want:
@@ -4675,25 +4766,26 @@ def large_head_path(four_heads_generate, four_heads_train):
 # ------------------------------------------------------------------ phase 18
 
 BENCH_GN = ("gn_silu_stats", "gn_silu_apply")
+BENCH_GN_TRAIN = BENCH_GN + ("gn_silu_bwd_reduce", "gn_silu_bwd_apply")
 BENCH_FLASH_BWD = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
 BENCH_SAMPLE_3D = BENCH_GN + ("flash_attn_fwd",)
-BENCH_TRAIN_3D = BENCH_SAMPLE_3D + BENCH_FLASH_BWD
+BENCH_TRAIN_3D = BENCH_GN_TRAIN + ("flash_attn_fwd",) + BENCH_FLASH_BWD
 # argv of a mode → (metric, lines, the kernels it launches; the others it must not)
 BENCH_MODES = [
     ((), "3d_ldm_volume_sampling_throughput", 1, BENCH_SAMPLE_3D),
     (("--train",), "3d_ldm_train_step_time", 1, BENCH_TRAIN_3D),
     (("--train-cached",), "3d_ldm_cached_train_throughput", 1, BENCH_TRAIN_3D),
     (("--train-cached-sweep",), "3d_ldm_cached_train_throughput", 5, BENCH_TRAIN_3D),
-    (("--train-vae",), "vae3d_train_throughput", 1, BENCH_GN),
-    (("--train-vae-sweep",), "vae3d_train_throughput", 6, BENCH_GN),
-    (("--train-2d",), "slice_cond_2d_train_step_time", 1, BENCH_GN),
-    (("--train-25d",), "ddpm_25d_train_step_time", 1, BENCH_GN),
-    (("--train-2d-profile",), "slice_cond_2d_train_profile", 5, BENCH_GN),
+    (("--train-vae",), "vae3d_train_throughput", 1, BENCH_GN_TRAIN),
+    (("--train-vae-sweep",), "vae3d_train_throughput", 6, BENCH_GN_TRAIN),
+    (("--train-2d",), "slice_cond_2d_train_step_time", 1, BENCH_GN_TRAIN),
+    (("--train-25d",), "ddpm_25d_train_step_time", 1, BENCH_GN_TRAIN),
+    (("--train-2d-profile",), "slice_cond_2d_train_profile", 5, BENCH_GN_TRAIN),
     (("--sample-2d",), "slice_cond_2d_sampling_throughput", 1, BENCH_GN),
     (("--sample-2d", "--steps", "3", "--sampler", "dpm"), "slice_cond_2d_sampling_throughput",
      1, BENCH_GN),
     (("--sample-2d-sweep",), "slice_cond_2d_sampling_ladder", 9, BENCH_GN),
-    (("--input-pipeline",), "input_pipeline_2d", 5, BENCH_GN),
+    (("--input-pipeline",), "input_pipeline_2d", 5, BENCH_GN_TRAIN),
     (("--eval-2d",), "eval_2d_throughput", 2, BENCH_GN),
     (("--sweep",), "3d_ldm_sampling_sweep", 6, BENCH_SAMPLE_3D),
     (("--smoke",), "3d_ldm_volume_sampling_throughput", 1, BENCH_SAMPLE_3D),
@@ -4950,7 +5042,7 @@ def tensor_core_proof(libs):
 
 def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows,
                    counts_by_path, chunk_worst, chunk_rows, small_worst, small_rows,
-                   large_worst, large_rows, gn_wide_rows):
+                   large_worst, large_rows, gn_wide_rows, gn_bwd_worst, gn_bwd_rows):
     """One record per kernel, at its heaviest main-path shape in bf16 (the
     flash kernels at the training batch).
     ``launches`` adds up the counted runs of every path (``counts_by_path``:
@@ -4965,7 +5057,10 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     (``float32``, with the tensor-core bound of three TF32 passes beside the
     CUDA-core one);
     ``gn_silu_stats`` and ``gn_silu_apply`` their times at 4096 and 8192
-    channels (``wide_channels``)."""
+    channels (``wide_channels``); the GroupNorm+SiLU backward's two kernels
+    one record (``gn_silu_bwd``, launches of ``gn_silu_bwd_reduce``, each
+    ``gn_silu_bwd_apply`` with it) at its heaviest UNet shape, errors relative
+    to the float64 gradient's largest value."""
     big = max(gn_rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     fl = next(r for r in flash_rows
               if r["dtype"] == "bfloat16" and tuple(r["shape"]) == FLASH_TRAIN)
@@ -4975,6 +5070,8 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
     bw32 = next(r for r in bwd_rows if r["dtype"] == "float32")
     src_gn = "mrijax_torch/csrc/groupnorm_silu.cu"
     src_bwd = "mrijax_torch/csrc/flash_attention_bwd.cu"
+    gb = max((r for r in gn_bwd_rows if r["calls_per_step"]),
+             key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
 
     def launches(name):
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
@@ -5044,6 +5141,11 @@ def kernel_records(gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_ro
          "ms": big["apply_ms"], "plain_ms": big["apply_plain_ms"],
          "bound_ms": big["apply_bound_ms"], "bound_by": "bytes",
          "library_ms": None, **wide("apply", False)},
+        {"name": "gn_silu_bwd", "route": "cuda", "source": src_gn, "replaces": None,
+         **launches("gn_silu_bwd_reduce"), "shape": gb["shape"], "dtype": "bfloat16",
+         "max_rel_err": gn_bwd_worst["float32"], "max_rel_err_bf16": gn_bwd_worst["bfloat16"],
+         "ms": gb["ms"], "plain_ms": gb["plain_ms"], "bound_ms": gb["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "mrijax_torch/csrc/flash_attention_fwd.cu",
          "replaces": "mrijax/kernels/flash_attention_pallas.py:162",
@@ -5120,12 +5222,12 @@ def main() -> int:
         rng, [(shape, shape) for shape in FLASH_SMALL_DH] + [FLASH_SMALL_DH_CHUNK], "small Dh")
     large_worst = compare_flash_head_dims(
         rng, [(shape, shape) for shape in FLASH_LARGE_DH] + [FLASH_LARGE_DH_CHUNK], "large Dh")
-    compare_groupnorm_autograd(rng)
+    gn_bwd_worst = compare_groupnorm_backward(rng)
     torch.cuda.empty_cache()
     gn_rows, _, gn_wide_rows = time_groupnorm(rng)
     if args.profile:
         profile_groupnorm_stats(rng)
-    time_groupnorm_backward(rng)
+    gn_bwd_rows = time_groupnorm_backward(rng)
     flash_rows = time_flash(rng)
     bwd_rows = time_flash_backward(rng)
     chunk_rows = time_flash_chunks(rng)
@@ -5179,7 +5281,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_records(
         gn_worst, flash_worst, bwd_worst, gn_rows, flash_rows, bwd_rows, counts_by_path,
         chunk_worst, chunk_rows, small_worst, small_rows, large_worst, large_rows,
-        gn_wide_rows)}))
+        gn_wide_rows, gn_bwd_worst, gn_bwd_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,14 @@ PyTorch versions beside them (``*_reference``) are what a CPU tensor gets,
 and what the tests and ``chip_smoke.py`` hold the kernels against.
 
 ``group_norm_silu_fused`` is a ``torch.autograd.Function``. Its forward runs
-the two kernels, under autograd too, and saves only (x, γ, β). Its backward
+the two kernels, under autograd too, and saves (x, γ, β) and the stats. On a
+CUDA tensor its backward is two more hand-written kernels,
+``gn_silu_bwd_reduce`` (per-channel sums of the gradient through SiLU, then
+the group means and dγ, dβ, one launch) and ``gn_silu_bwd_apply`` (dx), cut
+up by ``backward_plan``; they replace no TPU kernel (the TPU version's
+``_bwd`` takes the vjp of the plain composition). On the CPU the backward
 differentiates the plain composition ``mrijax_torch.ops.norms.group_norm_silu``
-on the saved input — the TPU version's backward is no Pallas kernel either
-(its ``_bwd`` takes the vjp of the same composition), so plain PyTorch is its
-port.
+on the saved input.
 
 Both kernels are also the ``torch.library`` custom ops
 ``torch.ops.mrijax_torch.gn_silu_stats`` and ``gn_silu_apply`` (CUDA
@@ -40,7 +43,8 @@ from torch.autograd.function import once_differentiable
 from mrijax_torch.kernels import _build
 from mrijax_torch.obs.profiling import span
 
-launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply")
+launches = _build.LaunchCounts("gn_silu_stats", "gn_silu_apply",
+                               "gn_silu_bwd_reduce", "gn_silu_bwd_apply")
 
 MAX_GROUPS = 128           # the stats kernel sums (2, G) partials in 2 * 128 floats of shared memory
 MAX_CHANNELS = 26624       # stats: (2048 + C) * 8 bytes of dynamic shared memory beside 1 KB static
@@ -51,6 +55,8 @@ STATS_BLOCKS_PER_SM = 2    # blocks of the whole batch per SM that gn_silu_stats
 STATS_SLABS_PER_SM = 8     # up to this many slabs an SM, one block per SM
 SLAB_CHAIN = 32            # slab sums a thread adds in one run (csrc kChain)
 APPLY_ROWS_PER_THREAD = (2, 1)   # loads a thread compiled into gn_silu_apply, most first
+BWD_ROWS_PER_THREAD = 2    # rows of x and of dy a thread loads per slab in gn_silu_bwd_reduce
+BWD_BLOCKS_PER_SM = 2      # blocks of the whole batch per SM that gn_silu_bwd_reduce launches, at most
 _THREADS = 256
 
 
@@ -196,6 +202,45 @@ def apply_plan(n: int, c: int, groups: int, itemsize: int,
     return ApplyPlan(vec, tx, ty, rows_per_thread, row_chunks, col_chunks)
 
 
+@dataclass(frozen=True)
+class BackwardPlan:
+    """How the (B, N, C) activation and its gradient are cut up for the two
+    backward kernels: ``reduce`` in ``gn_silu_stats``'s layout, ``apply`` in
+    ``gn_silu_apply``'s."""
+
+    reduce: LaunchPlan
+    apply: ApplyPlan
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(b: int, n: int, c: int, groups: int, itemsize: int,
+                  alignment: int = 16) -> BackwardPlan:
+    """Launch plans of ``gn_silu_bwd_reduce`` and ``gn_silu_bwd_apply`` for a
+    (b, n, c) input and output gradient whose data pointers are both aligned
+    to ``alignment`` bytes.
+
+    ``reduce``: ``apply_plan``'s vector width (the kernel keeps per-channel
+    sums, so a vector may span groups), blocks of 256 threads with ``tx``
+    the power of two at or above the vector columns, up to 256, and slabs of
+    ``ty`` · ``BWD_ROWS_PER_THREAD`` rows (two loads of x and two of dy a
+    thread in flight). ``blocks`` is ⌊BWD_BLOCKS_PER_SM·SM_COUNT/b⌋ (at
+    least 1), or the number of slabs where that is fewer: rounded down, so
+    that the whole grid is resident at once (each block holds a (2, C)
+    partial and loops over its slabs; a second wave would double the
+    time). ``apply``: ``apply_plan``.
+    """
+    _check_groups(c, groups)
+    if c > MAX_CHANNELS:
+        raise ValueError(f"{c} channels: the backward kernel takes at most {MAX_CHANNELS}")
+    vec = _vector_width(c, itemsize, alignment)
+    tx = min(1 << (c // vec - 1).bit_length(), _THREADS)
+    ty = _THREADS // tx
+    slabs = -(-n // (ty * BWD_ROWS_PER_THREAD))
+    blocks = max(1, min(slabs, BWD_BLOCKS_PER_SM * SM_COUNT // b))
+    return BackwardPlan(LaunchPlan(vec, tx, ty, BWD_ROWS_PER_THREAD, blocks, slabs),
+                        apply_plan(n, c, groups, itemsize, alignment))
+
+
 def _check_input(x: torch.Tensor, groups: int) -> None:
     if x.dim() != 3:
         raise ValueError(f"expected (B, N, C), got shape {tuple(x.shape)}")
@@ -235,6 +280,10 @@ def _library() -> ctypes.CDLL:
         lib.gn_silu_stats.restype = i
         lib.gn_silu_apply.argtypes = [p, p, p, p, p, i, i, ll, ll, i, i, i, i, i, i, i, p]
         lib.gn_silu_apply.restype = i
+        lib.gn_silu_bwd_reduce.argtypes = [p] * 10 + [i, i, ll, ll, i, i, i, i, i, i, d, p]
+        lib.gn_silu_bwd_reduce.restype = i
+        lib.gn_silu_bwd_apply.argtypes = [p] * 7 + [i, i, ll, ll, i, i, i, i, i, i, i, p]
+        lib.gn_silu_bwd_apply.restype = i
     return lib
 
 
@@ -408,15 +457,82 @@ def _(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   groups: int, eps: float) -> torch.Tensor:
-    if torch.compiler.is_exporting():
-        shape = x.shape
-        x3 = x.reshape(shape[0], -1, shape[-1])
-        stats = gn_silu_stats_op(x3, groups, eps)
-        return gn_silu_apply_op(x3, stats, scale, bias).reshape(shape)
-    if not x.is_cuda:
-        return group_norm_silu_reference(x, scale, bias, groups, eps)
+def _launch_backward(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor,
+                     plan: BackwardPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``gn_silu_bwd_reduce`` and ``gn_silu_bwd_apply`` on checked,
+    contiguous CUDA (B, N, C) tensors ``x`` and ``dy`` of one dtype, with the
+    forward's ``stats`` and its float32 ``scale`` and ``bias``. Returns dx
+    (x's dtype) and the float32 (2, C) rows dβ, dγ."""
+    b, n, c = x.shape
+    groups = stats.shape[-1]
+    r, a = plan.reduce, plan.apply
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial_floats = b * r.blocks * 2 * c
+    counters, work = _workspace(x.device, stream, b + 1,
+                                partial_floats + b * 2 * c + b * 2 * groups)
+    sums = work.data_ptr() + 4 * partial_floats
+    means = sums + 4 * b * 2 * c
+    dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    if dx.data_ptr() % (a.vec * x.element_size()) != 0:
+        raise RuntimeError("output buffer is less aligned than the input")
+    lib, code = _library(), _build.dtype_code(x.dtype)
+    err = lib.gn_silu_bwd_reduce(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        work.data_ptr(), counters.data_ptr(), sums, means, dparams.data_ptr(),
+        code, r.vec, b, n, c, groups, r.tx, r.ty, r.rows_per_thread, r.blocks,
+        float(n * (c // groups)), stream,
+    )
+    _build.check_launch(err, "gn_silu_bwd_reduce")
+    launches.bump("gn_silu_bwd_reduce")
+    err = lib.gn_silu_bwd_apply(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), means, scale.data_ptr(),
+        bias.data_ptr(), dx.data_ptr(), code, a.vec, b, n, c, groups, a.tx, a.ty,
+        a.rows_per_thread, a.row_chunks, a.col_chunks, stream,
+    )
+    _build.check_launch(err, "gn_silu_bwd_apply")
+    launches.bump("gn_silu_bwd_apply")
+    return dx, dparams
+
+
+def gn_silu_backward(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                     scale: torch.Tensor,
+                     bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dγ, dβ) of GroupNorm+SiLU on CUDA (B, *spatial, C) tensors ``x``
+    and ``dy`` of one shape and dtype, with the forward's ``stats`` (B, 2, G)
+    from ``gn_silu_stats`` and its float32 ``scale`` and ``bias``: the two
+    backward kernels. dx has x's dtype; dγ and dβ are float32."""
+    shape = x.shape
+    if dy.shape != shape or dy.dtype != x.dtype or not x.is_contiguous():
+        raise ValueError(
+            f"GroupNorm+SiLU backward needs a contiguous x and a gradient of its "
+            f"shape and dtype, got {tuple(shape)} {x.dtype} and {tuple(dy.shape)} {dy.dtype}"
+        )
+    dy = dy.contiguous()
+    x3, dy3 = x.view(shape[0], -1, shape[-1]), dy.view(shape[0], -1, shape[-1])
+    groups = stats.shape[-1]
+    _check_input(x3, groups)
+    b, n, c = x3.shape
+    for name, t, want in (("stats", stats, (b, 2, groups)),
+                          ("scale", scale, (c,)), ("bias", bias, (c,))):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != want or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 {want} tensor on "
+                f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    plan = backward_plan(b, n, c, groups, x.element_size(),
+                         min(_alignment(x3), _alignment(dy3)))
+    with torch.cuda.device(x.device):
+        dx, dparams = _launch_backward(x3, dy3, stats, scale, bias, plan)
+    return dx.view(shape), dparams[1], dparams[0]
+
+
+def _launch_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    groups: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two forward kernels on a CUDA (B, *spatial, C) tensor: y and the
+    (B, 2, G) stats."""
     shape = x.shape
     if not x.is_contiguous():
         raise ValueError(
@@ -428,15 +544,31 @@ def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(x.device):
         stats = _launch_stats(x3, groups, eps, _plan_for(x3, groups))
         return _launch_apply(x3, stats, scale, bias,
-                             _apply_plan_for(x3, groups)).view(shape)
+                             _apply_plan_for(x3, groups)).view(shape), stats
+
+
+def _fused_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float) -> torch.Tensor:
+    if torch.compiler.is_exporting():
+        shape = x.shape
+        x3 = x.reshape(shape[0], -1, shape[-1])
+        stats = gn_silu_stats_op(x3, groups, eps)
+        return gn_silu_apply_op(x3, stats, scale, bias).reshape(shape)
+    if not x.is_cuda:
+        return group_norm_silu_reference(x, scale, bias, groups, eps)
+    return _launch_forward(x, scale, bias, groups, eps)[0]
 
 
 class _GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps):
-        ctx.save_for_backward(x, scale, bias)
+        if x.is_cuda and not torch.compiler.is_exporting():
+            y, stats = _launch_forward(x, scale, bias, groups, eps)
+        else:
+            y, stats = _fused_forward(x, scale, bias, groups, eps), None
+        ctx.save_for_backward(x, scale, bias, stats)
         ctx.groups, ctx.eps = groups, eps
-        return _fused_forward(x, scale, bias, groups, eps)
+        return y
 
     @staticmethod
     @once_differentiable
@@ -445,7 +577,12 @@ class _GroupNormSiLU(torch.autograd.Function):
         from mrijax_torch.ops.norms import group_norm_silu
 
         with span("gn_silu.backward"):
-            x, scale, bias = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            x, scale, bias, stats = ctx.saved_tensors
+            if stats is not None:
+                grads = gn_silu_backward(x, dy, stats, scale, bias)
+                return tuple(g if need else None
+                             for g, need in zip(grads, ctx.needs_input_grad[:3])) + (None, None)
+            x, scale, bias = (t.detach().requires_grad_(True) for t in (x, scale, bias))
             with torch.enable_grad():
                 y = group_norm_silu(x, ctx.groups, scale, bias, ctx.eps)
             wanted = [t for t, need in zip((x, scale, bias), ctx.needs_input_grad) if need]
@@ -462,9 +599,10 @@ def group_norm_silu_fused(x: torch.Tensor, scale: torch.Tensor,
 
     On CUDA: the two kernels, or an error for what they do not take (a
     non-contiguous buffer, another dtype than float32/bfloat16, more than 128
-    groups). On the CPU: the plain version. The gradient is that of the plain
-    composition on the saved input. A call that records no gradient (sampling)
-    goes straight to the kernels.
+    groups), and the two backward kernels for the gradient. On the CPU: the
+    plain version, and the gradient of the plain composition on the saved
+    input. A call that records no gradient (sampling) goes straight to the
+    kernels.
     """
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):

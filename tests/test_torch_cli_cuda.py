@@ -62,6 +62,7 @@ def test_exported_slice_sampler_on_the_card(cuda, tmp_path):
         counts.append(gn.launches.as_dict())
     assert torch.equal(outs[0], outs[1])
     sites = 5 * sum(m.__class__.__name__ == "GroupNormSiLU" for m in model.modules())
-    assert counts[0] == counts[1] == {"gn_silu_stats": sites, "gn_silu_apply": sites}
+    assert counts[0] == counts[1] == {"gn_silu_stats": sites, "gn_silu_apply": sites,
+                                      "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     with pytest.raises(ValueError, match="exported for device type 'cuda'"):
         aot.deserialize_exported(path, "cpu")

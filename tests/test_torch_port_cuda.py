@@ -28,6 +28,7 @@ from mrijax_torch.train import (
     create_train_state,
     make_cached_latent_eval_step,
     make_cached_latent_train_step,
+    make_diffusion_train_step,
 )
 
 pytestmark = pytest.mark.gpu
@@ -67,7 +68,8 @@ def test_group_norm_silu_kernels_match_plain_version(cuda, shape, groups, dtype)
     gn.launches.reset()
     with torch.no_grad():
         got = gn.group_norm_silu_fused(x, scale, bias, groups)
-    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     want = gn.group_norm_silu_reference(x, scale, bias, groups)
     tol = dict(atol=2e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
     torch.testing.assert_close(got, want, **tol)
@@ -123,7 +125,8 @@ def test_gn_silu_apply_kernel_matches_plain_version(cuda, shape, offset, pointer
     stats = gn.gn_silu_stats_reference(x, groups)
     gn.launches.reset()
     got = gn.gn_silu_apply(x, stats, scale, bias)
-    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 1}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 1,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     want = gn.gn_silu_apply_reference(x, stats, scale, bias)
     tol = dict(atol=2e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
     torch.testing.assert_close(got, want, **tol)
@@ -154,7 +157,8 @@ def test_gn_silu_stats_kernel_matches_plain_version(cuda, shape, offset, pointer
     x = torch.from_numpy(x32).to(cuda, dtype)[pointer_shift:].view(shape)
     gn.launches.reset()
     got = gn.gn_silu_stats(x, groups)
-    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 0}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 0,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     want = gn.gn_silu_stats_reference(x, groups)
     if offset < 100:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
@@ -306,9 +310,11 @@ def test_flash_attention_autograd_route_launches_all_three_kernels(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_norm_silu_autograd_route_runs_the_kernels(cuda, dtype):
     """Under autograd on CUDA the fused op does not raise: its forward
-    launches both kernels, and its gradients are those of the plain
-    composition (fp32 1e-4, the bar of the JAX package's kernel test; bf16 one
-    ulp)."""
+    launches both forward kernels, its backward both backward kernels, and
+    its gradients are those of the plain composition in float32 on the same
+    inputs (fp32 1e-4, the bar of the JAX package's kernel test; bf16 one ulp
+    of dx: the kernels do the SiLU and its gradient in float32, where the
+    plain composition on bf16 rounds to bf16 before the SiLU)."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(2, 500, 64)).astype(np.float32)).to(cuda, dtype)
     leaves = [x.requires_grad_(),
@@ -317,12 +323,114 @@ def test_group_norm_silu_autograd_route_runs_the_kernels(cuda, dtype):
     dy = torch.from_numpy(rng.normal(size=(2, 500, 64)).astype(np.float32)).to(cuda, dtype)
     gn.launches.reset()
     y = gn.group_norm_silu_fused(*leaves, 8)
-    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     got = torch.autograd.grad(y, leaves, dy)
-    want = torch.autograd.grad(group_norm_silu(leaves[0], 8, *leaves[1:]), leaves, dy)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 1, "gn_silu_apply": 1,
+                                     "gn_silu_bwd_reduce": 1, "gn_silu_bwd_apply": 1}
+    x32 = leaves[0].detach().float().requires_grad_()
+    want = torch.autograd.grad(group_norm_silu(x32, 8, *leaves[1:]), [x32, *leaves[1:]],
+                               dy.float())
     tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=1e-2)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **tol)
+        torch.testing.assert_close(g.float(), w, **tol)
+
+
+# (B, N, C) of every GroupNorm+SiLU backward of the training paths: the UNet2D
+# at the 2D cells' batch of 64, the UNet3D at the 3D cells' 32 and at 8, the
+# VAE3D's largest at one volume
+GN_BACKWARD_SHAPES = ([(64, n, c) for n, c in ((16384, 64), (16384, 128), (4096, 128),
+                                               (4096, 256), (1024, 256), (1024, 512), (256, 512))]
+                      + [(b, n, c) for b in (32, 8)
+                         for n, c in ((51200, 128), (51200, 256), (6400, 256), (6400, 512),
+                                      (800, 512), (800, 1024))]
+                      + [(1, 3276800, 32)])
+
+
+def _gn_silu_float64_gradient(x, dy, scale, bias, groups=8):
+    leaves = [t.detach().double().requires_grad_() for t in (x, scale, bias)]
+    b, c = x.shape[0], x.shape[-1]
+    xg = leaves[0].reshape(b, -1, groups, c // groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+    y = torch.nn.functional.silu(
+        ((xg - mean) * torch.rsqrt(var + 1e-5)).reshape(x.shape) * leaves[1] + leaves[2])
+    return torch.autograd.grad(y, leaves, dy.double())
+
+
+def _relative_error(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_BACKWARD_SHAPES)
+def test_group_norm_silu_backward_kernels_match_float64(cuda, shape, dtype):
+    """``gn_silu_backward`` (the two backward kernels, on the forward
+    kernel's stats) against the float64 gradient of the same function on the
+    same inputs, as the largest error over the largest value of dx, dγ and
+    dβ: float32 within 1e-5; bf16 no further than the plain composition's own
+    gradient (``ops.norms.group_norm_silu``, which rounds to bf16 before the
+    SiLU). Two calls give the same bits."""
+    b, n, c = shape
+    rng = np.random.default_rng(9)
+    x = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)) * 1.5 + 0.3).to(cuda, dtype)
+    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(0.1 * rng.normal(size=c).astype(np.float32)).to(cuda)
+    stats = gn.gn_silu_stats(x, 8)
+    gn.launches.reset()
+    got = gn.gn_silu_backward(x, dy, stats, scale, bias)
+    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 0,
+                                     "gn_silu_bwd_reduce": 1, "gn_silu_bwd_apply": 1}
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert all(torch.equal(a, g) for a, g in zip(gn.gn_silu_backward(x, dy, stats, scale, bias),
+                                                 got))
+    want = _gn_silu_float64_gradient(x, dy, scale, bias)
+    errs = [_relative_error(g, w) for g, w in zip(got, want)]
+    del got
+    if dtype == torch.float32:
+        bars = [1e-5] * 3
+    else:
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+        plain = torch.autograd.grad(group_norm_silu(leaves[0], 8, *leaves[1:]), leaves, dy)
+        bars = [_relative_error(g, w) for g, w in zip(plain, want)]
+    for name, e, bar in zip(("dx", "dscale", "dbias"), errs, bars):
+        assert e <= bar, (name, e, bar)
+
+
+@pytest.mark.parametrize("family", ["unet3d", "unet2d"])
+def test_training_step_runs_each_backward_kernel_29_times(cuda, family, monkeypatch):
+    """One bf16 training step of a narrow model with the flagships' topology
+    (29 GroupNorm+SiLU sites a forward) launches each forward and each
+    backward kernel 29 times, and never the plain composition the CPU route
+    differentiates."""
+    from mrijax_torch.ops import norms
+
+    plain_calls = []
+    plain = norms.group_norm_silu
+    monkeypatch.setattr(norms, "group_norm_silu",
+                        lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    torch.manual_seed(0)
+    kw = dict(base_channels=16, time_emb_dim=32, dtype=torch.bfloat16, param_dtype=torch.float32)
+    if family == "unet3d":
+        model = UNet3D(in_channels=4, channel_mults=(1, 2, 4), num_heads=1, **kw)
+        diffusion = GaussianDiffusion(make_schedule(cosine_beta_schedule(20)), loss_type="min_snr")
+        step = make_cached_latent_train_step(model, diffusion)
+        batch = {"latent": torch.randn(2, 8, 8, 8, 4, device=cuda)}
+        args = (batch, 0.8)
+    else:
+        model = UNet2D(channel_mults=(1, 2, 4, 8), **kw)
+        diffusion = GaussianDiffusion(make_schedule(linear_beta_schedule(20)))
+        step = make_diffusion_train_step(model, diffusion)
+        args = ({"image": torch.rand(2, 32, 32, 1, device=cuda) * 2 - 1,
+                 "z_pos": torch.rand(2, device=cuda)},)
+    state = create_train_state(model, 1e-3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gn.launches.reset()
+    state, loss = step(state, args[0], gen, *args[1:])
+    torch.cuda.synchronize()
+    assert gn.launches.as_dict() == {"gn_silu_stats": 29, "gn_silu_apply": 29,
+                                     "gn_silu_bwd_reduce": 29, "gn_silu_bwd_apply": 29}
+    assert not plain_calls and bool(torch.isfinite(loss))
 
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "concat_slice"])
@@ -438,7 +546,8 @@ def test_unet2d_sampling_on_the_card_matches_the_cpu(cuda):
     kw = dict(num_samples=3, image_size=32, ddim_steps=4, x_t=x_t, guidance_scale=2.0)
     gn.launches.reset()
     got = sample_2d(model, diffusion, device="cuda", **kw)
-    assert gn.launches.as_dict() == {"gn_silu_stats": 4 * 29, "gn_silu_apply": 4 * 29}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 4 * 29, "gn_silu_apply": 4 * 29,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     want = sample_2d(model, diffusion, device="cpu", **kw)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
 

@@ -202,7 +202,8 @@ def test_launch_counts_only_count_kernel_launches():
     gn.group_norm_silu_fused(x, torch.ones(16), torch.zeros(16), 8).sum().backward()
     q = torch.ones(1, 4, 1, 32, requires_grad=True)
     fa.flash_attention(q, q, q).sum().backward()
-    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 0}
+    assert gn.launches.as_dict() == {"gn_silu_stats": 0, "gn_silu_apply": 0,
+                                     "gn_silu_bwd_reduce": 0, "gn_silu_bwd_apply": 0}
     assert fa.launches.as_dict() == {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0,
                                      "flash_attn_bwd_dq": 0}
     gn.launches.bump("gn_silu_apply")
