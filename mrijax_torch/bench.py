@@ -225,7 +225,7 @@ TINY = Sizes(
               (2, 1, 50, "ddim"), (2, 1, 20, "dpm"), (2, 1, 50, "dpm")),
     unet2d=dict(base_channels=8, channel_mults=(1, 2), time_emb_dim=16),
     image_size=16, batch_2d=4, pipeline_subjects=2, pipeline_shape=(32, 32, 20),
-    eval_fast=(8, 2), eval_protocol=4, inception_size=75, step_cap=2, run_cap=1,
+    eval_fast=(4, 2), eval_protocol=4, inception_size=75, step_cap=2, run_cap=1,
 )
 SCALES = {"full": FULL, "smoke": SMOKE, "tiny": TINY}
 

@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import config as jconfig
 from mrijax.train import experiments as jexperiments
 from mrijax_torch import aot, generate

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 from flax import linen as fnn
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched
 from mrijax.kernels.dispatch import disable_pallas
@@ -87,18 +88,9 @@ SECONDS = ("value", "setup_secs", "secs_per_volume", "secs_per_ddim_step", "deco
            "eval_seconds")
 
 
-@pytest.fixture
-def one_thread():
-    """torch on one thread (the suite runs several workers on the host's cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("argv, metric, n_lines", MODES,
                          ids=[" ".join(argv) or "headline" for argv, _, _ in MODES])
-def test_every_mode_prints_its_lines_on_the_cpu(argv, metric, n_lines, capsys, one_thread):
+def test_every_mode_prints_its_lines_on_the_cpu(argv, metric, n_lines, capsys):
     assert bench.main([*argv, "--tiny", "--device", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert len(lines) == n_lines

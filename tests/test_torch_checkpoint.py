@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.io import load_params_npz as jload_params_npz
 from mrijax.io import save_params_npz as jsave_params_npz
 from mrijax.models import UNet3D as JUNet3D

@@ -31,6 +31,7 @@ import torch
 
 import jax
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import cli as jcli
 from mrijax.io import torch_convert as jconvert
 from mrijax.train import experiments as jexperiments

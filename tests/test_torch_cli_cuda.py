@@ -11,6 +11,7 @@ import time
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch import aot, generate
 from mrijax_torch.config import preset_slice_cond_2d
 from mrijax_torch.kernels import groupnorm as gn

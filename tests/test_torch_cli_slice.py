@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.obs import analyze as janalyze
 from mrijax_torch import cli, generate
 from mrijax_torch.config import ExperimentConfig

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import config as jconfig
 from mrijax.train import experiments as jexp
 from mrijax_torch import config

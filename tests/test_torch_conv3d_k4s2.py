@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from benchmark_h100.count import ops as bench_ops
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.kernels import conv3d as cv
 from mrijax_torch.models import UNet3D
 from mrijax_torch.models.blocks import Conv3d, Downsample, Upsample, _Upsample

@@ -23,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import data as jdata
 from mrijax.data import loader as jloader
 from mrijax.data import nifti as jnifti

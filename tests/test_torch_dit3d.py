@@ -14,6 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch import cli, config, generate
 from mrijax_torch.data import packing, synthetic
 from mrijax_torch.diffusion import GaussianDiffusion, linear_beta_schedule, make_schedule

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from torch_replicas import (
     InceptionV3Trunk,
     LPIPSAlexReplica,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from torch_replicas import InceptionV3Trunk, LPIPSAlexReplica, ResNet18Trunk, randomize_
 
 from mrijax_torch.evals import features, ms_ssim, ssim

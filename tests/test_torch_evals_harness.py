@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from torch_replicas import LPIPSAlexReplica, ResNet18Trunk, randomize_
 
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.evals import frechet as jfrechet
 from mrijax.evals import memorization as jmem
 from mrijax.evals import prd as jprd

@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.data.synthetic import write_synthetic_brats
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
@@ -32,15 +33,10 @@ def _load(name):
 
 @pytest.fixture
 def own_tmp(tmp_path, monkeypatch):
-    """The examples' temporary trees and run directories under ``tmp_path``;
-    torch on one thread meanwhile (their tensors are tiny, and the suite runs
-    several workers on the host's cores)."""
+    """The examples' temporary trees and run directories under ``tmp_path``."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     monkeypatch.chdir(tmp_path)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield tmp_path
-    torch.set_num_threads(threads)
+    return tmp_path
 
 
 def test_explore_dataset_prints_what_the_jax_script_prints(own_tmp, capsys, monkeypatch):

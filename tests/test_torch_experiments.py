@@ -33,6 +33,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import config as jconfig
 from mrijax.io import CheckpointManager as JCheckpointManager
 from mrijax.obs import MetricsLogger as JMetricsLogger

@@ -6,6 +6,7 @@ run directory. The machinery is in ``tests/test_torch_experiments.py``."""
 
 import pytest
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.data import packing
 from test_torch_experiments import (  # noqa: F401  (brats_root is a fixture)
     brats_root,

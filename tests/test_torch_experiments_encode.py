@@ -5,6 +5,7 @@ steps per stage and run directory, and with ``learning_rate`` 0 the same
 latent scale (``SCALE_RTOL``). The machinery is in
 ``tests/test_torch_experiments.py``."""
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from test_torch_experiments import (  # noqa: F401  (brats_root is a fixture)
     TINY_3D,
     assert_3d_run,

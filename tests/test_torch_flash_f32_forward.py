@@ -31,6 +31,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.kernels.flash_attention_pallas import _flash_forward_lse
 from mrijax_torch.kernels import flash_attention as fa
 

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.kernels.flash_attention import _chunked_attention_xla
 from mrijax.ops.attention import multi_head_self_attention
 from mrijax_torch.kernels import flash_attention as fa

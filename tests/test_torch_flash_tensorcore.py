@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.kernels import flash_attention as fa
 
 LOG2E = math.log2(math.e)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.kernels import groupnorm as gn
 
 GROUPS = 8

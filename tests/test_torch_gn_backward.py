@@ -14,6 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.ops.norms import group_norm_silu as jax_group_norm_silu
 from mrijax_torch.kernels import groupnorm as gn
 from mrijax_torch.ops.norms import group_norm_silu

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch import graft_entry
 from mrijax_torch.io import flax_convert
 

@@ -15,6 +15,8 @@ from pathlib import Path
 
 import pytest
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
+
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 NAMES = ("torch_preprocess_job.sh", "torch_sampling_job.sh", "torch_training_job.sh",
          "torch_training_job_multihost.sh")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.obs import analyze as janalyze
 from mrijax.obs import energy as jenergy
 from mrijax.obs import timing as jtiming

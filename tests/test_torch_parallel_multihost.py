@@ -15,6 +15,7 @@ import torch
 
 import jax
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from _torch_mp_worker import launch
 from mrijax.data import loader as jloader
 from mrijax_torch import cli, parallel

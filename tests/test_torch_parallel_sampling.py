@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from _torch_mp_worker import launch
 from mrijax_torch.diffusion import GaussianDiffusion, linear_beta_schedule, make_schedule
 from mrijax_torch.evals.harness import call_generator

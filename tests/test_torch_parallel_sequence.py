@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from _torch_mp_worker import launch
 from mrijax.kernels.flash_attention import _chunked_attention_xla
 from mrijax.parallel import make_mesh as jmake_mesh

@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from _torch_mp_worker import launch
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.io.torch_convert import (
     convert_reference_unet2d,
     infer_timesteps,

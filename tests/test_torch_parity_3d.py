@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.io.torch_convert import (
     convert_reference_unet3d,
     convert_reference_vae3d,

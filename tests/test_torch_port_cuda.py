@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax_torch.diffusion import (
     GaussianDiffusion,
     cosine_beta_schedule,

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.kernels.flash_attention_pallas import flash_attention_pallas
 from mrijax_torch.kernels import flash_attention as fa
 from mrijax_torch.ops.attention import multi_head_self_attention

@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax import generate as jgen
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched

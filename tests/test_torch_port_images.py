@@ -11,6 +11,7 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched
 from mrijax.generate import Vae3dDiagnostics as JVae3dDiagnostics

@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.models import UNet3D as JUNet3D
 from mrijax.models import VAE3D as JVAE3D
 from mrijax.models import blocks as jblocks

@@ -7,6 +7,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched
 from mrijax.ops import attention as jattention

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.io import torch_convert as jconvert
 from mrijax_torch.io import (
     convert_reference_unet3d,

@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched
 from mrijax.models import UNet3D as JUNet3D
@@ -110,26 +111,33 @@ def test_p_losses_rejects_an_unknown_loss_and_to_keeps_the_fields():
 @pytest.fixture(scope="module")
 def coupled():
     """A small UNet3D with bottleneck attention in both frameworks from one
-    flax init, the JAX cached-latent step with EMA (jitted once), and 25
-    batches whose t and noise are drawn exactly as the JAX step draws them
-    from each step's key, so that the port can be handed the same."""
+    flax init (jitted: one compile, the same bits as the eager init), the JAX
+    cached-latent step with EMA (jitted once), and 25 batches whose t and
+    noise are drawn exactly as the JAX step draws them from each step's key,
+    so that the port can be handed the same. The 25 draws are one jitted
+    call; the first step's key and draws are held to the eager ones, bit for
+    bit."""
     jm = JUNet3D(**UNET_KW)
-    params0 = numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.zeros(LATENT),
-                                 jnp.zeros((2,), jnp.int32)))
+    params0 = numpy_tree(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros(LATENT),
+                                          jnp.zeros((2,), jnp.int32)))
     betas = cosine_beta_schedule(T)
     jdiff = JGaussianDiffusion(jsched.make_schedule(betas), loss_type="min_snr")
     jstep = jsteps.make_cached_latent_train_step(jm, jdiff, donate=False, ema_decay=EMA)
-    rng = np.random.default_rng(21)
-    batches = []
-    for i in range(25):
-        key = jax.random.PRNGKey(100 + i)
+
+    def draw(key):
         tkey, nkey = jax.random.split(key)
-        batches.append({
-            "key": key,
-            "latent": rng.normal(size=LATENT).astype(np.float32),
-            "t": np.array(jsteps.sample_timesteps(tkey, LATENT[0], T, 1)),
-            "noise": np.array(jax.random.normal(nkey, LATENT, jnp.float32)),
-        })
+        return (jsteps.sample_timesteps(tkey, LATENT[0], T, 1),
+                jax.random.normal(nkey, LATENT, jnp.float32))
+
+    keys = np.array(jax.jit(jax.vmap(jax.random.PRNGKey))(jnp.arange(100, 125)))
+    ts, noises = map(np.array, jax.jit(jax.vmap(draw))(keys))
+    key0 = jax.random.PRNGKey(100)
+    np.testing.assert_array_equal(keys[0], np.asarray(key0))
+    for got, want in zip((ts[0], noises[0]), draw(key0)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    rng = np.random.default_rng(21)
+    batches = [{"key": keys[i], "latent": rng.normal(size=LATENT).astype(np.float32),
+                "t": ts[i], "noise": noises[i]} for i in range(25)]
     return dict(jm=jm, params0=params0, jstep=jstep, batches=batches,
                 diffusion=GaussianDiffusion(make_schedule(betas), loss_type="min_snr"))
 
@@ -141,6 +149,20 @@ def run_jax(coupled, state, batches):
                                        b["key"], SCALE)
         losses.append(float(loss))
     return state, np.asarray(losses)
+
+
+@pytest.fixture(scope="module")
+def jax_run(coupled):
+    """The JAX side of the 25 coupled steps, run once for the module: the
+    states after steps 4, 8 and 25 and each step's loss."""
+    state = jstate.create_train_state(
+        jax.tree_util.tree_map(jnp.asarray, coupled["params0"]), LR, ema=True)
+    states, losses = {}, []
+    for first, last in ((0, 4), (4, 8), (8, 25)):
+        state, part = run_jax(coupled, state, coupled["batches"][first:last])
+        states[last] = state
+        losses.append(part)
+    return dict(states=states, losses=np.concatenate(losses))
 
 
 def run_port(unet, state, diffusion, batches, **step_kw):
@@ -161,17 +183,15 @@ def port_unet(coupled, **kw):
     return unet
 
 
-def test_cached_latent_trajectory_matches_jax(coupled):
+def test_cached_latent_trajectory_matches_jax(coupled, jax_run):
     """25 coupled float32 Adam steps through ``make_cached_latent_train_step``
     in both packages, with the EMA shadow. Tolerances of
     ``tests/test_trajectory_parity.py``: losses 1e-4 absolute, final
     parameters 1e-4 relative L2 (float32 reduction-order noise, amplified by
-    Adam's normalisation across steps; measured 6.0e-7 and 1.0e-6). With
+    Adam's normalisation across steps; measured 1.3e-6 and 1.0e-6). With
     ``remat_levels=(0,)`` the port's trajectory must equal its own without
     remat to 1e-6: recomputing a block repeats the same float32 operations."""
-    jstate0 = jstate.create_train_state(
-        jax.tree_util.tree_map(jnp.asarray, coupled["params0"]), LR, ema=True)
-    jfinal, losses_j = run_jax(coupled, jstate0, coupled["batches"])
+    jfinal, losses_j = jax_run["states"][25], jax_run["losses"]
 
     unet = port_unet(coupled)
     state = create_train_state(unet, LR, ema=True, device="cpu")
@@ -197,13 +217,12 @@ def test_cached_latent_trajectory_matches_jax(coupled):
                   {k: v.detach() for k, v in unet.named_parameters()}) < 1e-6
 
 
-def test_train_state_from_flax_continues_a_run(coupled):
+def test_train_state_from_flax_continues_a_run(coupled, jax_run):
     """Both packages go on from the same mid-run state: 4 JAX steps, the flax
     state's numpy pieces carried over by ``train_state_from_flax``, then 4
     more steps on each side. Same tolerances as the full trajectory."""
-    first, rest = coupled["batches"][:4], coupled["batches"][4:8]
-    jmid, _ = run_jax(coupled, jstate.create_train_state(
-        jax.tree_util.tree_map(jnp.asarray, coupled["params0"]), LR, ema=True), first)
+    rest = coupled["batches"][4:8]
+    jmid = jax_run["states"][4]
     adam = jmid.opt_state.inner_state[0]
     unet = UNet3D(**UNET_KW)
     state = train_state_from_flax(
@@ -216,7 +235,7 @@ def test_train_state_from_flax_continues_a_run(coupled):
     assert float(moments["step"]) == 4.0
     assert moments["exp_avg"].stride() == unet.in_conv.weight.stride()
 
-    jfinal, losses_j = run_jax(coupled, jmid, rest)
+    jfinal, losses_j = jax_run["states"][8], jax_run["losses"][4:8]
     state, losses_t = run_port(unet, state, coupled["diffusion"], rest, ema_decay=EMA)
     assert state.step == 8
     np.testing.assert_allclose(losses_t, losses_j, rtol=0, atol=1e-4)
@@ -369,7 +388,8 @@ def test_latent_scale_estimates_and_validation_grid_match_jax():
 def vae_pair():
     jm = JVAE3D(**VAE_KW)
     x = np.random.default_rng(23).normal(size=(4, 8, 8, 8, 2)).astype(np.float32)
-    params = numpy_tree(jm.init(jax.random.PRNGKey(1), jnp.asarray(x), jax.random.PRNGKey(2)))
+    params = numpy_tree(jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x),
+                                         jax.random.PRNGKey(2)))
 
     def port():
         vae = VAE3D(**VAE_KW)
@@ -383,7 +403,7 @@ def test_vae_step_matches_jax(vae_pair):
     """One stage-1 step on both sides. The JAX step draws its ε from its key
     inside ``reparameterize``; the test draws the same ε and injects it.
     Losses 1e-5 (measured 4.8e-7); parameters after the Adam step 1e-4 relative
-    L2 (measured 3.5e-6); the latent scale estimate 1e-5 relative."""
+    L2 (measured 3.9e-6); the latent scale estimate 1e-5 relative."""
     p = vae_pair
     key = jax.random.PRNGKey(7)
     jparams = jax.tree_util.tree_map(jnp.asarray, p["params"])

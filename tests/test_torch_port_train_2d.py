@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.diffusion import GaussianDiffusion as JGaussianDiffusion
 from mrijax.diffusion import schedules as jsched
 from mrijax.models import UNet2D as JUNet2D

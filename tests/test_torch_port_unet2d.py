@@ -11,6 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.models import UNet2D as JUNet2D
 from mrijax.models import blocks as jblocks
 from mrijax.ops import resize as jresize

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_threads import thread_budget  # noqa: F401  (autouse)
 from mrijax.io import CheckpointManager as JCheckpointManager
 from mrijax.obs import MetricsLogger as JMetricsLogger
 from mrijax.obs import reset_termination as jreset_termination
