@@ -198,16 +198,21 @@ sequence-parallel chunks ``FLASH_CHUNKS``, q of N/d rows against k, v of N
 rows) against their plain versions and, stacked and summed over the chunks,
 against the full kernels, and time them (``flash_chunk_times``).
 
-Phases 2 and 3 end with the 3D stride-2 convolution kernel (``conv3d_path``):
-each instance holds ``HGMMA``; at its main-path calls (``CONV_SHAPES``: the
-UNet3D's two ``Downsample``s at batch 8 and 32, its two ``Upsample`` input
-gradients at 32 with the output gradient a slice of a concatenation's, the
-VAE3D encoder's two ``Downsample``s) one launch, held against the plain
-version in float32 (``conv3d_bar``) and timed beside its operations bound,
-the plain version's one call and ``F.conv3d`` (``library_ms``); the
-``Upsample`` input gradient through the module; 2 launches a bf16 UNet3D
-forward and 2 more in its backward (``conv3d_k4s2_times``). Phases 5 and 7
-hold the flagship to the same counts (40 generating, 20 in 5 train steps).
+Phases 2 and 3 end with the 3D stride-2 convolution kernels (``conv3d_path``):
+each instance holds ``HGMMA``; at the forward's main-path calls
+(``CONV_SHAPES``: the UNet3D's two ``Downsample``s at batch 8 and 32, its two
+``Upsample`` input gradients at 32 with the output gradient a slice of a
+concatenation's, the VAE3D encoder's two ``Downsample``s) one launch, held
+against the plain version in float32 (``conv3d_bar``) and timed beside its
+operations bound, the plain version's one call and ``F.conv3d``
+(``library_ms``); likewise the weight-gradient kernel at its calls
+(``WGRAD_SHAPES``: the UNet3D's two ``Downsample``s and two ``Upsample``s at
+batch 32, the VAE3D encoder's two ``Downsample``s) beside the library's
+weight-only ``convolution_backward``, and twice bitwise; the ``Upsample``
+input gradient through the module; 2 launches a bf16 UNet3D forward and 2
+more in its backward, and 4 of the weight kernel in the backward
+(``conv3d_k4s2_times``). Phases 5 and 7 hold the flagship to the same counts
+(40 generating and no weight gradient; 20 and 20 in 5 train steps).
 
 Phase 3 also prints the host time to issue one GroupNorm+SiLU pair and one
 flash forward through the ``torch.library`` custom ops (the route of the
@@ -448,6 +453,18 @@ CONV_SHAPES = [
 ]
 CONV_PER_UNET_FORWARD = 2    # the UNet3D's Downsamples
 CONV_PER_UNET_BACKWARD = 2   # the input gradients of its Upsamples
+# the weight-gradient kernel's calls: (name, the large side's (B, D, H, W, Cg),
+# Cp, transposed); Downsample p = dy, g = x; Upsample p = x, g = dy, a slice
+# of the concatenation's gradient as in the UNet's backward
+WGRAD_SHAPES = [
+    ("unet_down0_dw_b32", (32, 32, 40, 40, 128), 256, False),
+    ("unet_down1_dw_b32", (32, 16, 20, 20, 256), 512, False),
+    ("unet_up0_dw_b32", (32, 32, 40, 40, 128), 256, True),
+    ("unet_up1_dw_b32", (32, 16, 20, 20, 256), 512, True),
+    ("vae_down0_dw_b1", (1, 128, 160, 160, 64), 64, False),
+    ("vae_down1_dw_b1", (1, 64, 80, 80, 128), 128, False),
+]
+WGRAD_PER_UNET_BACKWARD = 4  # the weight gradients of its Downsamples and Upsamples
 
 # The 2D and 2.5D families (presets slice_cond_2d and ddpm_25d): UNet2D base 64,
 # mults (1, 2, 4, 8), time dim 256, at 128². GroupNorm+SiLU call sites of one
@@ -1514,20 +1531,22 @@ def conv3d_operands(index, x_shape, c_out, bias, strided):
 
 
 def conv3d_path():
-    """The 3D stride-2 convolution kernel: its instances hold ``HGMMA``; at
-    each main-path call (``CONV_SHAPES``) one launch, held against the plain
-    version in float32 (``conv3d_bar``) and timed beside its operations
-    bound, the plain version's one call and ``F.conv3d`` (``library_ms``,
-    cuDNN, the yardstick only); the ``Upsample`` input gradient through the
+    """The 3D stride-2 convolution kernels: their instances hold ``HGMMA``;
+    at each main-path call (``CONV_SHAPES``, ``WGRAD_SHAPES``) one launch,
+    held against the plain version in float32 (``conv3d_bar``) and timed
+    beside its operations bound, the plain version's one call and the
+    library's call (``library_ms``, cuDNN, the yardstick only); the weight
+    kernel twice, bitwise; the ``Upsample`` input gradient through the
     module against the plain version; launches of a UNet3D: 2 a forward, 2
-    more in its backward."""
+    more and 4 of the weight kernel in its backward."""
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                            str(_build.build_all()["conv3d_k4s2"])],
                           check=True, capture_output=True, text=True, timeout=300).stdout
     functions = re.split(r"\n\s*Function : ", sass)[1:]
-    hgmma = [len(re.findall(r"\bHGMMA\.", f)) for f in functions if "conv3d_k4s2_kernel" in f]
-    if len(hgmma) != len(cv.TILE_N) or min(hgmma) == 0:
-        raise AssertionError(f"conv3d_k4s2 instances' HGMMA counts {hgmma}")
+    for kernel in ("conv3d_k4s2_kernel", "conv3d_k4s2_wgrad_kernel"):
+        hgmma = [len(re.findall(r"\bHGMMA\.", f)) for f in functions if kernel in f]
+        if len(hgmma) != len(cv.TILE_N) or min(hgmma) == 0:
+            raise AssertionError(f"{kernel} instances' HGMMA counts {hgmma}")
     rows = {}
     for i, (name, x_shape, c_out, bias) in enumerate(CONV_SHAPES):
         x, weight, b = conv3d_operands(i, x_shape, c_out, bias, strided=not bias)
@@ -1554,6 +1573,46 @@ def conv3d_path():
         }
         rows[name]["x_bound"] = rows[name]["kernel_ms"] / rows[name]["bound_ms"]
         del x, x_cf, weight, b
+        torch.cuda.empty_cache()
+
+    for i, (name, g_shape, c_p, transposed) in enumerate(WGRAD_SHAPES):
+        g, _, _ = conv3d_operands(70 + i, g_shape, c_p, False, strided=transposed)
+        b = g_shape[0]
+        small = cv.output_spatial(g_shape[1:4])
+        p = torch.randn(b, *small, c_p, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 80 + i))
+        p = p.bfloat16()
+        cv.launches.reset()
+        got = cv.conv3d_k4s2_wgrad(p, g)
+        if cv.launches["conv3d_k4s2_wgrad"] != 1:
+            raise AssertionError(f"{name}: {cv.launches['conv3d_k4s2_wgrad']} launches")
+        if not torch.equal(got, cv.conv3d_k4s2_wgrad(p, g)):
+            raise AssertionError(f"{name}: two calls differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cv.conv3d_k4s2_wgrad_reference(p.float(), g.float())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = check_conv3d(name, got, want)
+        del got, want
+        # the library call the kernel replaces: (dy, x) channels-first views
+        dy_cf, x_cf = ((g, p) if transposed else (p, g))
+        dy_cf, x_cf = dy_cf.permute(0, 4, 1, 2, 3), x_cf.permute(0, 4, 1, 2, 3)
+        w_lib = torch.empty(c_p, g_shape[-1], 4, 4, 4, dtype=torch.bfloat16, device="cuda")
+        w_lib = w_lib.contiguous(memory_format=torch.channels_last_3d)
+        flops = cv.operations(g_shape, c_p, bias=False)
+        plan = cv.wgrad_plan(b * math.prod(small), c_p, g_shape[-1])
+        rows[name] = {
+            "g_shape": list(g_shape), "c_p": c_p, "transposed": transposed,
+            "plan": dataclasses.asdict(plan), "max_rel_err": rel,
+            "kernel_ms": time_ms(lambda: cv.conv3d_k4s2_wgrad(p, g)), "plain_ms": plain_ms,
+            "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                dy_cf, x_cf, w_lib, None, [2] * 3, [1] * 3, [1] * 3, transposed, [0] * 3, 1,
+                [False, True, False])),
+            "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3, "operations": flops,
+        }
+        rows[name]["x_bound"] = rows[name]["kernel_ms"] / rows[name]["bound_ms"]
+        del g, p, dy_cf, x_cf, w_lib
         torch.cuda.empty_cache()
 
     # the Upsample's input gradient through the module, the output gradient a
@@ -1583,13 +1642,16 @@ def conv3d_path():
     cv.launches.reset()
     loss = unet(latent, t).square().mean()
     loss.backward()
-    both = cv.launches["conv3d_k4s2"]
+    both, wgrad = cv.launches["conv3d_k4s2"], cv.launches["conv3d_k4s2_wgrad"]
     if (forward, both) != (CONV_PER_UNET_FORWARD, CONV_PER_UNET_FORWARD + CONV_PER_UNET_BACKWARD):
         raise AssertionError(f"UNet3D conv3d_k4s2 launches: {forward} a forward, {both} a "
                              f"forward and backward")
+    if wgrad != WGRAD_PER_UNET_BACKWARD:
+        raise AssertionError(f"UNet3D conv3d_k4s2_wgrad launches: {wgrad} a backward")
     if not all(bool(torch.isfinite(p.grad).all()) for p in unet.parameters()):
         raise AssertionError("UNet3D gradients are not finite")
-    rows["unet3d_launches"] = {"forward": forward, "forward_and_backward": both}
+    rows["unet3d_launches"] = {"forward": forward, "forward_and_backward": both,
+                               "weight_gradients": wgrad}
     print("conv3d_k4s2_times " + json.dumps(rows))
     return rows
 
@@ -1879,9 +1941,10 @@ def main_path(unet, vae, diffusion):
             "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}   # no gradient when sampling
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    if cv.launches["conv3d_k4s2"] != DDIM_STEPS * CONV_PER_UNET_FORWARD:
-        raise AssertionError(f"conv3d_k4s2 launches {cv.launches['conv3d_k4s2']}, expected "
-                             f"{DDIM_STEPS * CONV_PER_UNET_FORWARD}")
+    if (cv.launches["conv3d_k4s2"], cv.launches["conv3d_k4s2_wgrad"]) != (
+            DDIM_STEPS * CONV_PER_UNET_FORWARD, 0):
+        raise AssertionError(f"conv3d_k4s2 launches {cv.launches.as_dict()}, expected "
+                             f"{DDIM_STEPS * CONV_PER_UNET_FORWARD} and no weight gradient")
     if tuple(vols.shape) != (NUM_VOLUMES, 128, 160, 160, 4) or vols.dtype != torch.float32:
         raise AssertionError(f"output {vols.dtype} {tuple(vols.shape)}")
     if not vols.is_cuda or not bool(torch.isfinite(vols).all()):
@@ -2030,10 +2093,11 @@ def train_path():
                 "flash_attn_bwd_dq": TRAIN_STEPS}
         if counts != want:
             raise AssertionError(f"train path {tag}: launch counts {counts}, expected {want}")
-        want_conv = TRAIN_STEPS * (CONV_PER_UNET_FORWARD + CONV_PER_UNET_BACKWARD)
-        if cv.launches["conv3d_k4s2"] != want_conv:
+        want_conv = {"conv3d_k4s2": TRAIN_STEPS * (CONV_PER_UNET_FORWARD + CONV_PER_UNET_BACKWARD),
+                     "conv3d_k4s2_wgrad": TRAIN_STEPS * WGRAD_PER_UNET_BACKWARD}
+        if cv.launches.as_dict() != want_conv:
             raise AssertionError(f"train path {tag}: conv3d_k4s2 launches "
-                                 f"{cv.launches['conv3d_k4s2']}, expected {want_conv}")
+                                 f"{cv.launches.as_dict()}, expected {want_conv}")
         losses = torch.stack(losses).cpu()
         if losses.dtype != torch.float32 or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"train path {tag}: losses {losses.tolist()}")

@@ -1,7 +1,7 @@
 // Hopper warpgroup products (wgmma.mma_async, sm_90a) for the bf16 flash
 // kernels above Dh 128 (the forward and both backward kernels) and the 3D
-// stride-2 convolution (conv3d_k4s2.cu), and the shared-memory layout they
-// read.
+// stride-2 convolution and its weight gradient (conv3d_k4s2.cu), and the
+// shared-memory layout they read.
 //
 // Operand tiles are bf16 in the 128-byte swizzle: a tile of R rows is cut
 // into blocks of 64 columns, each [R rows][128 bytes] with 16-byte chunk c of
@@ -10,10 +10,11 @@
 // * K-major (the summed index runs along the row): A or B of a product whose
 //   depth is the tile's columns. 8-row groups lie 1024 bytes apart (SBO); a
 //   k16 step moves the start address by 32 bytes inside the 128-byte row.
-// * MN-major (the summed index runs down the rows): B of a product whose
-//   depth is the tile's rows, read with the transpose flag. 8-row groups of
-//   the depth lie 1024 bytes apart (SBO), blocks of 64 output columns
-//   BLOCK_BYTES apart (LBO); a k16 step moves the start by 16 rows.
+// * MN-major (the summed index runs down the rows): B (or A) of a product
+//   whose depth is the tile's rows, read with the transpose flag. 8-row
+//   groups of the depth lie 1024 bytes apart (SBO), blocks of 64 output
+//   columns (rows of A) BLOCK_BYTES apart (LBO); a k16 step moves the start
+//   by 16 rows.
 //
 // Accumulator layout of m64nNk16 (f32), for thread i of the warpgroup, warp
 // w = i / 32, g = i % 32 / 4, t = i % 4: d[j][0..1] = rows 16 w + g,
@@ -173,8 +174,9 @@ __device__ __forceinline__ void m64n32k16(float (&d)[4][4], uint64_t a, uint64_t
         : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// A (64 x 16) K-major at descriptor a, B (16 x 64) K-major at b:
-// d = A B + (scale_d ? d : 0)
+// A (64 x 16) at descriptor a, B (16 x 64) at b, each K-major or, with TA /
+// TB set, MN-major (the transpose flags): d = A B + (scale_d ? d : 0)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void m64n64k16(float (&d)[8][4], uint64_t a, uint64_t b,
                                           int scale_d) {
     asm volatile(
@@ -186,7 +188,7 @@ __device__ __forceinline__ void m64n64k16(float (&d)[8][4], uint64_t a, uint64_t
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
+        "%32, %33, p, 1, 1, %35, %36;\n"
         "}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -196,7 +198,7 @@ __device__ __forceinline__ void m64n64k16(float (&d)[8][4], uint64_t a, uint64_t
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d += A B: A (64 x 16) from registers, each warp's 16 rows in the
@@ -297,8 +299,9 @@ __device__ __forceinline__ void m64n128k16_mn(float (&d)[16][4], uint64_t a, uin
         : "l"(a), "l"(b), "r"(1));
 }
 
-// A (64 x 16) K-major at descriptor a, B (16 x 128) K-major at b:
-// d = A B + (scale_d ? d : 0)
+// A (64 x 16) at descriptor a, B (16 x 128) at b, each K-major or, with TA /
+// TB set, MN-major (the transpose flags): d = A B + (scale_d ? d : 0)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void m64n128k16(float (&d)[16][4], uint64_t a, uint64_t b,
                                            int scale_d) {
     asm volatile(
@@ -314,7 +317,7 @@ __device__ __forceinline__ void m64n128k16(float (&d)[16][4], uint64_t a, uint64
         " %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55,"
         " %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n"
+        "%64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -332,11 +335,12 @@ __device__ __forceinline__ void m64n128k16(float (&d)[16][4], uint64_t a, uint64
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// A (64 x 16) K-major at descriptor a, B (16 x 256) K-major at b:
-// d = A B + (scale_d ? d : 0)
+// A (64 x 16) at descriptor a, B (16 x 256) at b, each K-major or, with TA /
+// TB set, MN-major (the transpose flags): d = A B + (scale_d ? d : 0)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void m64n256k16(float (&d)[32][4], uint64_t a, uint64_t b,
                                            int scale_d) {
     asm volatile(
@@ -360,7 +364,7 @@ __device__ __forceinline__ void m64n256k16(float (&d)[32][4], uint64_t a, uint64
         " %104, %105, %106, %107, %108, %109, %110, %111,"
         " %112, %113, %114, %115, %116, %117, %118, %119,"
         " %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 0;\n"
+        "%128, %129, p, 1, 1, %131, %132;\n"
         "}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -394,7 +398,7 @@ __device__ __forceinline__ void m64n256k16(float (&d)[32][4], uint64_t a, uint64
           "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
           "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
           "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 }  // namespace wgmma

@@ -1,26 +1,33 @@
 """3D convolution with kernel 4, stride 2 and padding 1 on channels-last
-bfloat16 activations, on the tensor cores.
+bfloat16 activations, and its weight gradient, on the tensor cores.
 
-Replaces no TPU kernel: the JAX package leaves this convolution to XLA. The
-port left it to cuDNN, which has no tensor-core engine for it in 3D, and its
-CUDA-core engine took half of a 3D DDIM step (PERF.md). One hand-written CUDA
-kernel (``mrijax_torch/csrc/conv3d_k4s2.cu``, an implicit GEMM on ``wgmma``)
-computes it at two places of the 3D models (``models/blocks.py``):
+Replaces no TPU kernel: the JAX package leaves this convolution and its
+gradients to XLA. The port left them to cuDNN, which has no tensor-core
+engine for them in 3D: its CUDA-core engines took half of a 3D DDIM step
+(the forward) and 37 % of a 3D training step (the weight gradient; PERF.md).
+Two hand-written CUDA kernels (``mrijax_torch/csrc/conv3d_k4s2.cu``,
+implicit GEMMs on ``wgmma``) compute them at the 3D models' stride-2
+convolutions (``models/blocks.py``):
 
-* the forward of ``Downsample`` (``_Downsample3D``, whose backward is the
-  library's ``convolution_backward``, as autograd's is);
-* the input gradient of ``Upsample`` (``_Upsample3D``, whose forward stays
-  the library's transposed convolution): the input gradient of a transposed
+* ``conv3d_k4s2``: the forward of ``Downsample`` (``_Downsample3D``) and the
+  input gradient of ``Upsample`` (``_Upsample3D``, whose forward stays the
+  library's transposed convolution): the input gradient of a transposed
   convolution with kernel 4, stride 2 and padding 1 is this convolution of
   the output gradient with the same weight, read as (in, out) channels, no
-  flip. Its weight and bias gradients stay the library's.
+  flip;
+* ``conv3d_k4s2_wgrad``: the weight gradient of both, the sum over the
+  small side's voxels of one plain operand by the other gathered at the
+  forward's taps (``Downsample``: dy by x; ``Upsample``: x by dy). The
+  ``Downsample``'s input gradient and both bias gradients stay the
+  library's (``_library_gradients``).
 
-``conv3d_k4s2`` launches the kernel for a CUDA tensor or raises; a CPU
-tensor gets the plain version ``conv3d_k4s2_reference`` (explicit im2col in
-the kernel's K order, then one matmul with fp32 accumulation), which the
-tests and ``chip_smoke.py`` hold the kernel against. The op is also the
-``torch.library`` custom op ``torch.ops.mrijax_torch.conv3d_k4s2`` (a fake
-implementation gives ``torch.export`` its shape), taken only while
+Each launches its kernel for a CUDA tensor or raises; a CPU tensor gets the
+plain version (``conv3d_k4s2_reference``, ``conv3d_k4s2_wgrad_reference``:
+explicit im2col in the kernel's K order, then one matmul with fp32
+accumulation), which the tests and ``chip_smoke.py`` hold the kernels
+against. The forward is also the ``torch.library`` custom op
+``torch.ops.mrijax_torch.conv3d_k4s2`` (a fake implementation gives
+``torch.export`` its shape), taken only while
 ``torch.compiler.is_exporting()``: a ``ctypes`` call cannot be traced, and a
 Python custom op adds host time to every eager call.
 """
@@ -37,14 +44,18 @@ from torch.autograd.function import once_differentiable
 
 from mrijax_torch.kernels import _build
 
-launches = _build.LaunchCounts("conv3d_k4s2")
+launches = _build.LaunchCounts("conv3d_k4s2", "conv3d_k4s2_wgrad")
 
 KERNEL, STRIDE, PADDING = 4, 2, 1
 TAPS = KERNEL ** 3
-TILE_M = 128               # output voxels a tile (csrc BM)
+TILE_M = 128               # output voxels a tile (csrc BM); weight gradient: (tap, channel) rows
 TILE_N = (64, 128, 256)    # output channels a tile the kernel is compiled for
 SM_COUNT = 132             # streaming multiprocessors of an H100
 _MAX_ROWS = 2 ** 31 - 1 - TILE_M   # M in int32, with a tile to spare
+WGRAD_STEP = 64            # voxels a stage of the weight gradient's sum (csrc BK)
+MIN_PART_STEPS = 16        # stages a part of a split sum holds at least
+MAX_PART_STEPS = 1600      # stages a part holds at most: 102 400 voxels (see wgrad_plan)
+MAX_SPLIT = 16             # parts a tile's sum is cut into at most to fill the SMs
 
 
 def output_spatial(spatial: Sequence[int]) -> Tuple[int, ...]:
@@ -92,6 +103,48 @@ def launch_plan(m: int, n: int, sms: int = SM_COUNT) -> LaunchPlan:
     tiles = -(-m // TILE_M) * -(-n // tile_n)
     waves = -(-tiles // sms)
     return LaunchPlan(tile_n, tiles, waves, -(-tiles // waves))
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """The weight gradient's tiles of ``TILE_M`` (tap, channel) rows by
+    ``tile_n`` columns, each tile's sum over ``steps`` stages of
+    ``WGRAD_STEP`` voxels cut into ``split`` parts (``part``), and the
+    ``grid`` blocks that walk the ``units`` = tiles × split, ``waves`` each
+    at most (unit u: tile u // split, part u % split)."""
+
+    tile_n: int
+    tiles: int
+    steps: int
+    split: int
+    units: int
+    waves: int
+    grid: int
+
+    def part(self, i: int) -> range:
+        """The stages part ``i`` of a tile's sum takes (the kernel's rule)."""
+        return range(i * self.steps // self.split, (i + 1) * self.steps // self.split)
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(m: int, c_p: int, c_g: int, sms: int = SM_COUNT) -> WgradPlan:
+    """Plan of the weight gradient over ``m`` small-side voxels, ``c_p``
+    columns (the plain operand's channels) and 64·``c_g`` rows: ``tile_n``
+    as ``launch_plan``'s; each tile's sum is cut into ``split`` parts, as
+    many as fill the SMs the tiles leave idle in one wave (⌊sms / tiles⌋,
+    at most ``MAX_SPLIT``), or more where a part would hold more than
+    ``MAX_PART_STEPS`` stages, and never fewer than ``MIN_PART_STEPS``
+    stages a part. The tensor cores' fp32 sum is not rounded to nearest and
+    drifts over a long sum: on an H100 one part of 409 600 voxels missed
+    ``chip_smoke.py``'s bar, parts of 102 400 met it (PERF.md, section 6)."""
+    tile_n = next((t for t in TILE_N if c_p <= t), TILE_N[-1])
+    tiles = TAPS * c_g // TILE_M * -(-c_p // tile_n)
+    steps = -(-m // WGRAD_STEP)
+    fill = min(sms // tiles, MAX_SPLIT)
+    split = max(1, min(max(fill, -(-steps // MAX_PART_STEPS)), steps // MIN_PART_STEPS))
+    units = tiles * split
+    waves = -(-units // sms)
+    return WgradPlan(tile_n, tiles, steps, split, units, waves, -(-units // waves))
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -153,6 +206,18 @@ def conv3d_k4s2_reference(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype).reshape(b, do, ho, wo, weight.shape[0])
 
 
+def conv3d_k4s2_wgrad_reference(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the weight-gradient kernel: ``im2col(g)ᵀ @ p`` with
+    ``p`` (B, Do, Ho, Wo, Cp) read as (M, Cp) and ``g`` (B, D, H, W, Cg)
+    gathered at the taps, summed in float32 (float64 stays float64), one
+    rounding to ``g``'s dtype. Returns (Cp, 4, 4, 4, Cg), the columns in the
+    kernel's K order."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    c_p = p.shape[-1]
+    out = p.reshape(-1, c_p).to(acc).t() @ im2col(g).to(acc)
+    return out.to(g.dtype).reshape(c_p, KERNEL, KERNEL, KERNEL, g.shape[-1])
+
+
 # -------------------------------------------------------------------- wrapper
 
 
@@ -195,12 +260,65 @@ def kernel_reads(x: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+def row_pitch(t: torch.Tensor) -> int:
+    """The row pitch in elements of a channels-last (B, D, H, W, C) tensor
+    read as a (B·D·H·W, C) matrix, as the weight-gradient kernel's tensor
+    map reads its plain operand (evenly spaced voxels, channel stride 1, a
+    pitch of 16-byte multiples from a 16-byte aligned start), or 0 where it
+    cannot (a caller then makes it contiguous first)."""
+    if t.is_contiguous():
+        pitch = t.shape[-1]
+    else:
+        pitch = expected = t.stride(3)
+        for axis in (3, 2, 1, 0):
+            if t.shape[axis] > 1 and t.stride(axis) != expected:
+                return 0
+            expected *= t.shape[axis]
+        if t.stride(-1) != 1 or pitch < t.shape[-1]:
+            return 0
+    return pitch if pitch % 8 == 0 and t.data_ptr() % 16 == 0 else 0
+
+
+def _check_wgrad(p: torch.Tensor, g: torch.Tensor) -> None:
+    """Raise unless the weight-gradient kernel takes these operands: bf16 on
+    one device, g (B, D, H, W, Cg) with D, H, W ≥ 2 read as ``kernel_reads``
+    says, p (B, Do, Ho, Wo, Cp) at the convolution's small side read as
+    ``row_pitch`` says, Cg and Cp multiples of 8."""
+    if p.dim() != 5 or g.dim() != 5:
+        raise ValueError(f"expected channels-last (B, D, H, W, C) operands, got "
+                         f"{tuple(p.shape)} and {tuple(g.shape)}")
+    if min(g.shape[1:4]) < 2 or g.shape[0] < 1:
+        raise ValueError(f"g {tuple(g.shape)}: every spatial size must be at least 2")
+    small = (g.shape[0], *output_spatial(g.shape[1:4]))
+    if tuple(p.shape[:4]) != small:
+        raise ValueError(f"p {tuple(p.shape)} is not at the small side {small} of g")
+    if p.shape[-1] % 8 or g.shape[-1] % 8:
+        raise ValueError(f"channels {p.shape[-1]}, {g.shape[-1]}: the kernel takes multiples of 8")
+    for name, t in (("p", p), ("g", g)):
+        if t.dtype != torch.bfloat16 or t.device != g.device:
+            raise ValueError(f"{name} must be bfloat16 on {g.device}, got {t.dtype} on {t.device}")
+    if not kernel_reads(g):
+        raise ValueError(
+            f"the kernel reads 16-byte runs of channels: g needs channel stride 1, the "
+            f"other strides multiples of 8 and a 16-byte aligned start, got strides "
+            f"{g.stride()} at {g.data_ptr() % 16} bytes past 16")
+    if not row_pitch(p):
+        raise ValueError(f"p's voxels must be evenly spaced rows of a 16-byte multiple from a "
+                         f"16-byte aligned start, got strides {p.stride()}")
+    if math.prod(small) > _MAX_ROWS:
+        raise ValueError(f"{math.prod(small)} voxels exceed the kernel's int32 rows")
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv3d_k4s2")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if lib.conv3d_k4s2.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.conv3d_k4s2.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, i, i, i, p]
         lib.conv3d_k4s2.restype = i
+    if lib.conv3d_k4s2_wgrad.argtypes is None:
+        lib.conv3d_k4s2_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, i, i,
+                                          i, i, p]
+        lib.conv3d_k4s2_wgrad.restype = i
     return lib
 
 
@@ -238,6 +356,44 @@ def conv3d_k4s2(x: torch.Tensor, weight: torch.Tensor,
     _check(x, weight, bias)
     with torch.cuda.device(x.device):
         return _launch(x, weight, bias)
+
+
+def _launch_wgrad(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-gradient kernel on checked CUDA operands."""
+    b, d, h, w, c_g = g.shape
+    c_p = p.shape[-1]
+    plan = wgrad_plan(b * math.prod(output_spatial((d, h, w))), c_p, c_g)
+    out = torch.empty((c_p, KERNEL, KERNEL, KERNEL, c_g), dtype=g.dtype, device=g.device)
+    ws = tickets = None
+    if plan.split > 1:
+        ws = torch.empty(plan.units * TILE_M * plan.tile_n, dtype=torch.float32, device=g.device)
+        tickets = torch.zeros(plan.tiles, dtype=torch.int32, device=g.device)
+    sb, sd, sh, sw, _ = g.stride()
+    err = _library().conv3d_k4s2_wgrad(
+        g.data_ptr(), p.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, d, h, w, c_g, sb, sd, sh, sw,
+        row_pitch(p), c_p, plan.tile_n, plan.split, plan.grid,
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _build.check_launch(err, "conv3d_k4s2_wgrad")
+    launches.bump("conv3d_k4s2_wgrad")
+    return out
+
+
+def conv3d_k4s2_wgrad(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of the convolution with kernel 4, stride 2,
+    padding 1, (Cp, 4, 4, 4, Cg): ``out[n, k, c] = Σ_o p[o, n] · g[2o − 1 + k,
+    c]`` over the voxels o of the small side (B, Do, Ho, Wo) of ``g`` (B, D,
+    H, W, Cg), taps in the padding reading 0. ``Downsample``: p = dy, g = x,
+    the (Cout, Cin, 4, 4, 4) gradient's channels_last_3d layout; the
+    transposed ``Upsample``: p = x, g = dy, its (Cin, Cout, 4, 4, 4). A CUDA
+    tensor launches the kernel (bf16 only; anything else raises), a CPU
+    tensor gets the plain version."""
+    if not g.is_cuda:
+        return conv3d_k4s2_wgrad_reference(p, g)
+    _check_wgrad(p, g)
+    with torch.cuda.device(g.device):
+        return _launch_wgrad(p, g)
 
 
 # ------------------------------------------------------------- custom op
@@ -284,9 +440,19 @@ def _library_gradients(dy, x, weight, has_bias: bool, transposed: bool, mask):
         [PADDING] * 3, [1] * 3, transposed, [0] * 3, 1, mask)
 
 
+def _weight_gradient(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``conv3d_k4s2_wgrad`` as the weight's (Cp, Cg, 4, 4, 4) view, its
+    CUDA operands made readable by the kernel where they are not."""
+    if p.is_cuda:
+        p = p if row_pitch(p) else p.contiguous()
+        g = g if kernel_reads(g) else g.contiguous()
+    return conv3d_k4s2_wgrad(p, g).permute(0, 4, 1, 2, 3)
+
+
 class _Downsample3D(torch.autograd.Function):
-    """Forward: the kernel. Backward: ``convolution_backward`` for all three
-    gradients, as autograd computes them for ``F.conv3d``."""
+    """Forward: the kernel. Backward: the weight gradient by the weight
+    kernel (dy by x gathered), the input and bias gradients by
+    ``convolution_backward``, as autograd computes them for ``F.conv3d``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -299,8 +465,13 @@ class _Downsample3D(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad
-        gx, gw, gb = _library_gradients(dy, x, weight, ctx.has_bias, False,
-                                        [need_x, need_w, need_b and ctx.has_bias])
+        need_b = need_b and ctx.has_bias
+        gx = gw = gb = None
+        if need_w:
+            gw = _weight_gradient(dy, x)
+        if need_x or need_b:
+            gx, _, gb = _library_gradients(dy, x, weight, ctx.has_bias, False,
+                                           [need_x, False, need_b])
         return _channels_last(gx) if need_x else None, gw, gb
 
 
@@ -316,7 +487,8 @@ def conv_transpose3d_k4s2(x: torch.Tensor, weight: torch.Tensor,
 class _Upsample3D(torch.autograd.Function):
     """Forward: the library's transposed convolution. Backward: the input
     gradient by the kernel (the convolution of dy by the same weight), the
-    weight and bias gradients by ``convolution_backward``."""
+    weight gradient by the weight kernel (x by dy gathered), the bias
+    gradient by ``convolution_backward``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -333,9 +505,10 @@ class _Upsample3D(torch.autograd.Function):
         if need_x:
             gx = conv3d_k4s2(dy if kernel_reads(dy) or not dy.is_cuda else dy.contiguous(),
                              weight)
-        if need_w or (need_b and ctx.has_bias):
-            _, gw, gb = _library_gradients(dy, x, weight, ctx.has_bias, True,
-                                           [False, need_w, need_b and ctx.has_bias])
+        if need_w:
+            gw = _weight_gradient(x, dy)
+        if need_b and ctx.has_bias:
+            _, _, gb = _library_gradients(dy, x, weight, True, True, [False, False, True])
         return gx, gw, gb
 
 
@@ -347,7 +520,7 @@ def downsample(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``Downsample``'s convolution on a channels-last input, differentiable:
     the kernel forward (or its plain version on the CPU, or the custom op
-    while exporting)."""
+    while exporting), and the weight gradient by the weight kernel."""
     if _records_grad(x, weight, bias) and not torch.compiler.is_exporting():
         return _Downsample3D.apply(x, weight, bias)
     return conv3d_k4s2(x, weight, bias)
@@ -357,7 +530,7 @@ def upsample(x: torch.Tensor, weight: torch.Tensor,
              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``Upsample``'s transposed convolution on a channels-last input: the
     library's forward; where a gradient is recorded, the input gradient by
-    the kernel."""
+    the kernel and the weight gradient by the weight kernel."""
     if _records_grad(x, weight, bias) and not torch.compiler.is_exporting():
         return _Upsample3D.apply(x, weight, bias)
     return conv_transpose3d_k4s2(x, weight, bias)

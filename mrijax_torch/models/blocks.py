@@ -23,9 +23,11 @@ Parity notes (math, not code):
   transposed conv, padding 1 (output = 2× input spatially; flax's
   ``padding="SAME"``).
 
-The 3D ``Downsample`` forward and ``Upsample`` input gradient run the port's
-own tensor-core kernel on bfloat16 (``kernels/conv3d.py``), chosen by the
-input's dtype; every other convolution, and the 2D modules, are cuDNN's.
+The 3D ``Downsample`` forward, the ``Upsample`` input gradient and both
+modules' weight gradients run the port's own tensor-core kernels on bfloat16
+(``kernels/conv3d.py``), chosen by the input's dtype; every other
+convolution, the ``Downsample`` input gradient, the bias gradients, and the
+2D modules, are cuDNN's.
 
 Precision follows the flax modules: convolutions and linears compute in
 ``dtype`` (bf16 on the card) and hold their parameters in ``param_dtype``,
@@ -127,8 +129,9 @@ class _Downsample:
 
 class Downsample(_Downsample, Conv3d):
     """A bfloat16 input goes through the hand-written tensor-core kernel
-    (``kernels/conv3d.py``; the gradients stay the library's), any other
-    dtype through cuDNN as ``Conv3d``."""
+    (``kernels/conv3d.py``), its weight gradient through the weight kernel
+    (the input and bias gradients stay the library's), any other dtype
+    through cuDNN as ``Conv3d``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.bfloat16:
@@ -163,8 +166,8 @@ class _Upsample:
 
 class Upsample(_Upsample, nn.ConvTranspose3d):
     """The forward is cuDNN's. For a bfloat16 input whose gradient is
-    recorded, the input gradient goes through the hand-written tensor-core
-    kernel (``kernels/conv3d.py``; the weight and bias gradients stay the
+    recorded, the input and weight gradients go through the hand-written
+    tensor-core kernels (``kernels/conv3d.py``; the bias gradient stays the
     library's)."""
 
     _transpose = staticmethod(F.conv_transpose3d)

@@ -36,7 +36,10 @@ UNet3D at the training batch of 32 (bf16, channels-last), as autograd asks
 the library for it (``aten.convolution_backward`` with only the weight's
 gradient): the four stride-2 convolutions with kernel 4 (two ``Downsample``,
 two ``Upsample``) and one 3x3x3 convolution of each level, and names the
-kernels each call runs with their device time (``torch.profiler``).
+kernels each call runs with their device time (``torch.profiler``). At the
+four stride-2 convolutions it also times the port's weight-gradient kernel
+(``conv3d_k4s2_wgrad``, which replaces that library call; ``port_ms``),
+held to the plain version first, beside its operations bound.
 """
 
 import argparse
@@ -64,7 +67,7 @@ SOURCE = (Path(__file__).resolve().parent.parent / "mrijax_torch/csrc/conv3d_k4s
 ANNOUNCE = "            cp_async_arrive(full);  // once this thread's pieces have landed\n"
 BULK = SOURCE[SOURCE.index("            if (tid == 0) {\n                mbar_expect_tx"):
               SOURCE.index("            const int k = kt * BK + 8 * c;")]
-A_LOOP = "for (int j = 0; j < A_ROWS; ++j) {\n                const bool ok"
+A_LOOP = "for (int j = 0; j < A_ROWS; ++j)\n                gather_piece("
 NO_A = (A_LOOP, A_LOOP.replace("j < A_ROWS", "j < 0"))
 NO_B = (BULK, "            if (tid == 0) mbar_arrive(full);\n")
 # (edits, whether the variant still computes the convolution)
@@ -203,9 +206,22 @@ def weight_gradients():
             torch.cuda.synchronize()
         kernels = {e.key[:90]: round(e.self_device_time_total / 1e3, 4)
                    for e in prof.key_averages() if e.self_device_time_total > 0}
-        print(json.dumps({"conv": name, "input": list(x_shape), "weight": list(w_shape),
-                          "transposed": transposed, "wgrad_ms": ms, "kernels_ms": kernels}),
-              flush=True)
+        row = {"conv": name, "input": list(x_shape), "weight": list(w_shape),
+               "transposed": transposed, "wgrad_ms": ms, "kernels_ms": kernels}
+        if k == 4:
+            # the port's kernel on the channels-last tensors: Downsample p = dy,
+            # g = x; Upsample p = x, g = dy (the large side)
+            x_cl, dy_cl = x.permute(0, 2, 3, 4, 1), dy.permute(0, 2, 3, 4, 1)
+            p, g = (x_cl, dy_cl) if transposed else (dy_cl, x_cl)
+            want = cv.conv3d_k4s2_wgrad_reference(p.float(), g.float())
+            check(f"{name} wgrad", cv.conv3d_k4s2_wgrad(p, g), want,
+                  2 ** -8 * want.abs() + 1e-4 * want.abs().max())
+            del want
+            row["port_ms"] = time_ms(lambda: cv.conv3d_k4s2_wgrad(p, g))
+            row["bound_ms"] = cv.operations(g.shape, p.shape[-1], bias=False) / PEAK_FLOPS * 1e3
+            m = p.numel() // p.shape[-1]
+            row["plan"] = list(vars(cv.wgrad_plan(m, p.shape[-1], g.shape[-1])).values())
+        print(json.dumps(row), flush=True)
         del x, w, y, dy
         torch.cuda.empty_cache()
 
